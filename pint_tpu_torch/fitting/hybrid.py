@@ -1,0 +1,239 @@
+"""Damped GLS fit in two stages: DD phase + design, then the Gram solve.
+
+Counterpart of ``pint_tpu.fitting.hybrid.HybridGLSFitter``. The two
+stages of the reference are kept:
+
+* **stage 1** — everything DD-graded: the composed phase function, the
+  residual wrap, the weighted-mean subtraction and the jacfwd design
+  matrix (one primal pass serves both via ``has_aux``), then whitening
+  and unit column normalization;
+* **stage 2** — the O(n q^2) extended-normal-equation GLS reduction
+  (:func:`~pint_tpu_torch.fitting.gls_step.gls_gram_whitened`, whose two
+  Grams are the hand-written double-single kernel) and its Cholesky
+  solve.
+
+The reference runs stage 1 on the CPU because the TPU fails
+``dd.self_check``. The H100 passes it (its float64 is IEEE and eager
+PyTorch does not contract), so here both stages run on one ``device``:
+the CUDA card by default. Nothing falls back to another device or to
+another Gram route.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pint_tpu_torch import resolve_device
+from pint_tpu_torch.constants import SECS_PER_DAY
+from pint_tpu_torch.fitting.damped import downhill_iterate
+from pint_tpu_torch.fitting.fitter import Fitter
+from pint_tpu_torch.fitting.gls_step import (PLSpec, build_noise_statics,
+                                             cho_factor, fourier_design,
+                                             gls_finalize_seg,
+                                             gls_gram_whitened,
+                                             noise_marginal_chi2, powerlaw_phi,
+                                             segment_sum)
+from pint_tpu_torch.fitting.step import make_resid_fn
+
+
+def make_whiten_stage1(model, tzr=None):
+    """Stage-1 builder: DD phase -> whitened, column-normalized design.
+
+    ``stage1(base, deltas, toas) -> (A_M, rw, sw, norm_M)`` with
+    ``A_M = M sqrt(w) / ||M sqrt(w)||`` (unit columns), ``rw = r sqrt(w)``
+    and ``sw = sqrt(w)``.
+    """
+    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None)
+    names = model.free_params
+    has_phoff = model.has_component("PhaseOffset")
+
+    def stage1(base, deltas, toas):
+        f0 = base["F0"].hi + base["F0"].lo
+
+        def total_phase(d):
+            ph = phase_fn(base, d, toas)
+            # aux carries the wrapped fractional phase from the SAME
+            # primal evaluation: one DD pass serves residual and jacobian
+            return (ph.int_part + (ph.frac.hi + ph.frac.lo),
+                    ph.frac.hi + ph.frac.lo)
+
+        err = model.scaled_toa_uncertainty(toas)
+        w = 1.0 / (err * err)
+        sw = torch.sqrt(w)
+        J, resid = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
+        if not has_phoff:
+            resid = resid - torch.sum(resid * w) / torch.sum(w)
+        r = resid / f0
+        cols = ([] if has_phoff else [torch.ones_like(r) / f0]) \
+            + [-J[k] / f0 for k in names]
+        Mw = torch.stack(cols, dim=1) * sw[:, None]
+        norm_M = torch.sqrt(torch.sum(Mw * Mw, dim=0))
+        norm_M = torch.where(norm_M == 0.0, torch.ones_like(norm_M), norm_M)
+        return Mw / norm_M, r * sw, sw, norm_M
+
+    return stage1
+
+
+def make_resid_stage1(model, tzr=None, device=None):
+    """Residual-only stage 1 for the damped loop's probe: ``r sqrt(w)``.
+
+    The DD phase pipeline without the jacfwd tangents: a halved trial
+    point needs only the noise-marginal chi2 at its input.
+    """
+    resid = make_resid_fn(model, tzr, device=device)
+
+    def stage1r(base, deltas, toas):
+        r, _err, w = resid(base, deltas, toas)
+        return r * torch.sqrt(w)
+
+    return stage1r
+
+
+def _pl_basis(t_s: torch.Tensor, specs: tuple[PLSpec, ...]):
+    """The iteration-independent stacked Fourier block (n, k_F) and the
+    per-spec frequency grids (only achromatic specs are carried)."""
+    blocks, fs = [], []
+    for spec in specs:
+        if spec.scale != "none":
+            raise NotImplementedError(f"chromatic noise basis {spec.scale!r}")
+        F, f, _df = fourier_design(t_s, spec.nharm)
+        blocks.append(F)
+        fs.append(f)
+    return torch.cat(blocks, dim=1), tuple(fs)
+
+
+def _pl_phi(fs, specs: tuple[PLSpec, ...], pl_params: torch.Tensor) -> torch.Tensor:
+    """Per-bin prior variances; ``f[0] == 1/tspan == df`` by construction."""
+    return torch.cat([
+        torch.repeat_interleave(powerlaw_phi(fs[i], pl_params[i, 0],
+                                             pl_params[i, 1], fs[i][0]), 2)
+        for i in range(len(specs))])
+
+
+class HybridGLSFitter(Fitter):
+    """Damped GLS fit of one pulsar; both stages on ``device``.
+
+    ``device=None`` means the CUDA card (and raises on a host without
+    one); ``device="cpu"`` runs every kernel's plain version.
+    """
+
+    def __init__(self, toas, model, *, device=None):
+        dev = resolve_device(device)
+        if toas.device != dev:
+            toas = toas.to(dev)
+        super().__init__(toas, model)
+        self.device = dev
+        self.noise, self.pl_specs = build_noise_statics(model, toas)
+        self._names = model.free_params
+        # an explicit PHOFF replaces the implicit offset column
+        self._off = 0 if model.has_component("PhaseOffset") else 1
+        self._n_params = len(self._names) + self._off
+        self._ne = int(self.noise.ecorr_phi.shape[0])
+        tzr = model.get_tzr_toas(dev)
+        self._stage1 = make_whiten_stage1(model, tzr)
+        self._stage1r = make_resid_stage1(model, tzr, device=dev)
+        # the Fourier block and its priors depend on the TOA table only
+        if self.pl_specs:
+            t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
+            self._F, fs = _pl_basis(t_s, self.pl_specs)
+            self._phi_F = _pl_phi(fs, self.pl_specs, self.noise.pl_params)
+        else:
+            self._F = self._phi_F = None
+        self._chi2_probe = None  # built at the first probe (_chi2_at)
+
+    def _iterate(self, base, deltas) -> tuple[dict, dict]:
+        """One full step: chi2 at ``deltas`` and the proposed next deltas."""
+        A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas)
+        parts = gls_gram_whitened(A_M, rw, sw, norm_M, self._F, self._phi_F,
+                                  self.noise.epoch_idx, self.noise.ecorr_phi)
+        info = gls_finalize_seg(parts, self._n_params)
+        info["chi2_at_input"] = noise_marginal_chi2(parts, self._n_params)
+        new_deltas = {k: deltas[k] + info["x"][i + self._off]
+                      for i, k in enumerate(self._names)}
+        return new_deltas, info
+
+    def _build_chi2_probe(self):
+        """Iteration-independent constants of the noise-marginal chi2 probe.
+
+        ``sw`` depends on the TOA table only, so the whitened noise block
+        ``A_F``, its ECORR cross/diagonal blocks and the Cholesky factor
+        of the noise-only Schur system are built once. The algebra mirrors
+        :func:`gls_gram_whitened` restricted to the noise columns +
+        :func:`noise_marginal_chi2`, in exact float64.
+        """
+        sw = 1.0 / self.model.scaled_toa_uncertainty(self.toas)
+        ne = self._ne
+        epoch_idx, ecorr_phi = self.noise.epoch_idx, self.noise.ecorr_phi
+        f64 = dict(dtype=torch.float64, device=self.device)
+        if self.pl_specs:
+            Fw = self._F * sw[:, None]
+            norm_F = torch.sqrt(torch.sum(Fw * Fw, dim=0))
+            norm_F = torch.where(norm_F == 0.0, torch.ones_like(norm_F), norm_F)
+            A_F = Fw / norm_F
+            phiinv = 1.0 / torch.clamp(self._phi_F, min=1e-36)
+            S = A_F.T @ A_F + torch.diag(phiinv / norm_F / norm_F)
+        else:
+            A_F = torch.zeros((sw.shape[0], 0), **f64)
+            S = torch.zeros((0, 0), **f64)
+        if ne > 0:
+            d = segment_sum(sw * sw, epoch_idx, ne) + 1.0 / ecorr_phi
+            C = segment_sum(A_F * sw[:, None], epoch_idx, ne)
+            Cs = C * torch.rsqrt(d)[:, None]
+            S = S - Cs.T @ Cs
+        else:
+            d = torch.ones(0, **f64)
+            C = torch.zeros((0, A_F.shape[1]), **f64)
+        k = A_F.shape[1]
+        L = cho_factor(S) if k > 0 else torch.zeros((0, 0), **f64)
+        return A_F, C, d, L, sw
+
+    def _chi2_at(self, base, deltas) -> float:
+        """Noise-marginal chi2 at ``deltas`` without a design matrix (the
+        damped loop's cheap trial-point judge)."""
+        rw = self._stage1r(base, deltas, self.toas)
+        if self._chi2_probe is None:
+            self._chi2_probe = self._build_chi2_probe()
+        A_F, C, d, L, sw = self._chi2_probe
+        ne, k = self._ne, A_F.shape[1]
+        chi2 = torch.sum(rw * rw)
+        if ne > 0:
+            c_e = segment_sum(rw * sw, self.noise.epoch_idx, ne)
+        if k > 0:
+            c_F = A_F.T @ rw
+            rhs = c_F - C.T @ (c_e / d) if ne > 0 else c_F
+            xn = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+            chi2 = chi2 - c_F @ xn
+            if ne > 0:
+                x_e = (c_e - C @ xn) / d
+                chi2 = chi2 - c_e @ x_e
+        elif ne > 0:
+            chi2 = chi2 - c_e @ (c_e / d)
+        return float(chi2)
+
+    def fit_toas(self, maxiter: int = 20, min_chi2_decrease: float = 1e-3,
+                 **kw) -> float:
+        base = self.model.base_dd(self.device)
+        deltas0 = self.model.zero_deltas(self._names, self.device)
+        deltas, sol, chi2, converged = downhill_iterate(
+            lambda d: self._iterate(base, d), deltas0, maxiter=maxiter,
+            min_chi2_decrease=min_chi2_decrease,
+            chi2_at=lambda d: self._chi2_at(base, d))
+        # a diverged fit (non-finite chi2) must never write NaN
+        # parameters/uncertainties back into the model
+        self.diverged = bool(sol.get("diverged", False))
+        if self.diverged:
+            self.diverged_reason = f"non-finite chi2 ({chi2})"
+            self.converged = False
+            return chi2
+        cov = sol["cov"].cpu().numpy()
+        errors = np.sqrt(np.diagonal(cov))
+        for i, k in enumerate(self._names):
+            p = self.model[k]
+            p.add_delta(float(deltas[k]))
+            p.uncertainty = float(errors[i + self._off])
+        self.fit_params = list(self._names)
+        self.parameter_covariance_matrix = cov
+        self.resids = self._new_resids()
+        self.converged = converged
+        return chi2

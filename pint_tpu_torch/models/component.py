@@ -1,0 +1,136 @@
+"""Component base class.
+
+Counterpart of ``pint_tpu.models.component``. A component owns a list
+of :class:`~pint_tpu_torch.models.parameter.Param` descriptors (host
+state) and exposes pure functions of tensors:
+
+* delay components:  ``delay(p, toas, acc_delay, aux) -> (n,) seconds``
+* phase components:  ``phase(p, toas, delay, aux) -> Phase``
+
+``p`` is the resolved parameter dict ``{name: DD scalar}`` = base values
+(+) fit deltas, so ``torch.func.jacfwd`` of the composed model phase with
+respect to the deltas gives the design matrix.
+"""
+
+from __future__ import annotations
+
+import re as _re
+
+from pint_tpu_torch.models.parameter import Param
+from pint_tpu_torch.ops.dd import DD
+
+# Evaluation order of delay/phase categories (reference:
+# pint.models.timing_model.DEFAULT_ORDER).
+DEFAULT_ORDER = [
+    "astrometry",
+    "jump_delay",
+    "troposphere",
+    "solar_system_shapiro",
+    "solar_wind",
+    "dispersion_constant",
+    "dispersion_dmx",
+    "dispersion_jump",
+    "pulsar_system",
+    "frequency_dependent",
+    "frequency_dependent_jump",
+    "absolute_phase",
+    "spindown",
+    "piecewise_spindown",
+    "phase_jump",
+    "phase_offset",
+    "wave",
+    "ifunc",
+    "glitch",
+]
+
+
+class Component:
+    """Base class of the timing-model components."""
+
+    category: str = ""
+    is_delay: bool = False
+    is_phase: bool = False
+
+    def __init__(self):
+        self.params: list[Param] = []
+
+    def add_param(self, p: Param) -> Param:
+        self.params.append(p)
+        return p
+
+    def param(self, name: str) -> Param:
+        for p in self.params:
+            if p.name == name:
+                return p
+        raise KeyError(f"{type(self).__name__} has no parameter {name}")
+
+    def setup_from_parfile(self, pf) -> None:
+        """Consume this component's lines from a parsed ParFile."""
+        for p in self.params:
+            line = None
+            for cand in (p.name,) + p.aliases:
+                line = pf.get(cand)
+                if line is not None:
+                    break
+            if line is None:
+                continue
+            if line.value == "":
+                continue  # a bare flag line sets no numeric value
+            p.set_from_par(line.value)
+            p.frozen = not line.fit
+            if line.uncertainty:
+                p.set_uncertainty_from_par(line.uncertainty)
+
+    def validate(self) -> None:
+        pass
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        """Does a parsed ParFile call for this component?"""
+        raise NotImplementedError
+
+    def delay(self, p: dict[str, DD], toas, acc_delay, aux: dict):
+        raise NotImplementedError
+
+    def phase(self, p: dict[str, DD], toas, delay, aux: dict):
+        raise NotImplementedError
+
+
+def check_contiguous_series(pf, prefix: str, n_found: int, *,
+                            base: int = 0, first_index: int = 1) -> None:
+    """Reject indexed-series gaps (e.g. F2 with no F1, DM2 with no DM1).
+
+    ``n_found`` is the count of contiguous series terms found starting at
+    index ``base``; ``first_index`` is the smallest legal
+    ``{prefix}<int>`` par name. Any ``{prefix}<int>`` line outside
+    [first_index, base + n_found) would otherwise be silently dropped.
+    """
+    hi = base + n_found
+    pat = _re.compile(_re.escape(prefix) + r"(\d+)")
+    for line in pf.get_all(prefix):
+        m = pat.fullmatch(line.name)
+        if not m:
+            continue
+        idx = int(m.group(1))
+        if idx < first_index:
+            hint = (f" (the zeroth term is named '{prefix}')"
+                    if base == 0 and first_index == 1 else "")
+            raise ValueError(
+                f"unexpected series term {line.name}: indices below "
+                f"{prefix}{first_index} do not exist{hint}")
+        if idx >= hi:
+            raise ValueError(
+                f"non-contiguous series term {line.name}: "
+                f"{prefix}{idx - 1} is missing from the par file")
+
+
+def has_series_term(pf, prefix: str) -> bool:
+    """True when any ``{prefix}<int>`` line exists."""
+    pat = _re.compile(_re.escape(prefix) + r"\d+")
+    return any(pat.fullmatch(line.name) for line in pf.get_all(prefix))
+
+
+def f64(p: dict[str, DD], name: str):
+    """Resolved parameter as float64 (collapses DD; gradient flows)."""
+    v = p[name]
+    return v.hi + v.lo

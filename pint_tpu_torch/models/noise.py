@@ -1,0 +1,242 @@
+"""Noise models: white-noise scaling and correlated-noise specs for GLS.
+
+Counterpart of ``pint_tpu.models.noise`` for ``ScaleToaError``,
+``EcorrNoise`` and ``PLRedNoise``. Noise components are neither delay
+nor phase terms; they contribute
+
+* a rescaling of the per-TOA uncertainties (EFAC/EQUAD),
+* ECORR epochs (indices + prior variances) and power-law Fourier specs,
+  which the GLS step turns into the correlated-noise covariance
+  C = N + T diag(phi) T^T without ever forming the dense basis.
+
+Conventions (matching the reference):
+* scaled sigma = EFAC * sqrt(sigma^2 + EQUAD^2); TNEQ is log10(EQUAD/s).
+* ECORR: quantization epochs of selected TOAs within `dt` seconds
+  (>= nmin TOAs per epoch); weight = (ECORR us)^2 in s^2.
+* PLRedNoise: Fourier basis at f_j = j / T_span, j = 1..nharm, with the
+  tempo RNAMP convention A = RNAMP / (86400*365.24*1e6 / (2 pi sqrt(3))).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.constants import SECS_PER_DAY
+from pint_tpu_torch.models.component import Component
+from pint_tpu_torch.models.parameter import Param, float_param, toa_mask
+
+FYR_HZ = 1.0 / (365.25 * SECS_PER_DAY)
+# tempo RNAMP -> GWB-convention amplitude (reference noise_model.py)
+RNAMP_FAC = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
+
+
+class NoiseComponent(Component):
+    """Base for noise components (no delay/phase contribution)."""
+
+    is_noise_scale = False  # rescales white-noise sigmas
+
+
+def _mask_lines(pf, names: tuple[str, ...]):
+    for line in pf.lines:
+        base = line.name.rstrip("0123456789")
+        if base in names or line.name in names:
+            yield line
+
+
+class ScaleToaError(NoiseComponent):
+    """EFAC/EQUAD white-noise scaling (reference: ScaleToaError)."""
+
+    category = "scale_toa_error"
+    is_noise_scale = True
+    # par-line base names this component consumes (builder warning filter)
+    extra_par_names = ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD", "TNEQ")
+
+    def __init__(self):
+        super().__init__()
+        self.efac_names: list[str] = []
+        self.equad_names: list[str] = []
+        self.tneq_names: list[str] = []
+
+    def _add(self, kind: str, selector: tuple[str, ...], value: float = 1.0) -> Param:
+        names = {"EFAC": self.efac_names, "EQUAD": self.equad_names,
+                 "TNEQ": self.tneq_names}[kind]
+        idx = len(names) + 1
+        name = f"{kind}{idx}"
+        units = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)"}[kind]
+        p = float_param(name, units=units, desc=f"{kind} for {selector}", index=idx)
+        p.selector = tuple(str(s) for s in selector)
+        p.value = (float(value), 0.0)
+        names.append(name)
+        return self.add_param(p)
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(True for _ in _mask_lines(pf, ("EFAC", "T2EFAC", "EQUAD",
+                                                  "T2EQUAD", "TNEQ")))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "ScaleToaError":
+        self = cls()
+        for line in _mask_lines(pf, ("EFAC", "T2EFAC")):
+            p = self._add("EFAC", tuple(line.rest))
+            p.set_from_par(line.value)
+        for line in _mask_lines(pf, ("EQUAD", "T2EQUAD")):
+            p = self._add("EQUAD", tuple(line.rest), value=0.0)
+            p.set_from_par(line.value)
+        for line in _mask_lines(pf, ("TNEQ",)):
+            p = self._add("TNEQ", tuple(line.rest), value=-32.0)
+            p.set_from_par(line.value)
+        return self
+
+    def scale_sigma(self, sigma: torch.Tensor, toas) -> torch.Tensor:
+        def mask(p):
+            return torch.as_tensor(toa_mask(p.selector, toas), device=sigma.device)
+
+        var = sigma * sigma
+        for name in self.equad_names:
+            p = self.param(name)
+            v = p.value_f64 * 1e-6
+            var = var + mask(p).to(var.dtype) * (v * v)
+        for name in self.tneq_names:
+            p = self.param(name)
+            var = var + mask(p).to(var.dtype) * 10.0 ** (2.0 * p.value_f64)
+        scale = torch.ones_like(sigma)
+        for name in self.efac_names:
+            p = self.param(name)
+            scale = torch.where(mask(p), p.value_f64, scale)
+        return scale * torch.sqrt(var)
+
+
+def quantize_epochs(t_s: np.ndarray, dt_s: float = 1.0, nmin: int = 2
+                    ) -> list[np.ndarray]:
+    """Group sorted-time indices into epochs separated by > dt seconds.
+
+    Returns index arrays of epochs with at least `nmin` members.
+    """
+    order = np.argsort(t_s)
+    ts = t_s[order]
+    breaks = np.nonzero(np.diff(ts) > dt_s)[0] + 1
+    groups = np.split(order, breaks)
+    return [g for g in groups if len(g) >= nmin]
+
+
+class EcorrNoise(NoiseComponent):
+    """Epoch-correlated white noise (reference: EcorrNoise)."""
+
+    category = "ecorr_noise"
+    extra_par_names = ("ECORR", "TNECORR")
+
+    def __init__(self, dt_s: float = 1.0, nmin: int = 2):
+        super().__init__()
+        self.ecorr_names: list[str] = []
+        self.dt_s = dt_s
+        self.nmin = nmin
+
+    def add_ecorr(self, selector: tuple[str, ...], value: float = 0.0) -> Param:
+        idx = len(self.ecorr_names) + 1
+        name = f"ECORR{idx}"
+        p = float_param(name, units="us", desc=f"ECORR for {selector}", index=idx)
+        p.selector = tuple(str(s) for s in selector)
+        p.value = (float(value), 0.0)
+        self.ecorr_names.append(name)
+        return self.add_param(p)
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(True for _ in _mask_lines(pf, ("ECORR", "TNECORR")))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "EcorrNoise":
+        self = cls()
+        for line in _mask_lines(pf, ("ECORR", "TNECORR")):
+            p = self.add_ecorr(tuple(line.rest))
+            p.set_from_par(line.value)
+        return self
+
+    def epoch_indices(self, toas) -> tuple[np.ndarray, np.ndarray]:
+        """Per-TOA epoch assignment: (idx (n,) int32, phi (ne,) [s^2]).
+
+        ``idx[i] in [0, ne)`` is TOA i's epoch; ``idx[i] == ne`` means "in
+        no epoch" (the dummy segment). The dense (n, ne) indicator matrix
+        is never formed; the GLS step consumes the indices with
+        ``index_add_``. Epochs from different ECORR selectors must be
+        disjoint; overlap raises. Host-side numpy bookkeeping.
+        """
+        t_s = toas.get_mjds() * SECS_PER_DAY
+        n = len(t_s)
+        idx = np.full(n, -1, dtype=np.int64)
+        weights: list[float] = []
+        for name in self.ecorr_names:
+            p = self.param(name)
+            sel = np.nonzero(toa_mask(p.selector, toas))[0]
+            if sel.size == 0:
+                continue
+            w = (p.value_f64 * 1e-6) ** 2
+            for grp in quantize_epochs(t_s[sel], self.dt_s, self.nmin):
+                rows = sel[grp]
+                if np.any(idx[rows] >= 0):
+                    raise ValueError(
+                        f"ECORR selectors overlap: a TOA matched by {name} "
+                        "already belongs to another ECORR epoch")
+                idx[rows] = len(weights)
+                weights.append(w)
+        ne = len(weights)
+        idx[idx < 0] = ne
+        return idx.astype(np.int32), np.asarray(weights)
+
+
+class PLRedNoise(NoiseComponent):
+    """Power-law achromatic red noise (reference: PLRedNoise)."""
+
+    category = "pl_red_noise"
+    default_nharm = 30
+    # how the Fourier basis scales per TOA ("none": achromatic)
+    basis_scale = "none"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(float_param("RNAMP", units="us*yr^0.5",
+                                   desc="Red-noise amplitude (tempo conv.)",
+                                   default=float("nan")))
+        self.add_param(float_param("RNIDX", units="",
+                                   desc="Red-noise index (tempo conv., negative)",
+                                   default=float("nan")))
+        self.add_param(float_param("TNREDAMP", units="log10",
+                                   desc="log10 red-noise amplitude (GWB conv.)",
+                                   default=float("nan"), aliases=("TNRedAmp",)))
+        self.add_param(float_param("TNREDGAM", units="",
+                                   desc="Red-noise spectral index gamma",
+                                   default=float("nan"), aliases=("TNRedGam",)))
+        self.add_param(float_param("TNREDC", units="",
+                                   desc="Number of red-noise harmonics",
+                                   default=0.0, aliases=("TNRedC",)))
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(k in pf for k in ("RNAMP", "TNREDAMP", "TNRedAmp"))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "PLRedNoise":
+        self = cls()
+        self.setup_from_parfile(pf)
+        for p in self.params:
+            p.frozen = True
+        return self
+
+    def nharm(self) -> int:
+        v = self.param("TNREDC").value_f64
+        return int(v) if v > 0 else self.default_nharm
+
+    def log10_amp_gamma(self) -> tuple[float, float]:
+        rnamp = self.param("RNAMP").value_f64
+        if np.isfinite(rnamp):
+            return np.log10(rnamp / RNAMP_FAC), -self.param("RNIDX").value_f64
+        return (self.param("TNREDAMP").value_f64,
+                self.param("TNREDGAM").value_f64)
+
+    def pl_spec(self) -> tuple[str, float, float, int, float]:
+        """(basis_scale, log10_amp, gamma, nharm, alpha) for the GLS step."""
+        log10_amp, gamma = self.log10_amp_gamma()
+        return (self.basis_scale, float(log10_amp), float(gamma),
+                self.nharm(), 2.0)

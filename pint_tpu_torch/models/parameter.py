@@ -1,0 +1,182 @@
+"""Parameter system: typed, unit-tagged timing-model parameters.
+
+Counterpart of ``pint_tpu.models.parameter``. Values that must survive
+at ~1e-18 relative precision (spin frequencies, epochs) are an exact
+(hi, lo) float64 pair parsed losslessly from par-file decimal strings.
+The fitter solves for a small float64 *delta* per free parameter and the
+host applies ``base <- base (+) delta`` in exact DD arithmetic.
+
+The reference's angle (sexagesimal RA/Dec) and boolean kinds belong to
+components this package does not carry yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.ops import dd
+from pint_tpu_torch.ops.dd import DD
+
+# parameter kinds
+FLOAT = "float"  # plain numeric (float64-grade)
+DDFLOAT = "ddfloat"  # numeric needing double-double (F0, epochs-as-values)
+MJD = "mjd"  # epoch in MJD, DD-grade, usually not fittable
+STR = "str"
+
+
+@dataclass
+class Param:
+    """One timing-model parameter (host-side descriptor).
+
+    ``value`` is an exact (hi, lo) float64 pair for numeric kinds, a
+    string for STR.
+    """
+
+    name: str
+    kind: str = FLOAT
+    value: object = None
+    units: str = ""
+    description: str = ""
+    frozen: bool = True
+    uncertainty: float = 0.0
+    aliases: tuple[str, ...] = ()
+    # maskParameter selector, e.g. ("-fe", "L-wide"); empty for plain params
+    selector: tuple[str, ...] = ()
+    # prefixParameter index (F0 -> 0); -1 for non-prefix
+    index: int = -1
+
+    def __setattr__(self, name: str, val) -> None:
+        # coerce at SET time so a bare scalar cannot reach the compute path
+        if name == "value":
+            val = self._coerce_value(val)
+        object.__setattr__(self, name, val)
+
+    def _coerce_value(self, val):
+        """Numeric kinds store an exact (hi, lo) float64 pair."""
+        if val is None or not self.is_numeric:
+            return val
+        if isinstance(val, (tuple, list)) and len(val) == 2:
+            return (float(val[0]), float(val[1]))
+        if isinstance(val, bool):
+            pass  # bool is an int subclass but never a numeric value
+        elif isinstance(val, (int, np.integer)):
+            hi = float(int(val))
+            return (hi, float(int(val) - int(hi)))
+        elif isinstance(val, (float, np.floating)):
+            return (float(val), 0.0)
+        raise TypeError(
+            f"{self.name}.value must be an exact (hi, lo) float64 pair "
+            f"or a real scalar (internal units); got {type(val).__name__!s}"
+            " — par-file strings go through set_from_par()")
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.kind in (FLOAT, DDFLOAT, MJD)
+
+    @property
+    def fittable(self) -> bool:
+        # epochs and discrete params are never fit
+        return self.is_numeric and self.kind != MJD
+
+    @property
+    def hi(self) -> float:
+        return self.value[0]
+
+    @property
+    def lo(self) -> float:
+        return self.value[1]
+
+    def as_dd(self, device=None) -> DD:
+        """Value as a DD of 0-d float64 tensors on `device`."""
+        return DD(torch.tensor(self.hi, dtype=torch.float64, device=device),
+                  torch.tensor(self.lo, dtype=torch.float64, device=device))
+
+    @property
+    def value_f64(self) -> float:
+        return float(self.hi + self.lo)
+
+    def set_from_par(self, text: str) -> None:
+        """Parse a par-file value string into the internal representation."""
+        if self.kind == STR:
+            self.value = str(text).strip()
+        else:
+            self.value = tuple(dd.from_string(text))
+
+    def set_uncertainty_from_par(self, text: str) -> None:
+        try:
+            u = float(text.replace("D", "e").replace("d", "e"))
+        except ValueError:
+            return
+        self.uncertainty = u
+
+    def add_delta(self, delta: float) -> None:
+        """Apply a fitted correction exactly: value <- value (+) delta."""
+        s, e = _two_sum(self.hi, float(delta))
+        e += self.lo
+        self.value = _renorm(s, e)
+
+    def format_value(self) -> str:
+        if self.kind == STR:
+            return str(self.value)
+        hi, lo = self.value
+        if lo == 0.0 and abs(hi) < 1e15:
+            return repr(hi)
+        return dd.to_string(DD(hi, lo), ndigits=21)
+
+
+def _two_sum(a: float, b: float) -> tuple[float, float]:
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _renorm(hi: float, lo: float) -> tuple[float, float]:
+    s = hi + lo
+    return (s, lo - (s - hi))
+
+
+def float_param(name: str, units: str = "", desc: str = "", default: float = 0.0,
+                aliases: tuple[str, ...] = (), kind: str = FLOAT,
+                index: int = -1) -> Param:
+    return Param(name=name, kind=kind, value=(float(default), 0.0), units=units,
+                 description=desc, aliases=aliases, index=index)
+
+
+def mjd_param(name: str, desc: str = "", aliases: tuple[str, ...] = ()) -> Param:
+    return Param(name=name, kind=MJD, value=(0.0, 0.0), units="d",
+                 description=desc, aliases=aliases)
+
+
+def str_param(name: str, default: str = "", desc: str = "",
+              aliases: tuple[str, ...] = ()) -> Param:
+    return Param(name=name, kind=STR, value=default, description=desc, aliases=aliases)
+
+
+def toa_mask(selector: tuple[str, ...], toas) -> np.ndarray:
+    """Boolean numpy mask of TOAs matched by a maskParameter selector.
+
+    Empty selector: every TOA. ``-mjd lo hi`` / ``-freq lo hi``: ranges
+    over the table's TDB MJDs / frequencies. ``-tel``/``-obs``: the site.
+    Anything else matches a tim-file flag (``-fe L-wide``).
+    """
+    n = len(toas)
+    if not selector:
+        return np.ones(n, dtype=bool)
+    key = selector[0].lstrip("-").lower()
+    if key in ("tel", "obs"):
+        from pint_tpu_torch.toas import site_name
+
+        target = site_name(selector[1])
+        names = np.asarray(toas.obs_names, dtype=object)
+        return names[toas.obs_index] == target
+    if key == "mjd":
+        mjds = toas.get_mjds()
+        return (mjds >= float(selector[1])) & (mjds <= float(selector[2]))
+    if key == "freq":
+        f = toas.freq_mhz.cpu().numpy()
+        return (f >= float(selector[1])) & (f <= float(selector[2]))
+    vals = np.asarray([fl.get(key, "") for fl in toas.flags])
+    return vals == selector[1]

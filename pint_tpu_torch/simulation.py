@@ -1,0 +1,89 @@
+"""Fake-TOA simulation: invert the timing-model phase -> arrival times.
+
+Counterpart of ``pint_tpu.simulation.make_fake_toas_from_arrays``. The
+inversion is the reference's fixed-point iteration: compute phase
+residuals at the current epochs, shift the epochs by -residual in exact
+DD, repeat (quadratic convergence; 3 passes reach < 1e-12 s). All of it
+runs on the table's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pint_tpu_torch import resolve_device
+from pint_tpu_torch.constants import SECS_PER_DAY
+from pint_tpu_torch.ops import dd
+from pint_tpu_torch.residuals import Residuals
+from pint_tpu_torch.toas import TOAs, build_TOAs_from_arrays
+
+
+def _invert_to_model(build, mjd_dd: dd.DD, model, errs: torch.Tensor, *,
+                     add_noise: bool, seed, niter: int) -> TOAs:
+    """Shared fixed-point core: ``build(mjd_dd) -> TOAs``.
+
+    Residuals under ``model`` shift the exact DD MJDs by -residual
+    ``niter`` times; ``add_noise`` then folds in a Gaussian draw of the
+    stated errors (a ``torch.Generator`` seeded with ``seed``, on the
+    table's device), and the final table is built.
+    """
+    toas = None
+    for _ in range(max(0, niter)):
+        # one full build, then first-order shifts of the built table;
+        # the final build below is a full one anyway
+        toas = build(mjd_dd) if toas is None else _shift_toas(toas, shift)
+        r = Residuals(toas, model, subtract_mean=False, track_mode="nearest")
+        shift_day = r.time_resids / SECS_PER_DAY
+        mjd_dd = dd.sub(mjd_dd, shift_day)
+        shift = -shift_day
+
+    if add_noise:
+        gen = torch.Generator(device=errs.device)
+        if seed is None:
+            gen.seed()
+        else:
+            gen.manual_seed(int(seed))
+        noise_s = torch.randn(errs.shape[0], generator=gen, dtype=torch.float64,
+                              device=errs.device) * errs * 1e-6
+        mjd_dd = dd.add(mjd_dd, noise_s / SECS_PER_DAY)
+
+    return build(mjd_dd)
+
+
+def _shift_toas(toas: TOAs, delta_day: torch.Tensor) -> TOAs:
+    """Advance a built table's arrival times by ``delta_day`` (f64 days),
+    exactly (DD add). A barycentric table has no observatory motion to
+    advance with them."""
+    return dataclasses.replace(toas, utc=dd.add(toas.utc, delta_day),
+                               tdb=dd.add(toas.tdb, delta_day))
+
+
+def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
+                               error_us, obs: str = "@",
+                               add_noise: bool = False,
+                               seed: int | None = None, niter: int = 3,
+                               device=None) -> TOAs:
+    """Model-perfect arrival times at *given* epochs.
+
+    The caller supplies the local MJDs as a DD of arrays; the fixed-point
+    iteration makes them arrivals the model times perfectly. ``device``
+    (``None``: the CUDA card) is where the table is built and the
+    iteration runs.
+    """
+    dev = resolve_device(device)
+    mjd_dd = dd.DD(torch.as_tensor(mjd_dd.hi, dtype=torch.float64, device=dev),
+                   torch.as_tensor(mjd_dd.lo, dtype=torch.float64, device=dev))
+    n = int(mjd_dd.hi.shape[0])
+    freqs = np.resize(np.asarray(freq_mhz, np.float64), n)
+    errs = np.resize(np.asarray(error_us, np.float64), n)
+
+    def build(m):
+        return build_TOAs_from_arrays(m, freq_mhz=freqs, error_us=errs,
+                                      obs_names=(obs,), device=dev)
+
+    return _invert_to_model(build, mjd_dd, model,
+                            torch.as_tensor(errs, device=dev),
+                            add_noise=add_noise, seed=seed, niter=niter)
