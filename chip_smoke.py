@@ -12,16 +12,18 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 2. build every kernel of the path from its source (``nvcc``, ``sm_90a``);
 3. ``dd.self_check`` on the card must pass: the DD phase runs there;
 4. each kernel against its plain PyTorch version on the card at the main
-   path's shapes and at an odd row count that pads, and against float64
-   within 10x its error bound, with its time, the plain version's, its
-   bound and a library call's;
+   path's shapes, at an odd row count that pads and at two column tiles,
+   and against float64 within 10x its error bound, with its time (CUDA
+   events around one call, and each pass's device time), the plain
+   version's, its bound and a library call's;
 5. the main path: 100,000 barycentric TOAs in 4-TOA ECORR epochs,
    simulated from the bench par (without astrometry) on the card, then
    the damped GLS fit (``HybridGLSFitter(...).fit_toas(maxiter=10)``) —
    every kernel's launch count is set to 0 just before and read just
-   after, and each must have launched; then the warm step's times and a
-   torch.profiler trace of one warm step (the device's idle share and
-   the kernels that take the time);
+   after, and each must have launched; then the same fit with an exact
+   float64 Gram as a witness of where the damped loop stops, the warm
+   step's times and a torch.profiler trace of one warm step (the
+   device's idle share and the kernels that take the time);
 6. the same fit at 2,000 TOAs on the card and on the CPU (plain versions)
    must agree;
 7. a ``{"kernels": [...]}`` line, then the last line
@@ -36,6 +38,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -200,6 +203,13 @@ def profile_step(fitter, base, deltas, step_ms):
         print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
 
 
+def kernel_name(text: str) -> str:
+    """The first ds32_gram kernel named in `text` (a mangled symbol), as
+    partials<64>, partials<128> or reduce."""
+    m = re.search(r"ds32_gram_(partials|reduce)(?:ILi(\d+)E)?", text)
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def whitened(n, q, seed, device):
     """(n, q) f64 with unit columns, as gls_gram_whitened feeds the Gram."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -207,16 +217,48 @@ def whitened(n, q, seed, device):
     return (A / torch.linalg.norm(A, dim=0)).contiguous()
 
 
+def device_ms(fn, calls=20):
+    """Device time per call of fn, by kernel name, from a torch.profiler
+    trace of `calls` warm calls ({} where the trace holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_gram(gram, dev):
     """ds32_gram against its plain version and f64 at the main path's
-    shapes (timed) and at an odd row count that pads (checked only)."""
+    shapes (timed), at an odd row count that pads and at q = 100, two
+    column tiles (checked, and their passes timed).
+
+    Times: `ms`, `library_ms` and `plain_ms` are CUDA events around one
+    call on an idle card, so they include the launches' host latency;
+    `device_ms` (`partials_ms` + `reduce_ms`) and `library_device_ms` are
+    device time per call (torch.profiler, every kernel the call
+    launches)."""
     shapes = []
     # G_BB: every TOA x (offset, DM, F0, F1, 60 Fourier columns); the
-    # ECORR Schur term: one row per 4-TOA epoch; 137 rows pad both the
-    # block and its last 32-row chunk
+    # ECORR Schur term: one row per 4-TOA epoch; 137 rows pad the block
+    # and its last 32-row chunk; 3,001 x 100 takes the off-diagonal
+    # tile path and an odd row count
     for label, n, q in (("G_BB", N_TOAS, 64), ("Schur", N_TOAS // 4, 64),
-                        ("padding", 137, 64)):
+                        ("padding", 137, 64), ("two tiles", 3001, 100)):
         A = whitened(n, q, seed=n, device=dev)
+        bn, nb = gram._block_rows(n)
         before = gram.ds32_gram.launches
         G = gram.ds32_gram(A)
         torch.cuda.synchronize()
@@ -229,37 +271,49 @@ def check_gram(gram, dev):
         err_plain = float(torch.max(torch.abs(G - G_plain)))
         err_f64 = float(torch.max(torch.abs(G - G64)))
         bound = gram.gram_error_bound(n)
-        print(f"  {label} {n}x{q}: |kernel-plain|/max|G| = {err_plain / scale:.3e}"
-              f" (bar {PLAIN_BAR:g}), |kernel-f64|/max|G| = {err_f64 / scale:.3e}"
-              f" (bar {10 * bound:.3e})", flush=True)
+        print(f"  {label} {n}x{q}: bn {bn}, nb {nb}; |kernel-plain|/max|G| = "
+              f"{err_plain / scale:.3e} (bar {PLAIN_BAR:g}), |kernel-f64|/max|G|"
+              f" = {err_f64 / scale:.3e} (bar {10 * bound:.3e})", flush=True)
         if not (err_plain <= PLAIN_BAR * scale and err_f64 < 10 * bound * scale):
             fail(f"ds32_gram disagrees at {label} {n}x{q}")
         if not torch.isfinite(G).all():
             fail(f"ds32_gram gave non-finite values at {label}")
         if not torch.equal(G, gram.ds32_gram(A)):
             fail(f"ds32_gram is not deterministic at {label}")
-        if label == "padding":
+        by_name = device_ms(lambda: gram.ds32_gram(A))
+        passes = {key: sum(ms for name, ms in by_name.items() if kernel in name)
+                  or None
+                  for key, kernel in (("partials_ms", "ds32_gram_partials"),
+                                      ("reduce_ms", "ds32_gram_reduce"))}
+        print(f"  {label}: partials {fmt_ms(passes['partials_ms'])} + reduce "
+              f"{fmt_ms(passes['reduce_ms'])} of device time per call "
+              f"(torch.profiler, 20 calls)", flush=True)
+        if label in ("padding", "two tiles"):
             continue
         # the function's work: the upper triangle of a1ᵀa1 and one a1ᵀa2
-        # (a2ᵀa1 is its transpose), 2 flops per FFMA; the kernel does
-        # 6nq², the lower triangle and a2ᵀa1 included
+        # (a2ᵀa1 is its transpose), 2 flops per FFMA
         flops = 2.0 * n * (q * (q + 1) / 2 + q * q)
         nbytes = 8.0 * (n * q + q * q)   # A read once, G written once
         bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
         shapes.append({
-            "shape": label, "n": n, "q": q,
+            "shape": label, "n": n, "q": q, "bn": bn, "nb": nb,
             "ms": median_ms(lambda: gram.ds32_gram(A)),
+            "device_ms": (None if None in passes.values()
+                          else passes["partials_ms"] + passes["reduce_ms"]),
+            **passes,
             "plain_ms": median_ms(lambda: gram.ds32_gram_reference(A), reps=5),
             "library_ms": median_ms(lambda: A.T @ A),
+            "library_device_ms": sum(device_ms(lambda: A.T @ A).values()) or None,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flops / F32_FLOPS >= nbytes / HBM_BYTES_S
             else "bytes",
             "max_abs_err": err_plain, "rel_err_vs_f64": err_f64 / scale,
         })
-        print(f"  {label}: kernel {shapes[-1]['ms']:.4f} ms, plain "
-              f"{shapes[-1]['plain_ms']:.4f} ms, A.T@A f64 (cuBLAS) "
-              f"{shapes[-1]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({shapes[-1]['bound_by']})", flush=True)
+        s = shapes[-1]
+        print(f"  {label}: kernel {s['ms']:.4f} ms a call ({fmt_ms(s['device_ms'])}"
+              f" device), plain {s['plain_ms']:.4f} ms a call, A.T@A f64 (cuBLAS)"
+              f" {s['library_ms']:.4f} ms a call ({fmt_ms(s['library_device_ms'])}"
+              f" device), bound {bound_ms:.4f} ms ({s['bound_by']})", flush=True)
     return shapes
 
 
@@ -269,6 +323,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     sys.path.insert(0, str(ROOT))
+    from pint_tpu_torch.fitting import gls_step
     from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops import dd, gram
@@ -295,7 +350,9 @@ def main() -> None:
     lib, log = gram.build()
     print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry function" in line:
+            print(f"  nvcc: {kernel_name(line)}:")
+        elif "registers" in line or "spill" in line or "smem" in line:
             print("  nvcc:", line.strip())
 
     phase("3 dd.self_check on the card")
@@ -336,6 +393,19 @@ def main() -> None:
         fail(f"post-fit reduced chi2 {red} outside [0.8, 1.25]")
     if launches == 0 or launches < 2 * steps:
         fail(f"{launches} ds32_gram launches for {steps} full steps")
+    # a second witness of where the damped loop stops: the same fit with
+    # an exact f64 Gram in place of the kernel
+    gls_step.ds32_gram = lambda A: A.T @ A
+    try:
+        _, chi2_f64, _, _, steps_f64, probes_f64 = run_fit(get_model(PAR_BARY),
+                                                           toas)
+    finally:
+        gls_step.ds32_gram = gram.ds32_gram
+    print(f"fit with an exact f64 Gram (witness): {steps_f64} full steps, "
+          f"{probes_f64} probes, GLS chi2 {chi2_f64:.6f}, the kernel's fit "
+          f"{chi2 - chi2_f64:+.6f} from it", flush=True)
+    if not abs(chi2 - chi2_f64) <= 1e-6 * chi2_f64:
+        fail(f"the fit's chi2 {chi2} is not the f64 Gram fit's {chi2_f64}")
     warm, _, wbuild_s, wfit_s, wsteps, wprobes = run_fit(
         get_model(PAR_BARY), toas)
     print(f"fit (warm, same table, fresh model): {wbuild_s + wfit_s:.3f} s wall"
@@ -369,8 +439,10 @@ def main() -> None:
         fail("the fit on the card disagrees with the CPU fit")
 
     phase("7 result")
-    per_step = {k: sum(s[k] for s in shapes)
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    per_step = {k: (None if any(s[k] is None for s in shapes)
+                    else sum(s[k] for s in shapes))
+                for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                          "library_device_ms", "bound_ms")}
     kernels = [{
         "name": "ds32_gram", "route": "cuda",
         "source": "pint_tpu_torch/csrc/ds32_gram.cu",
@@ -380,7 +452,9 @@ def main() -> None:
         **per_step,
         "bound_by": ("operations" if all(s["bound_by"] == "operations"
                                          for s in shapes) else "bytes"),
-        "timing": "per GLS step: G_BB + Schur shapes summed",
+        "timing": "per GLS step: G_BB + Schur shapes summed; ms, plain_ms "
+                  "and library_ms are CUDA events around one call, device_ms "
+                  "and library_device_ms device time (torch.profiler)",
         "shapes": shapes,
     }]
     print("kernels: [ds32_gram: ok, " + ", ".join(

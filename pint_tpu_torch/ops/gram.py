@@ -7,10 +7,11 @@ G = AᵀA as the classic double-single split
 
     a1 = f32(A),  a2 = f32(A - a1),  G ≈ a1ᵀa1 + (a1ᵀa2 + a2ᵀa1)
 
-with f32 products over row blocks of ``block`` rows and a compensated
-(hi, lo) f32 pair carried across the blocks, in block order, by TwoSum.
-The relative error is about 3·√min(n, block)·2⁻²⁴ + 2⁻⁴⁸
-(:func:`gram_error_bound`).
+with f32 products over row blocks and a compensated (hi, lo) f32 pair
+carried across the blocks, in block order, by TwoSum. The rows per block
+are a function of n alone (:func:`_block_rows`), so the card and the CPU
+compute the same thing. The relative error is about
+3·√min(n, 1024)·2⁻²⁴ + 2⁻⁴⁸ (:func:`gram_error_bound`).
 
 :func:`ds32_gram` launches the kernel in ``csrc/ds32_gram.cu`` for a
 tensor on the card and runs :func:`ds32_gram_reference`, the same
@@ -37,6 +38,16 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ds32_gram.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # rows per f32 accumulation chunk (kRows in csrc/ds32_gram.cu)
 CHUNK_ROWS = 32
+# the fewest and the most rows one row block sums
+MIN_BLOCK_ROWS = CHUNK_ROWS
+MAX_BLOCK_ROWS = 1024
+# the row blocks the rows are cut into, at least: enough thread blocks
+# to fill the H100's 132 SMs at the main path's shapes
+TARGET_BLOCKS = 256
+# output tile edge of one thread block (kTile in csrc/ds32_gram.cu); the
+# (I <= J) tile pairs go on gridDim.y, at most 65,535: 361 tiles
+TILE = 64
+MAX_COLUMNS = 361 * TILE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +56,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _block_rows(n: int, block: int) -> tuple[int, int]:
-    """(rows per block, number of blocks), the reference's blocking."""
-    bn = min(block, _round_up(max(n, 1), 8))
+def _block_rows(n: int) -> tuple[int, int]:
+    """(rows per block, number of blocks) for n rows.
+
+    bn = min(1024, max(32, round_up(ceil(n / 256), 32))): about 256
+    blocks of whole 32-row chunks, MIN_BLOCK_ROWS to MAX_BLOCK_ROWS rows
+    each. A function of n alone, never of the device, so the kernel and
+    the plain version sum in the same blocks.
+    """
+    bn = min(MAX_BLOCK_ROWS, max(MIN_BLOCK_ROWS,
+                                 _round_up(-(-n // TARGET_BLOCKS), CHUNK_ROWS)))
     return bn, -(-n // bn)
 
 
@@ -106,7 +124,7 @@ def _check(A) -> None:
         raise ValueError(f"ds32_gram needs n, q >= 1, got {tuple(A.shape)}")
 
 
-def ds32_gram(A: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
+def ds32_gram(A: torch.Tensor) -> torch.Tensor:
     """AᵀA (f64 in, f64 out) in double-single f32.
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
@@ -115,16 +133,18 @@ def ds32_gram(A: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
     """
     _check(A)
     if A.device.type == "cpu":
-        return ds32_gram_reference(A, block=block)
+        return ds32_gram_reference(A)
     if A.device.type != "cuda":
         raise ValueError(f"ds32_gram runs on cuda or cpu, not {A.device}")
     if not A.is_contiguous():
         raise ValueError("ds32_gram needs a contiguous (row-major) tensor")
     n, q = A.shape
-    if q > 32 * 255:
-        raise ValueError(f"ds32_gram supports q <= 8160 columns, got {q}")
-    bn, nb = _block_rows(n, block)
-    partial = torch.empty((nb, q, q), dtype=torch.float32, device=A.device)
+    if q > MAX_COLUMNS:
+        raise ValueError(f"ds32_gram supports q <= {MAX_COLUMNS} columns, got {q}")
+    bn, nb = _block_rows(n)
+    # each block's f32 partial, upper triangle packed row by row
+    partial = torch.empty((nb, q * (q + 1) // 2), dtype=torch.float32,
+                          device=A.device)
     G = torch.empty((q, q), dtype=torch.float64, device=A.device)
     lib = _library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -139,41 +159,40 @@ def ds32_gram(A: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
 ds32_gram.launches = 0
 
 
-def ds32_gram_reference(A: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
+def ds32_gram_reference(A: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch operators (its plain version).
 
-    The same split, the same zero padding of the rows to whole blocks
-    (padded columns would only add zero rows and columns to G, so none
-    are added), the three f32 products per 32-row chunk (batched
-    ``matmul``) summed chunk by chunk within each block, the grouping
-    a1ᵀa1 + (a1ᵀa2 + a2ᵀa1), and the in-order TwoSum reduction across
-    blocks. Runs on whatever device A lies on.
+    The same split, the same blocks (:func:`_block_rows`), the same zero
+    padding of the rows to whole blocks (padded columns would only add
+    zero rows and columns to G, so none are added), the f32 products
+    per 32-row chunk (batched ``matmul``) summed chunk by chunk within
+    each block, the grouping a1ᵀa1 + (c12 + c12ᵀ) with c12 = a1ᵀa2 (the
+    kernel's cross term: a2ᵀa1 is the transpose of a1ᵀa2), the in-order
+    TwoSum reduction across blocks, and the upper triangle mirrored
+    into the lower. Runs on whatever device A lies on.
     """
     _check(A)
     n, q = A.shape
-    bn, nb = _block_rows(n, block)
-    nc = -(-bn // CHUNK_ROWS)
+    bn, nb = _block_rows(n)
+    nc = bn // CHUNK_ROWS
 
     def chunks(x):
         # (n, q) -> (nb, nc, CHUNK_ROWS, q), zero rows padding the last
-        # block and each block's last chunk
+        # block
         x = torch.nn.functional.pad(x, (0, 0, 0, nb * bn - n))
-        x = torch.nn.functional.pad(x.reshape(nb, bn, q),
-                                    (0, 0, 0, nc * CHUNK_ROWS - bn))
         return x.reshape(nb, nc, CHUNK_ROWS, q)
 
     a1 = A.to(torch.float32)
     a2 = (A - a1.to(torch.float64)).to(torch.float32)
     a1, a2 = chunks(a1), chunks(a2)
     a1t = a1.transpose(-1, -2)
-    c11, c12, c21 = a1t @ a1, a1t @ a2, a2.transpose(-1, -2) @ a1
+    c11, c12 = a1t @ a1, a1t @ a2
     # per block, the chunks' products summed in chunk order
-    s11, s12, s21 = c11[:, 0], c12[:, 0], c21[:, 0]
+    s11, s12 = c11[:, 0], c12[:, 0]
     for c in range(1, nc):
         s11 = s11 + c11[:, c]
         s12 = s12 + c12[:, c]
-        s21 = s21 + c21[:, c]
-    p = s11 + (s12 + s21)
+    p = s11 + (s12 + s12.transpose(-1, -2))
     hi = p[0]
     lo = torch.zeros_like(hi)
     for b in range(1, nb):
@@ -182,7 +201,8 @@ def ds32_gram_reference(A: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
         bv = s - a
         lo = lo + ((a - (s - bv)) + (p[b] - bv))
         hi = s
-    return hi.to(torch.float64) + lo.to(torch.float64)
+    G = hi.to(torch.float64) + lo.to(torch.float64)
+    return torch.triu(G) + torch.triu(G, 1).transpose(0, 1)
 
 
 def gram_error_bound(n: int, block: int = 1024) -> float:

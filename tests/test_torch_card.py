@@ -16,7 +16,7 @@ the suite.)
 import pytest
 import torch
 
-from pint_tpu_torch.ops.gram import ds32_gram
+from pint_tpu_torch.ops.gram import MAX_COLUMNS, ds32_gram
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -34,3 +34,9 @@ def test_kernel_rejects_float32_on_card(cuda_device):
     with pytest.raises(TypeError, match="float64"):
         ds32_gram(A)
     assert ds32_gram.launches == before
+
+
+def test_kernel_rejects_more_columns_than_its_grid(cuda_device):
+    A = torch.zeros((1, MAX_COLUMNS + 1), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="columns"):
+        ds32_gram(A)

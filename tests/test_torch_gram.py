@@ -23,11 +23,14 @@ from chip_smoke import PLAIN_BAR
 @pytest.mark.parametrize("n,q,block", [(640, 20, 128), (137, 5, 64),
                                        (4096, 64, 1024)])
 def test_gram_matches_tpu_kernel_and_f64(n, q, block):
+    """The TPU kernel at `block`-row blocks; the port at its own, which
+    are never larger (so the same error bound holds for both)."""
     rng = np.random.default_rng(0)
     A = rng.standard_normal((n, q)) / np.sqrt(n)
     G_ref = np.asarray(ds32_gram_pallas(jnp.asarray(A), interpret=True,
                                         block=block))
-    G = ds32_gram(torch.as_tensor(A), block=block).numpy()
+    assert gram._block_rows(n)[0] <= block
+    G = ds32_gram(torch.as_tensor(A)).numpy()
     G64 = A.T @ A
     scale = np.max(np.abs(G64))
     assert np.max(np.abs(G - G_ref)) / scale <= 1e-6
@@ -82,6 +85,75 @@ def test_cpu_route_launches_no_kernel():
 def test_rejects_wrong_dtype_rank_or_type(bad):
     with pytest.raises((TypeError, ValueError)):
         ds32_gram(bad)
+
+
+@pytest.mark.parametrize("n,bn,nb", [(100_000, 416, 241), (25_000, 128, 196)])
+def test_block_rows_fill_the_card_at_the_main_path(n, bn, nb):
+    """G_BB and the Schur term each give more row blocks than the H100
+    has SMs (132), in whole 32-row chunks."""
+    assert gram._block_rows(n) == (bn, nb)
+    assert bn % gram.CHUNK_ROWS == 0 and nb >= 132
+    assert (nb - 1) * bn < n <= nb * bn
+
+
+@pytest.mark.parametrize("n,bn", [(10_000_000, 1024), (262_145, 1024),
+                                  (200_000, 800), (8_193, 64), (5, 32),
+                                  (137, 32)])
+def test_block_rows_cap_and_floor(n, bn):
+    """1024 rows at most, one 32-row chunk at least, whole chunks between."""
+    assert (gram.MAX_BLOCK_ROWS, gram.MIN_BLOCK_ROWS) == (1024, 32)
+    assert gram._block_rows(n) == (bn, -(-n // bn))
+
+
+def test_block_rows_never_asks_the_device(monkeypatch):
+    """The blocking is a function of n alone: the CPU fit and the card's
+    sum in the same blocks, whatever card (or none) is present."""
+    def no_device(*args, **kwargs):
+        raise AssertionError("_block_rows queried the device")
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_device)
+    assert gram._block_rows(100_000) == (416, 241)
+    assert gram._block_rows(25_000) == (128, 196)
+
+
+def test_plain_version_at_the_new_blocks_matches_tpu_kernel():
+    """At 4,096 x 64 the new rule gives 128 blocks of 32 rows; the TPU
+    kernel at its default 1024-row blocks and at those 32-row blocks
+    agrees with it to 1e-6 of max|G|."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((4096, 64))
+    A /= np.linalg.norm(A, axis=0)
+    bn, nb = gram._block_rows(4096)
+    assert (bn, nb) == (32, 128)
+    G = ds32_gram(torch.as_tensor(A)).numpy()
+    scale = np.max(np.abs(A.T @ A))
+    for block in (1024, bn):
+        G_ref = np.asarray(ds32_gram_pallas(jnp.asarray(A), interpret=True,
+                                            block=block))
+        assert np.max(np.abs(G - G_ref)) / scale <= 1e-6, block
+
+
+@pytest.mark.parametrize("n", [3001, 20_000])
+def test_plain_version_two_column_tiles(n):
+    """q = 100 spans two 64-wide output tiles (the kernel's off-diagonal
+    tile path): within 10x the error bound of f64, and symmetric."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, 100))
+    A /= np.linalg.norm(A, axis=0)
+    G = ds32_gram(torch.as_tensor(A)).numpy()
+    G64 = A.T @ A
+    scale = np.max(np.abs(G64))
+    assert np.max(np.abs(G - G64)) / scale < 10 * gram_error_bound(n)
+    np.testing.assert_allclose(G, G.T, rtol=0, atol=1e-12 * scale)
+
+
+def test_column_limit_is_the_largest_grid_of_tile_pairs():
+    """The partials grid puts the t(t+1)/2 tile pairs (I <= J) of
+    t = ceil(q / 64) tiles on gridDim.y, at most 65,535."""
+    t = gram.MAX_COLUMNS // gram.TILE
+    assert gram.MAX_COLUMNS % gram.TILE == 0
+    assert t * (t + 1) // 2 <= 65_535 < (t + 1) * (t + 2) // 2
 
 
 def test_library_path_is_keyed_by_source_content(tmp_path):
