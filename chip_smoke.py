@@ -12,21 +12,27 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 2. build every kernel of the path from its source (``nvcc``, ``sm_90a``);
 3. ``dd.self_check`` on the card must pass: the DD phase runs there;
 4. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, at an odd row count that pads and at two column tiles,
-   and against float64 within 10x its error bound, with its time (CUDA
-   events around one call, and each pass's device time), the plain
-   version's, its bound and a library call's;
-5. the main path: 100,000 barycentric TOAs in 4-TOA ECORR epochs,
-   simulated from the bench par (without astrometry) on the card, then
-   the damped GLS fit (``HybridGLSFitter(...).fit_toas(maxiter=10)``) —
+   path's shapes (q = 66: the bench par with RAJ/DECJ), at the
+   barycentric path's (q = 64), at an odd row count that pads and at two
+   column tiles, and against float64 within 10x its error bound, with its
+   time (CUDA events around one call, and each pass's device time), the
+   plain version's, its bound and a library call's;
+5. the data layer: the same 2,000-row GBT table (clock chain, TDB,
+   observatory and planet positions) built on the card and on the CPU
+   must agree column by column;
+6. the main path: bench.py's par verbatim (RAJ/DECJ fitted, EPHEM DE421
+   through the analytic fallback, TZRSITE 1), 100,000 GBT TOAs in 4-TOA
+   ECORR epochs simulated on the card, the table build timed, then the
+   damped GLS fit (``HybridGLSFitter(...).fit_toas(maxiter=10)``) —
    every kernel's launch count is set to 0 just before and read just
    after, and each must have launched; then the same fit with an exact
    float64 Gram as a witness of where the damped loop stops, the warm
-   step's times and a torch.profiler trace of one warm step (the
-   device's idle share and the kernels that take the time);
-6. the same fit at 2,000 TOAs on the card and on the CPU (plain versions)
-   must agree;
-7. a ``{"kernels": [...]}`` line, then the last line
+   step's times and torch.profiler traces of one warm step and of its
+   stage 1 (the device's idle share and the kernels that take the time);
+7. the topocentric fit and the barycentric one (the earlier path, at this
+   smaller depth) at 2,000 TOAs on the card and on the CPU (plain
+   versions) must agree, the kernel's launches counted in each;
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -49,8 +55,29 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# The bench par (bench.py PAR) for barycentric TOAs: no RAJ/DECJ/POSEPOCH/
-# EPHEM, TZRSITE @.
+# bench.py's PAR, verbatim: the main path's model
+PAR_FULL = """
+PSRJ           J1748-2021E
+RAJ             17:48:52.75  1
+DECJ           -20:21:29.0  1
+F0             61.485476554  1
+F1             -1.181D-15  1
+PEPOCH        53750.000000
+POSEPOCH      53750.000000
+DM              223.9  1
+EPHEM          DE421
+UNITS          TDB
+TZRMJD  53801.38605120074849
+TZRFRQ  1949.609
+TZRSITE 1
+EFAC 1.1
+ECORR 1.2
+TNREDAMP -13.5
+TNREDGAM 3.5
+TNREDC 30
+"""
+# The bench par for barycentric TOAs (the earlier path): no RAJ/DECJ/
+# POSEPOCH/EPHEM, TZRSITE @.
 PAR_BARY = """
 PSRJ           J1748-2021E
 F0             61.485476554  1
@@ -67,6 +94,7 @@ TNREDAMP -13.5
 TNREDGAM 3.5
 TNREDC 30
 """
+SITES = {PAR_FULL: "gbt", PAR_BARY: "@"}
 N_TOAS = 100_000
 N_SMALL = 2_000
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
@@ -78,6 +106,11 @@ HBM_BYTES_S = 3.35e12
 # these inputs. (The CPU tests hold the plain version to the TPU kernel,
 # whose order differs, at 1e-6.)
 PLAIN_BAR = 1e-12
+# the card's table against the CPU's: both do the same IEEE operations
+# and differ only in the last bits of sin/cos/log
+TDB_BAR_S = 1e-12      # 1 ps
+POS_BAR_LS = 1e-11     # light-seconds, 3 mm
+VEL_BAR = 1e-15        # v/c
 
 
 def fail(msg: str) -> None:
@@ -97,18 +130,32 @@ def epoch_mjds(n, rng):
             + rng.uniform(0, 0.5 / 86400.0, (n_ep, 4))).ravel()[:n]
 
 
-def simulate(model, n, seed, device):
-    """The bench's traffic: n TOAs in 4-TOA epochs at 1400/430 MHz, 1 us."""
+def simulate(par, n, seed, device):
+    """The bench's traffic from `par`: n TOAs in 4-TOA epochs at 1400/430
+    MHz, 1 us, at GBT (PAR_FULL) or the barycenter (PAR_BARY)."""
+    from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops.dd import DD
     from pint_tpu_torch.simulation import make_fake_toas_from_arrays
 
     rng = np.random.default_rng(seed)
     mjds = epoch_mjds(n, rng)
     return make_fake_toas_from_arrays(
-        DD(mjds, np.zeros(n)), model,
+        DD(mjds, np.zeros(n)), get_model(par),
         freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
-        error_us=1.0, obs="@", add_noise=True,
+        error_us=1.0, obs=SITES[par], add_noise=True,
         seed=int(rng.integers(2 ** 31)), niter=2, device=device)
+
+
+def gbt_table(n, seed, device, ephem):
+    """n GBT TOAs at the bench's MJDs, built (not simulated) on `device`."""
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    rng = np.random.default_rng(seed)
+    return build_TOAs_from_arrays(
+        DD(epoch_mjds(n, rng), np.zeros(n)),
+        freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0), error_us=1.0,
+        obs_names=("gbt",), eph=ephem, device=device)
 
 
 def median_ms(fn, reps=20, warm=3):
@@ -170,20 +217,21 @@ def run_fit(model, toas):
     return fitter, chi2, t1 - t0, t2 - t1, calls["step"], calls["probe"]
 
 
-def profile_step(fitter, base, deltas, step_ms):
-    """torch.profiler over one warm full step: the kernels that take the
-    time, and the device's idle share of the unprofiled step's wall."""
+def profile_step(label, fn, wall_ms):
+    """torch.profiler over one warm call of fn (a step or its stage 1):
+    the kernels that take the time, and the device's idle share of the
+    unprofiled call's wall time `wall_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    float(fitter._iterate(base, deltas)[1]["chi2_at_input"])
+    fn()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        float(fitter._iterate(base, deltas)[1]["chi2_at_input"])
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof_ms = (time.perf_counter() - t0) * 1e3
 
     by_name: dict = {}
     for e in prof.events():
@@ -192,11 +240,11 @@ def profile_step(fitter, base, deltas, step_ms):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms == 0.0:
-        print("profile: the trace holds no device time (not measured)")
+        print(f"profile of {label}: the trace holds no device time (not measured)")
         return
-    print(f"profile of one full step: wall {wall_ms:.2f} ms profiled, "
-          f"{step_ms:.2f} ms not; device busy {busy_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / step_ms:.3f} of the unprofiled step, "
+    print(f"profile of {label}: wall {prof_ms:.2f} ms profiled, "
+          f"{wall_ms:.2f} ms not; device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f} of the unprofiled wall, "
           f"{sum(c for _, c in by_name.values())} kernel launches")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (ms, count) in top:
@@ -240,10 +288,29 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+# Gram shapes of phase 4: (label, n, q, timed, main path). G_BB is every
+# TOA x (offset, RAJ, DECJ, DM, F0, F1, 60 Fourier columns) on the main
+# path, q = 64 without RAJ/DECJ on the barycentric one;
+# the ECORR Schur term has one row per 4-TOA epoch. 2,000 and 500 rows are
+# phase 7's fits; 137 rows pad the block and its last 32-row chunk;
+# 3,001 x 100 takes the off-diagonal tile path and an odd row count.
+GRAM_SHAPES = (
+    ("G_BB", N_TOAS, 66, True, True),
+    ("Schur", N_TOAS // 4, 66, True, True),
+    ("G_BB q64", N_TOAS, 64, True, False),
+    ("Schur q64", N_TOAS // 4, 64, True, False),
+    ("G_BB small", N_SMALL, 66, False, False),
+    ("Schur small", N_SMALL // 4, 66, False, False),
+    ("G_BB small q64", N_SMALL, 64, False, False),
+    ("Schur small q64", N_SMALL // 4, 64, False, False),
+    ("padding", 137, 64, False, False),
+    ("two tiles", 3001, 100, False, False),
+)
+
+
 def check_gram(gram, dev):
-    """ds32_gram against its plain version and f64 at the main path's
-    shapes (timed), at an odd row count that pads and at q = 100, two
-    column tiles (checked, and their passes timed).
+    """ds32_gram against its plain version and f64 at every shape of
+    GRAM_SHAPES; the timed ones are returned with their times.
 
     Times: `ms`, `library_ms` and `plain_ms` are CUDA events around one
     call on an idle card, so they include the launches' host latency;
@@ -251,12 +318,7 @@ def check_gram(gram, dev):
     device time per call (torch.profiler, every kernel the call
     launches)."""
     shapes = []
-    # G_BB: every TOA x (offset, DM, F0, F1, 60 Fourier columns); the
-    # ECORR Schur term: one row per 4-TOA epoch; 137 rows pad the block
-    # and its last 32-row chunk; 3,001 x 100 takes the off-diagonal
-    # tile path and an odd row count
-    for label, n, q in (("G_BB", N_TOAS, 64), ("Schur", N_TOAS // 4, 64),
-                        ("padding", 137, 64), ("two tiles", 3001, 100)):
+    for label, n, q, timed, main_path in GRAM_SHAPES:
         A = whitened(n, q, seed=n, device=dev)
         bn, nb = gram._block_rows(n)
         before = gram.ds32_gram.launches
@@ -288,7 +350,7 @@ def check_gram(gram, dev):
         print(f"  {label}: partials {fmt_ms(passes['partials_ms'])} + reduce "
               f"{fmt_ms(passes['reduce_ms'])} of device time per call "
               f"(torch.profiler, 20 calls)", flush=True)
-        if label in ("padding", "two tiles"):
+        if not timed:
             continue
         # the function's work: the upper triangle of a1ᵀa1 and one a1ᵀa2
         # (a2ᵀa1 is its transpose), 2 flops per FFMA
@@ -296,7 +358,8 @@ def check_gram(gram, dev):
         nbytes = 8.0 * (n * q + q * q)   # A read once, G written once
         bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
         shapes.append({
-            "shape": label, "n": n, "q": q, "bn": bn, "nb": nb,
+            "shape": label, "n": n, "q": q, "main_path": main_path,
+            "bn": bn, "nb": nb,
             "ms": median_ms(lambda: gram.ds32_gram(A)),
             "device_ms": (None if None in passes.values()
                           else passes["partials_ms"] + passes["reduce_ms"]),
@@ -363,14 +426,55 @@ def main() -> None:
 
     phase("4 ds32_gram against its plain version")
     shapes = check_gram(gram, dev)
+    main_shapes = [s for s in shapes if s["main_path"]]
+    print("bound per GLS step at the main path's shapes: "
+          + " + ".join(f"{s['shape']} {s['bound_ms']:.4f}" for s in main_shapes)
+          + f" = {sum(s['bound_ms'] for s in main_shapes):.4f} ms", flush=True)
 
-    phase(f"5 main path: {N_TOAS} TOAs, damped GLS fit")
-    model = get_model(PAR_BARY)
+    phase(f"5 the data layer: {N_SMALL} GBT TOAs built on the card and the CPU")
+    ephem = get_model(PAR_FULL).ephem
     t0 = time.perf_counter()
-    toas = simulate(get_model(PAR_BARY), N_TOAS, seed=0, device=dev)
+    card = gbt_table(N_SMALL, seed=2, device=dev, ephem=ephem)
     torch.cuda.synchronize()
-    print(f"simulated {len(toas)} TOAs on {toas.device} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"built on the card in {time.perf_counter() - t0:.3f} s (first "
+          f"build in the process), ephemeris {card.ephem_name}", flush=True)
+    cpu = gbt_table(N_SMALL, seed=2, device="cpu", ephem=ephem)
+    if not (torch.equal(card.utc.hi.cpu(), cpu.utc.hi)
+            and torch.equal(card.utc.lo.cpu(), cpu.utc.lo)):
+        fail("the clock-corrected UTC columns differ between card and CPU")
+    tdb_gap = float(torch.max(torch.abs(
+        (card.tdb.hi.cpu() - cpu.tdb.hi) * 86400.0
+        + (card.tdb.lo.cpu() - cpu.tdb.lo) * 86400.0)))
+    gaps = {"obs_pos_ls": (card.obs_pos_ls, cpu.obs_pos_ls, POS_BAR_LS),
+            "obs_vel_c": (card.obs_vel_c, cpu.obs_vel_c, VEL_BAR),
+            **{f"planet_pos_ls[{k}]": (card.planet_pos_ls[k],
+                                       cpu.planet_pos_ls[k], POS_BAR_LS)
+               for k in cpu.planet_pos_ls}}
+    print(f"  TDB: max |card - cpu| {tdb_gap:.3e} s (bar {TDB_BAR_S:g})")
+    bad = [] if tdb_gap <= TDB_BAR_S else ["TDB"]
+    for key, (a, b, bar) in gaps.items():
+        gap = float(torch.max(torch.abs(a.cpu() - b)))
+        print(f"  {key}: max |card - cpu| {gap:.3e} (bar {bar:g})")
+        if not gap <= bar:
+            bad.append(key)
+    if card.planet_pos_ls.keys() != cpu.planet_pos_ls.keys() or bad:
+        fail(f"the card's TOA table differs from the CPU's: {bad}")
+
+    phase(f"6 main path: bench.py's par, {N_TOAS} GBT TOAs, damped GLS fit")
+    model = get_model(PAR_FULL)
+    print("components: " + ", ".join(type(c).__name__ for c in model.components)
+          + f"; free parameters {model.free_params}", flush=True)
+    t0 = time.perf_counter()
+    toas = simulate(PAR_FULL, N_TOAS, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"simulated {len(toas)} TOAs at {toas.obs_names} on {toas.device} in "
+          f"{time.perf_counter() - t0:.2f} s (two table builds and two "
+          f"inversion passes)", flush=True)
+    build_ms = host_ms(lambda: gbt_table(N_TOAS, 0, dev, model.ephem), reps=3)
+    print(f"one {N_TOAS}-row GBT table build on the card (warm): "
+          f"{build_ms:.2f} ms wall", flush=True)
+    profile_step("one table build", lambda: gbt_table(N_TOAS, 0, dev, model.ephem),
+                 build_ms)
     gram.ds32_gram.launches = 0
     torch.cuda.reset_peak_memory_stats()
     fitter, chi2, build_s, fit_s, steps, probes = run_fit(model, toas)
@@ -385,7 +489,7 @@ def main() -> None:
           f"peak memory {peak_mb:.1f} MiB", flush=True)
     for k in fitter.fit_params:
         p = model[k]
-        print(f"  {k} = {p.format_value()} +- {p.uncertainty:.6g}")
+        print(f"  {k} = {p.format_value()} +- {p.format_uncertainty()}")
     print(f"ds32_gram launches in the fit: {launches}", flush=True)
     if not (math.isfinite(chi2) and fitter.converged):
         fail(f"fit did not converge to a finite chi2 ({chi2})")
@@ -397,7 +501,7 @@ def main() -> None:
     # an exact f64 Gram in place of the kernel
     gls_step.ds32_gram = lambda A: A.T @ A
     try:
-        _, chi2_f64, _, _, steps_f64, probes_f64 = run_fit(get_model(PAR_BARY),
+        _, chi2_f64, _, _, steps_f64, probes_f64 = run_fit(get_model(PAR_FULL),
                                                            toas)
     finally:
         gls_step.ds32_gram = gram.ds32_gram
@@ -407,40 +511,56 @@ def main() -> None:
     if not abs(chi2 - chi2_f64) <= 1e-6 * chi2_f64:
         fail(f"the fit's chi2 {chi2} is not the f64 Gram fit's {chi2_f64}")
     warm, _, wbuild_s, wfit_s, wsteps, wprobes = run_fit(
-        get_model(PAR_BARY), toas)
+        get_model(PAR_FULL), toas)
     print(f"fit (warm, same table, fresh model): {wbuild_s + wfit_s:.3f} s wall"
           f" = construction {wbuild_s:.3f} s + fit_toas {wfit_s:.3f} s; "
           f"{wsteps} full steps, {wprobes} probes", flush=True)
     base = model.base_dd(dev)
     deltas = model.zero_deltas(device=dev)
-    step_ms = host_ms(lambda: float(warm._iterate(base, deltas)[1]["chi2_at_input"]))
-    stage1_ms = host_ms(lambda: warm._stage1(base, deltas, toas))
+
+    def full_step():
+        float(warm._iterate(base, deltas)[1]["chi2_at_input"])
+
+    def stage1():
+        warm._stage1(base, deltas, warm.toas)
+
+    step_ms = host_ms(full_step)
+    stage1_ms = host_ms(stage1)
     probe_ms = host_ms(lambda: warm._chi2_at(base, deltas))
     print(f"one full step (warm): {step_ms:.2f} ms, of which stage 1 "
           f"(DD phase + jacfwd design) {stage1_ms:.2f} ms; one probe "
           f"{probe_ms:.2f} ms", flush=True)
+    profile_step("one full step", full_step, step_ms)
+    profile_step("stage 1 of a step", stage1, stage1_ms)
 
-    profile_step(warm, base, deltas, step_ms)
+    phase(f"7 the fits on the card agree with the CPU at {N_SMALL} TOAs")
+    launches_by_path = {f"topocentric {N_TOAS} (main path)": launches}
+    for label, par in (("topocentric", PAR_FULL), ("barycentric", PAR_BARY)):
+        small = simulate(par, N_SMALL, seed=1, device="cpu")
+        fits = []
+        for d in ("cpu", dev):
+            m = get_model(par)
+            gram.ds32_gram.launches = 0
+            f = HybridGLSFitter(small, m, device=d)
+            fits.append((m, f.fit_toas(maxiter=3), f.converged,
+                         gram.ds32_gram.launches))
+        (m_cpu, c_cpu, v_cpu, n_cpu), (m_gpu, c_gpu, v_gpu, n_gpu) = fits
+        launches_by_path[f"{label} {N_SMALL}"] = n_gpu
+        worst = max(abs(m_cpu[k].value_f64 - m_gpu[k].value_f64)
+                    / m_cpu[k].uncertainty for k in m_cpu.free_params)
+        print(f"{label}: chi2 cpu {c_cpu:.9f} card {c_gpu:.9f}; worst parameter "
+              f"gap {worst:.3e} sigma; converged {v_cpu}/{v_gpu}; ds32_gram "
+              f"launches cpu {n_cpu}, card {n_gpu}", flush=True)
+        if not (v_cpu == v_gpu and abs(c_gpu - c_cpu) <= 1e-6 * abs(c_cpu)
+                and worst < 0.05):
+            fail(f"the {label} fit on the card disagrees with the CPU fit")
+        if n_gpu == 0 or n_cpu != 0:
+            fail(f"the {label} fit launched ds32_gram {n_gpu} times on the "
+                 f"card and {n_cpu} times on the CPU")
 
-    phase(f"6 the fit on the card agrees with the CPU at {N_SMALL} TOAs")
-    small = simulate(get_model(PAR_BARY), N_SMALL, seed=1, device="cpu")
-    fits = []
-    for d in ("cpu", dev):
-        m = get_model(PAR_BARY)
-        f = HybridGLSFitter(small, m, device=d)
-        fits.append((m, f.fit_toas(maxiter=3), f.converged))
-    (m_cpu, c_cpu, v_cpu), (m_gpu, c_gpu, v_gpu) = fits
-    worst = max(abs(m_cpu[k].value_f64 - m_gpu[k].value_f64) / m_cpu[k].uncertainty
-                for k in m_cpu.free_params)
-    print(f"chi2 cpu {c_cpu:.9f} card {c_gpu:.9f}; worst parameter gap "
-          f"{worst:.3e} sigma; converged {v_cpu}/{v_gpu}", flush=True)
-    if not (v_cpu == v_gpu and abs(c_gpu - c_cpu) <= 1e-6 * abs(c_cpu)
-            and worst < 0.05):
-        fail("the fit on the card disagrees with the CPU fit")
-
-    phase("7 result")
-    per_step = {k: (None if any(s[k] is None for s in shapes)
-                    else sum(s[k] for s in shapes))
+    phase("8 result")
+    per_step = {k: (None if any(s[k] is None for s in main_shapes)
+                    else sum(s[k] for s in main_shapes))
                 for k in ("ms", "device_ms", "plain_ms", "library_ms",
                           "library_device_ms", "bound_ms")}
     kernels = [{
@@ -451,10 +571,12 @@ def main() -> None:
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         **per_step,
         "bound_by": ("operations" if all(s["bound_by"] == "operations"
-                                         for s in shapes) else "bytes"),
-        "timing": "per GLS step: G_BB + Schur shapes summed; ms, plain_ms "
-                  "and library_ms are CUDA events around one call, device_ms "
-                  "and library_device_ms device time (torch.profiler)",
+                                         for s in main_shapes) else "bytes"),
+        "timing": "per GLS step of the main path: its G_BB + Schur shapes "
+                  "summed; ms, plain_ms and library_ms are CUDA events around "
+                  "one call, device_ms and library_device_ms device time "
+                  "(torch.profiler)",
+        "launches_by_path": launches_by_path,
         "shapes": shapes,
     }]
     print("kernels: [ds32_gram: ok, " + ", ".join(

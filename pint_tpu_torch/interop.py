@@ -3,15 +3,17 @@
 The reference package and this one exchange data only as numpy arrays,
 so the tests can fit the very same table with both. Parameter values
 travel as exact (hi, lo) float64 pairs and TOA columns as the table's
-hi/lo words, so nothing is rounded on the way.
+hi/lo words and float64 arrays, so nothing is rounded on the way.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from pint_tpu_torch import resolve_device
 from pint_tpu_torch.ops.dd import DD
-from pint_tpu_torch.toas import TOAs, build_TOAs_from_arrays
+from pint_tpu_torch.toas import TOAs
 
 
 def state_from_numpy(params: dict, toa_columns: dict, *, model,
@@ -21,27 +23,45 @@ def state_from_numpy(params: dict, toa_columns: dict, *, model,
     ``params`` maps a parameter name to its value as an exact
     ``(hi, lo)`` pair of float64 (names the model lacks raise
     ``KeyError``). ``toa_columns`` holds ``"tdb.hi"``, ``"tdb.lo"``,
-    ``"utc.hi"``, ``"utc.lo"``, ``"freq_mhz"``, ``"error_us"`` and
-    optionally ``"flags"`` (per-TOA dicts), ``"phase_offset"`` and
-    ``"obs_names"``/``"obs_index"``. The sites must be barycentric, where
-    tdb and utc are one time; differing columns raise ``ValueError``.
+    ``"utc.hi"``, ``"utc.lo"``, ``"freq_mhz"``, ``"error_us"``,
+    ``"obs_pos_ls"`` and ``"obs_vel_c"`` (n, 3), ``"planet_pos_ls"``
+    (name -> (n, 3)), and optionally ``"flags"`` (per-TOA dicts),
+    ``"phase_offset"``, ``"pulse_number"``, ``"obs_names"``/``"obs_index"``,
+    ``"jump_group"``, ``"ephem_name"`` and ``"clock_applied"``. The
+    columns are taken as they are: nothing is recomputed.
     ``device=None`` means the CUDA card.
     """
     for name, (hi, lo) in params.items():
         model[name].value = (float(np.float64(hi)), float(np.float64(lo)))
-    hi = np.asarray(toa_columns["utc.hi"], dtype=np.float64)
-    lo = np.asarray(toa_columns["utc.lo"], dtype=np.float64)
-    if not (np.array_equal(hi, np.asarray(toa_columns["tdb.hi"]))
-            and np.array_equal(lo, np.asarray(toa_columns["tdb.lo"]))):
-        raise ValueError("tdb and utc columns differ: only barycentric "
-                         "tables (tdb = utc) can be carried over")
-    return build_TOAs_from_arrays(
-        DD(hi, lo),
-        freq_mhz=np.asarray(toa_columns["freq_mhz"], dtype=np.float64),
-        error_us=np.asarray(toa_columns["error_us"], dtype=np.float64),
-        obs_index=toa_columns.get("obs_index"),
+    dev = resolve_device(device)
+
+    def col(key):
+        return torch.as_tensor(np.array(toa_columns[key], dtype=np.float64),
+                               device=dev)
+
+    n = int(np.shape(toa_columns["tdb.hi"])[0])
+    flags = tuple(toa_columns.get("flags") or ({} for _ in range(n)))
+    pulse_number = toa_columns.get("pulse_number")
+    if pulse_number is None:
+        pulse_number = [float(f.get("pn", "nan")) for f in flags]
+    return TOAs(
+        tdb=DD(col("tdb.hi"), col("tdb.lo")),
+        utc=DD(col("utc.hi"), col("utc.lo")),
+        freq_mhz=col("freq_mhz"),
+        error_us=col("error_us"),
+        obs_pos_ls=col("obs_pos_ls"),
+        obs_vel_c=col("obs_vel_c"),
+        phase_offset=torch.as_tensor(
+            np.array(toa_columns.get("phase_offset", np.zeros(n)), np.float64),
+            device=dev),
+        planet_pos_ls={k: torch.as_tensor(np.array(v, np.float64), device=dev)
+                       for k, v in toa_columns["planet_pos_ls"].items()},
+        pulse_number=torch.as_tensor(np.array(pulse_number, np.float64),
+                                     device=dev),
+        obs_index=np.asarray(toa_columns.get("obs_index", np.zeros(n)), np.int32),
+        jump_group=np.asarray(toa_columns.get("jump_group", np.zeros(n)), np.int32),
         obs_names=tuple(toa_columns.get("obs_names", ("@",))),
-        flags=toa_columns.get("flags"),
-        phase_offset=toa_columns.get("phase_offset"),
-        device=device,
+        flags=flags,
+        ephem_name=str(toa_columns.get("ephem_name", "builtin_analytic")),
+        clock_applied=bool(toa_columns.get("clock_applied", True)),
     )

@@ -1,1 +1,1 @@
-"""File formats (par files)."""
+"""File formats (par and tim files)."""

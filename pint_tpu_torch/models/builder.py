@@ -5,7 +5,7 @@ Counterpart of ``pint_tpu.models.builder``. Component classes advertise
 component (the first applicable class of a category wins), hands each
 the parsed par file, and validates the assembled model.
 
-Only the components of the barycentric GLS slice are carried. A par file
+Only the components of the topocentric GLS slice are carried. A par file
 that selects any other component of the reference raises
 ``NotImplementedError`` naming it, rather than building a model that
 silently lacks a term.
@@ -18,17 +18,24 @@ import re
 
 from pint_tpu_torch.io.parfile import ParFile, parse_parfile
 from pint_tpu_torch.models.absolute_phase import AbsPhase
+from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
 from pint_tpu_torch.models.component import has_series_term
 from pint_tpu_torch.models.dispersion import DispersionDM
 from pint_tpu_torch.models.noise import EcorrNoise, PLRedNoise, ScaleToaError
+from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
 from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.timing_model import TimingModel
 
 log = logging.getLogger(__name__)
 
 # Build-priority list (the reference's order, ported classes only).
+# Within a category the first applicable class wins (ecliptic astrometry
+# shadows equatorial when ELONG is present).
 COMPONENT_BUILD_ORDER: list[type] = [
     Spindown,
+    AstrometryEcliptic,
+    AstrometryEquatorial,
+    SolarSystemShapiro,
     DispersionDM,
     ScaleToaError,
     EcorrNoise,
@@ -63,8 +70,6 @@ def _any_line(pf, pattern: str) -> bool:
 # The reference's components this package does not carry yet, each with
 # the par-file test its applicable() makes.
 UNPORTED_COMPONENTS = {
-    "AstrometryEcliptic": lambda pf: "ELONG" in pf or "LAMBDA" in pf,
-    "AstrometryEquatorial": lambda pf: "RAJ" in pf or "RA" in pf,
     "DispersionDMX": lambda pf: bool(pf.get_all("DMX_")),
     "SolarWindDispersion": lambda pf: _nonzero(pf, ("NE_SW", "NE1AU", "SOLARN0")),
     "TroposphereDelay": lambda pf: _yes(pf, "CORRECT_TROPOSPHERE"),

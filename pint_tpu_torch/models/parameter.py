@@ -4,10 +4,9 @@ Counterpart of ``pint_tpu.models.parameter``. Values that must survive
 at ~1e-18 relative precision (spin frequencies, epochs) are an exact
 (hi, lo) float64 pair parsed losslessly from par-file decimal strings.
 The fitter solves for a small float64 *delta* per free parameter and the
-host applies ``base <- base (+) delta`` in exact DD arithmetic.
-
-The reference's angle (sexagesimal RA/Dec) and boolean kinds belong to
-components this package does not carry yet.
+host applies ``base <- base (+) delta`` in exact DD arithmetic. Angles
+(sexagesimal RA/Dec) are float64 radians: 1e-16 rad of rounding moves a
+500 s Roemer delay by ~5e-14 s.
 """
 
 from __future__ import annotations
@@ -19,11 +18,15 @@ import torch
 
 from pint_tpu_torch.ops import dd
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.utils import angles
 
 # parameter kinds
 FLOAT = "float"  # plain numeric (float64-grade)
 DDFLOAT = "ddfloat"  # numeric needing double-double (F0, epochs-as-values)
 MJD = "mjd"  # epoch in MJD, DD-grade, usually not fittable
+ANGLE_RA = "angle_ra"  # sexagesimal hours -> rad
+ANGLE_DEC = "angle_dec"  # sexagesimal degrees -> rad
+BOOL = "bool"
 STR = "str"
 
 
@@ -31,8 +34,9 @@ STR = "str"
 class Param:
     """One timing-model parameter (host-side descriptor).
 
-    ``value`` is an exact (hi, lo) float64 pair for numeric kinds, a
-    string for STR.
+    ``value`` is an exact (hi, lo) float64 pair for numeric kinds, a bool
+    for BOOL, a string for STR. ``uncertainty`` is in *internal* units
+    (rad for angles); :meth:`format_uncertainty` converts for par output.
     """
 
     name: str
@@ -74,7 +78,7 @@ class Param:
 
     @property
     def is_numeric(self) -> bool:
-        return self.kind in (FLOAT, DDFLOAT, MJD)
+        return self.kind in (FLOAT, DDFLOAT, MJD, ANGLE_RA, ANGLE_DEC)
 
     @property
     def fittable(self) -> bool:
@@ -100,8 +104,14 @@ class Param:
 
     def set_from_par(self, text: str) -> None:
         """Parse a par-file value string into the internal representation."""
-        if self.kind == STR:
+        if self.kind == BOOL:
+            self.value = str(text).strip().upper() in ("1", "Y", "YES", "T", "TRUE")
+        elif self.kind == STR:
             self.value = str(text).strip()
+        elif self.kind == ANGLE_RA:
+            self.value = (angles.hms_to_rad(text), 0.0)
+        elif self.kind == ANGLE_DEC:
+            self.value = (angles.dms_to_rad(text), 0.0)
         else:
             self.value = tuple(dd.from_string(text))
 
@@ -110,6 +120,10 @@ class Param:
             u = float(text.replace("D", "e").replace("d", "e"))
         except ValueError:
             return
+        if self.kind == ANGLE_RA:
+            u *= angles.RAD_PER_HOURANGLE_SEC
+        elif self.kind == ANGLE_DEC:
+            u *= angles.RAD_PER_ARCSEC
         self.uncertainty = u
 
     def add_delta(self, delta: float) -> None:
@@ -119,12 +133,26 @@ class Param:
         self.value = _renorm(s, e)
 
     def format_value(self) -> str:
+        if self.kind == BOOL:
+            return "Y" if self.value else "N"
         if self.kind == STR:
             return str(self.value)
+        if self.kind == ANGLE_RA:
+            return angles.rad_to_hms(self.value_f64, ndp=11)
+        if self.kind == ANGLE_DEC:
+            return angles.rad_to_dms(self.value_f64, ndp=10)
         hi, lo = self.value
         if lo == 0.0 and abs(hi) < 1e15:
             return repr(hi)
         return dd.to_string(DD(hi, lo), ndigits=21)
+
+    def format_uncertainty(self) -> str:
+        u = self.uncertainty
+        if self.kind == ANGLE_RA:
+            u /= angles.RAD_PER_HOURANGLE_SEC
+        elif self.kind == ANGLE_DEC:
+            u /= angles.RAD_PER_ARCSEC
+        return f"{u:.8g}"
 
 
 def _two_sum(a: float, b: float) -> tuple[float, float]:
@@ -155,6 +183,11 @@ def str_param(name: str, default: str = "", desc: str = "",
     return Param(name=name, kind=STR, value=default, description=desc, aliases=aliases)
 
 
+def bool_param(name: str, default: bool = False, desc: str = "",
+               aliases: tuple[str, ...] = ()) -> Param:
+    return Param(name=name, kind=BOOL, value=default, description=desc, aliases=aliases)
+
+
 def toa_mask(selector: tuple[str, ...], toas) -> np.ndarray:
     """Boolean numpy mask of TOAs matched by a maskParameter selector.
 
@@ -167,9 +200,9 @@ def toa_mask(selector: tuple[str, ...], toas) -> np.ndarray:
         return np.ones(n, dtype=bool)
     key = selector[0].lstrip("-").lower()
     if key in ("tel", "obs"):
-        from pint_tpu_torch.toas import site_name
+        from pint_tpu_torch.observatory import get_observatory
 
-        target = site_name(selector[1])
+        target = get_observatory(selector[1]).name
         names = np.asarray(toas.obs_names, dtype=object)
         return names[toas.obs_index] == target
     if key == "mjd":

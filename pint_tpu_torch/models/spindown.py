@@ -10,16 +10,10 @@ from __future__ import annotations
 
 import math
 
-from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.models.component import Component, check_contiguous_series
 from pint_tpu_torch.models.parameter import DDFLOAT, float_param, mjd_param
-from pint_tpu_torch.ops import dd, phase as phase_mod
+from pint_tpu_torch.ops import dd, phase as phase_mod, timescales as ts
 from pint_tpu_torch.ops.dd import DD
-
-
-def dt_seconds(t: DD, epoch: DD) -> DD:
-    """(t - epoch) in seconds, both DD MJD days — the fundamental Δt."""
-    return dd.mul(dd.sub(t, epoch), SECS_PER_DAY)
 
 
 class Spindown(Component):
@@ -58,7 +52,7 @@ class Spindown(Component):
 
     def dt_seconds(self, p: dict[str, DD], toas, delay) -> DD:
         """Barycentric time since PEPOCH, in DD seconds."""
-        return dd.sub(dt_seconds(toas.tdb, p["PEPOCH"]), delay)
+        return dd.sub(ts.dt_seconds(toas.tdb, p["PEPOCH"]), delay)
 
     def phase(self, p: dict[str, DD], toas, delay, aux: dict) -> phase_mod.Phase:
         dt = self.dt_seconds(p, toas, delay)

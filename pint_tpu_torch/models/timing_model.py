@@ -74,6 +74,10 @@ class TimingModel:
             c.validate()
 
     @property
+    def ephem(self) -> str:
+        return self.header.get("EPHEM", "builtin_analytic")
+
+    @property
     def f0_f64(self) -> float:
         return self.params["F0"].value_f64
 
@@ -104,11 +108,11 @@ class TimingModel:
     def phase_components(self) -> list[Component]:
         return [c for c in self.components if c.is_phase]
 
-    def get_tzr_toas(self, device=None):
+    def get_tzr_toas(self, device=None, planets: bool = True):
         absph = self.get_component("AbsPhase")
         if absph is None:
             return None
-        return absph.get_tzr_toas(device)
+        return absph.get_tzr_toas(self.ephem, planets=planets, device=device)
 
     def _phase_at(self, p: dict[str, DD], tt,
                   skip_categories: tuple[str, ...] = ()) -> phase_mod.Phase:

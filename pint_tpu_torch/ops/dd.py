@@ -51,6 +51,17 @@ def _as_f64(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, correctly rounded on every device.
+
+    CUDA PyTorch computes ``tensor / python_float`` as a product with the
+    float's reciprocal, up to one ulp from the quotient; a divisor that
+    lives on the tensor's device takes the IEEE division, as the CPU
+    does. (One ulp of the UTC->TAI offset in days is 5e-15 s of TDB.)
+    """
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def _coerce(x: DDLike) -> DD:
     if isinstance(x, DD):
         return x

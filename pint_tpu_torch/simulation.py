@@ -1,10 +1,12 @@
 """Fake-TOA simulation: invert the timing-model phase -> arrival times.
 
-Counterpart of ``pint_tpu.simulation.make_fake_toas_from_arrays``. The
-inversion is the reference's fixed-point iteration: compute phase
-residuals at the current epochs, shift the epochs by -residual in exact
-DD, repeat (quadratic convergence; 3 passes reach < 1e-12 s). All of it
-runs on the table's device.
+Counterpart of ``pint_tpu.simulation`` (``make_fake_toas_uniform``,
+``make_fake_toas_from_arrays``). The inversion is the reference's
+fixed-point iteration: compute phase residuals at the current epochs,
+shift the epochs by -residual in exact DD, repeat (quadratic
+convergence; 3 passes reach < 1e-12 s). All of it runs on the table's
+device. The noise draw is a ``torch.Generator``'s, so a seed gives other
+numbers than the reference's numpy generator.
 """
 
 from __future__ import annotations
@@ -16,9 +18,17 @@ import torch
 
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.constants import SECS_PER_DAY
+from pint_tpu_torch.io.timfile import RawTOA, TimFile
 from pint_tpu_torch.ops import dd
 from pint_tpu_torch.residuals import Residuals
-from pint_tpu_torch.toas import TOAs, build_TOAs_from_arrays
+from pint_tpu_torch.toas import TOAs, build_TOAs_from_arrays, get_TOAs
+
+
+def _tim_from_mjd_strings(mjd_strs, freq_mhz, error_us, obs) -> TimFile:
+    return TimFile(toas=[
+        RawTOA(s, float(error_us[i]), float(freq_mhz[i]), obs,
+               {"name": f"fake_{i}"})
+        for i, s in enumerate(mjd_strs)])
 
 
 def _invert_to_model(build, mjd_dd: dd.DD, model, errs: torch.Tensor, *,
@@ -54,24 +64,64 @@ def _invert_to_model(build, mjd_dd: dd.DD, model, errs: torch.Tensor, *,
 
 
 def _shift_toas(toas: TOAs, delta_day: torch.Tensor) -> TOAs:
-    """Advance a built table's arrival times by ``delta_day`` (f64 days),
-    exactly (DD add). A barycentric table has no observatory motion to
-    advance with them."""
-    return dataclasses.replace(toas, utc=dd.add(toas.utc, delta_day),
-                               tdb=dd.add(toas.tdb, delta_day))
+    """Advance a built table's arrival times by ``delta_day`` (f64 days).
+
+    First-order update for the inversion loop: times shift exactly (DD
+    add), the observatory SSB position advances by v*dt (quadratic
+    remainder a*dt^2/2 < 1e-7 m for dt < 10 ms), and planet positions
+    stay (planetary Shapiro delays vary by < 1e-12 s over such shifts).
+    Not a substitute for a full rebuild over large deltas: clock chains
+    and TDB-TT drift are frozen across the shift.
+    """
+    dt_s = delta_day * SECS_PER_DAY
+    return dataclasses.replace(
+        toas, utc=dd.add(toas.utc, delta_day), tdb=dd.add(toas.tdb, delta_day),
+        obs_pos_ls=toas.obs_pos_ls + toas.obs_vel_c * dt_s[:, None])
+
+
+def make_fake_toas_uniform(startMJD: float, endMJD: float, ntoas: int, model,
+                           *, obs: str = "gbt", freq_mhz=1400.0,
+                           error_us=1.0, add_noise: bool = False,
+                           seed: int | None = None, niter: int = 3,
+                           include_clock: bool = True, device=None) -> TOAs:
+    """Uniformly spaced synthetic TOAs that the model times perfectly.
+
+    Each pass rebuilds the table through the tim-file path (MJD strings,
+    :func:`~pint_tpu_torch.toas.get_TOAs`) on `device` (``None``: the
+    CUDA card); a short ``freq_mhz``/``error_us`` array cycles over the
+    TOAs.
+    """
+    dev = resolve_device(device)
+    mjds = np.linspace(float(startMJD), float(endMJD), int(ntoas))
+    mjd_dd = dd.from_strings([f"{m:.12f}" for m in mjds], device=dev)
+    freqs = np.resize(np.asarray(freq_mhz, np.float64), ntoas)
+    errs = np.resize(np.asarray(error_us, np.float64), ntoas)
+
+    def build(m):
+        hi, lo = m.hi.cpu().numpy(), m.lo.cpu().numpy()
+        strs = [dd.to_string(dd.DD(hi[i], lo[i]), ndigits=25)
+                for i in range(ntoas)]
+        tf = _tim_from_mjd_strings(strs, freqs, errs, obs)
+        return get_TOAs(tf, ephem=model.ephem, include_clock=include_clock,
+                        device=dev)
+
+    return _invert_to_model(build, mjd_dd, model,
+                            torch.as_tensor(errs, device=dev),
+                            add_noise=add_noise, seed=seed, niter=niter)
 
 
 def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
-                               error_us, obs: str = "@",
+                               error_us, obs: str = "gbt",
                                add_noise: bool = False,
                                seed: int | None = None, niter: int = 3,
+                               include_clock: bool = True,
                                device=None) -> TOAs:
     """Model-perfect arrival times at *given* epochs.
 
     The caller supplies the local MJDs as a DD of arrays; the fixed-point
-    iteration makes them arrivals the model times perfectly. ``device``
-    (``None``: the CUDA card) is where the table is built and the
-    iteration runs.
+    iteration makes them arrivals the model times perfectly, with the
+    model's ephemeris. ``device`` (``None``: the CUDA card) is where the
+    table is built and the iteration runs.
     """
     dev = resolve_device(device)
     mjd_dd = dd.DD(torch.as_tensor(mjd_dd.hi, dtype=torch.float64, device=dev),
@@ -81,8 +131,9 @@ def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
     errs = np.resize(np.asarray(error_us, np.float64), n)
 
     def build(m):
-        return build_TOAs_from_arrays(m, freq_mhz=freqs, error_us=errs,
-                                      obs_names=(obs,), device=dev)
+        return build_TOAs_from_arrays(
+            m, freq_mhz=freqs, error_us=errs, obs_names=(obs,),
+            eph=model.ephem, include_clock=include_clock, device=dev)
 
     return _invert_to_model(build, mjd_dd, model,
                             torch.as_tensor(errs, device=dev),

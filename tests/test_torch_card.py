@@ -1,4 +1,4 @@
-"""pint_tpu_torch's kernel wrapper on the CUDA card.
+"""pint_tpu_torch's kernel wrapper and division helper on the CUDA card.
 
 Every test here needs an NVIDIA card and skips without one. The kernel's
 numbers (against its plain version and f64, at the main path's shapes and
@@ -13,9 +13,11 @@ nor pint_tpu, so it runs on a host that has only the port's dependencies:
 the suite.)
 """
 
+import numpy as np
 import pytest
 import torch
 
+from pint_tpu_torch.ops.dd import true_div
 from pint_tpu_torch.ops.gram import MAX_COLUMNS, ds32_gram
 from torch_parity import cuda_device  # noqa: F401
 
@@ -40,3 +42,12 @@ def test_kernel_rejects_more_columns_than_its_grid(cuda_device):
     A = torch.zeros((1, MAX_COLUMNS + 1), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="columns"):
         ds32_gram(A)
+
+
+def test_true_div_is_the_ieee_quotient_on_the_card(cuda_device):
+    """The card's ``true_div`` equals the CPU's correctly rounded quotient,
+    bit for bit, at the data layer's divisors (the card's ``x / c`` need
+    not: it multiplies by the reciprocal)."""
+    x = torch.as_tensor(np.random.default_rng(0).uniform(-4e4, 4e4, 100_000))
+    for c in (86400.0, 36525.0, 365250.0, 299792458.0, 299792458.0 ** 2):
+        assert torch.equal(true_div(x.to(cuda_device), c).cpu(), x / c), c

@@ -13,6 +13,10 @@
   double-single fit to.
 * With the Gram made exact on both sides, the port's plumbing equals the
   reference's to round-off.
+* The same at the full bench par on 2,000 GBT TOAs (q = 66 with RAJ and
+  DECJ). There the port's uncertainties are held to the reference's f64
+  fit at the spread the reference's own double-single fit shows on that
+  table (measured in the test and printed), or 1e-3 if that is larger.
 * The package boundary: no JAX and nothing of pint_tpu is imported, and
   nothing runs on the CPU unless asked.
 """
@@ -38,7 +42,8 @@ from pint_tpu_torch.ops import gram
 from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.residuals import Residuals
 from pint_tpu_torch.simulation import make_fake_toas_from_arrays
-from torch_parity import PAR_BARY, epoch_mjds, port_state, simulate_reference
+from torch_parity import (PAR_BARY, PAR_FULL, epoch_mjds, port_state,
+                          simulate_reference)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -155,6 +160,81 @@ def test_fit_plumbing_exact_with_exact_gram(fits, monkeypatch):
         np.testing.assert_allclose(b.uncertainty, a.uncertainty, rtol=1e-9)
 
 
+@pytest.fixture(scope="module")
+def topo_fits():
+    """The same 2,000-TOA GBT table at the full bench par, fitted by the
+    reference (double-single and exact f64 Grams) and by the port."""
+    ref_model, ref_toas = simulate_reference(2000, seed=0, par=PAR_FULL)
+    out = {}
+    for key, mxu in (("ref_ds32", True), ("ref_f64", False)):
+        m = jget_model(PAR_FULL)
+        f = JHybridGLSFitter(ref_toas, m, force_mxu=mxu)
+        out[key] = (m, f.fit_toas(maxiter=3), f.converged)
+    model, toas = port_state(ref_model, ref_toas, par=PAR_FULL)
+    f = HybridGLSFitter(toas, model, device="cpu")
+    out["port"] = (model, f.fit_toas(maxiter=3), f.converged)
+    out["state"] = (ref_model, ref_toas)
+    return out
+
+
+def test_topocentric_fit_matches_reference(topo_fits):
+    ref, chi2_ref, conv_ref = topo_fits["ref_ds32"]
+    f64 = topo_fits["ref_f64"][0]
+    model, chi2, conv = topo_fits["port"]
+    assert model.free_params == ["RAJ", "DECJ", "DM", "F0", "F1"]
+    assert conv == conv_ref
+    np.testing.assert_allclose(chi2, chi2_ref, rtol=1e-6)
+    # the reference's own double-single spread from its f64 fit
+    spread = max(abs(ref[k].uncertainty / f64[k].uncertainty - 1)
+                 for k in f64.free_params)
+    bar = max(spread, 1e-3)
+    print(f"reference ds32 / f64 - 1, worst parameter: {spread:.3e}; "
+          f"bar {bar:.3e}")
+    for name in ref.free_params:
+        a, b = ref[name], model[name]
+        assert abs(a.value_f64 - b.value_f64) < 0.05 * a.uncertainty, name
+        gap = b.uncertainty / f64[name].uncertainty - 1
+        print(f"{name} uncertainty: port / f64 - 1 = {gap:.3e}, reference "
+              f"ds32 / f64 - 1 = {ref[name].uncertainty / f64[name].uncertainty - 1:.3e}")
+        assert abs(gap) <= bar, name
+
+
+def test_topocentric_fit_plumbing_exact_with_exact_gram(topo_fits, monkeypatch):
+    """Both sides with the f64 Gram at q = 66: the port is the reference
+    to round-off (chi2 within rtol 1e-10, uncertainties within 1e-9).
+    The reference fits op by op here (``jax.disable_jit``): its jitted
+    phase rounds the 500-s Roemer delay differently (XLA contracts and
+    fuses; 1.1e-13 s apart), which moves its chi2 by 1.3e-10 relative on
+    this table, while the port does the eager reference's IEEE operations
+    (test_torch_model.py::test_topocentric_residuals_equal_the_eager_reference)."""
+    import jax
+
+    ref_model, ref_toas = topo_fits["state"]
+    with jax.disable_jit():
+        ref = jget_model(PAR_FULL)
+        jf = JHybridGLSFitter(ref_toas, ref, force_mxu=False)
+        chi2_ref = jf.fit_toas(maxiter=3)
+    monkeypatch.setattr(gls_step, "ds32_gram", lambda A: A.T @ A)
+    model, toas = port_state(ref_model, ref_toas, par=PAR_FULL)
+    f = HybridGLSFitter(toas, model, device="cpu")
+    chi2 = f.fit_toas(maxiter=3)
+    assert f.converged == jf.converged
+    print(f"chi2 port / eager reference - 1 = {chi2 / chi2_ref - 1:.3e}, "
+          f"jitted reference / eager - 1 = "
+          f"{topo_fits['ref_f64'][1] / chi2_ref - 1:.3e}")
+    np.testing.assert_allclose(chi2, chi2_ref, rtol=1e-10)
+    for name in ref.free_params:
+        a, b = ref[name], model[name]
+        # RAJ's 1e-6 sigma (2e-16 rad) is finer than one float64 step of
+        # its value (8.9e-16 rad), so the bar is the larger of the two
+        gap = abs((b.hi - a.hi) + (b.lo - a.lo))
+        print(f"{name}: value gap {gap / a.uncertainty:.3e} sigma, "
+              f"uncertainty port / reference - 1 = "
+              f"{b.uncertainty / a.uncertainty - 1:.3e}")
+        assert gap <= max(1e-6 * a.uncertainty, np.spacing(abs(a.hi))), name
+        np.testing.assert_allclose(b.uncertainty, a.uncertainty, rtol=1e-9)
+
+
 def test_fit_residuals_are_white(fits):
     """Simulated from the model: the post-fit residuals' reduced chi2 is
     1/EFAC^2 = 0.83 up to noise (the white draw is 1 us, the model's
@@ -196,7 +276,7 @@ def test_simulation_is_model_perfect_and_seeded():
     model = get_model(PAR_BARY)
     rng = np.random.default_rng(7)
     mjd = DD(epoch_mjds(400, rng), np.zeros(400))
-    kw = dict(freq_mhz=1400.0, error_us=1.0, niter=3, device="cpu")
+    kw = dict(freq_mhz=1400.0, error_us=1.0, obs="@", niter=3, device="cpu")
     toas = make_fake_toas_from_arrays(mjd, model, **kw)
     r = Residuals(toas, model, subtract_mean=False, track_mode="nearest")
     assert float(torch.max(torch.abs(r.time_resids))) < 1e-12

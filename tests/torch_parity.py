@@ -5,9 +5,36 @@ Both packages get the same numbers: the reference simulates a table
 port as numpy arrays through ``pint_tpu_torch.interop.state_from_numpy``.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
+
+# The bench par, verbatim (bench.py PAR): equatorial astrometry with RAJ
+# and DECJ fitted, EPHEM DE421 (the analytic fallback on both sides),
+# TZRSITE 1 (GBT); its TOAs are observed at GBT.
+PAR_FULL = """
+PSRJ           J1748-2021E
+RAJ             17:48:52.75  1
+DECJ           -20:21:29.0  1
+F0             61.485476554  1
+F1             -1.181D-15  1
+PEPOCH        53750.000000
+POSEPOCH      53750.000000
+DM              223.9  1
+EPHEM          DE421
+UNITS          TDB
+TZRMJD  53801.38605120074849
+TZRFRQ  1949.609
+TZRSITE 1
+EFAC 1.1
+ECORR 1.2
+TNREDAMP -13.5
+TNREDGAM 3.5
+TNREDC 30
+"""
+BENCH_PY = pathlib.Path(__file__).resolve().parents[1] / "bench.py"
 
 # The bench par (bench.py PAR) with barycentric TOAs: no RAJ/DECJ/
 # POSEPOCH/EPHEM, TZRSITE @.
@@ -37,20 +64,25 @@ def epoch_mjds(n: int, rng) -> np.ndarray:
             + rng.uniform(0, 0.5 / 86400.0, (n_ep, 4))).ravel()[:n]
 
 
-def simulate_reference(n: int, seed: int = 0):
-    """(model, toas) of the reference: n barycentric TOAs simulated from
-    PAR_BARY with 1 us white noise at 1400/430 MHz."""
+# par text -> the site its TOAs are observed at
+SITES = {PAR_FULL: "gbt", PAR_BARY: "@"}
+
+
+def simulate_reference(n: int, seed: int = 0, par: str = PAR_BARY):
+    """(model, toas) of the reference: n TOAs simulated from `par` with
+    1 us white noise at 1400/430 MHz, at GBT for PAR_FULL and at the
+    barycenter for PAR_BARY."""
     from pint_tpu.models import get_model
     from pint_tpu.ops.dd import DD
     from pint_tpu.simulation import make_fake_toas_from_arrays
 
     rng = np.random.default_rng(seed)
-    model = get_model(PAR_BARY)
+    model = get_model(par)
     mjds = epoch_mjds(n, rng)
     toas = make_fake_toas_from_arrays(
         DD(mjds, np.zeros(n)), model,
         freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
-        error_us=1.0, obs="@", add_noise=True,
+        error_us=1.0, obs=SITES[par], add_noise=True,
         seed=int(rng.integers(2 ** 31)), niter=2)
     return model, toas
 
@@ -67,17 +99,24 @@ def columns_of(toas) -> dict:
         "utc.hi": np.asarray(toas.utc.hi), "utc.lo": np.asarray(toas.utc.lo),
         "freq_mhz": np.asarray(toas.freq_mhz),
         "error_us": np.asarray(toas.error_us),
+        "obs_pos_ls": np.asarray(toas.obs_pos_ls),
+        "obs_vel_c": np.asarray(toas.obs_vel_c),
+        "planet_pos_ls": {k: np.asarray(v) for k, v in toas.planet_pos_ls.items()},
+        "phase_offset": np.asarray(toas.phase_offset),
+        "pulse_number": np.asarray(toas.pulse_number),
         "flags": toas.flags, "obs_names": toas.obs_names,
         "obs_index": np.asarray(toas.obs_index),
+        "jump_group": np.asarray(toas.jump_group),
+        "ephem_name": toas.ephem_name, "clock_applied": toas.clock_applied,
     }
 
 
-def port_state(ref_model, ref_toas, device="cpu"):
+def port_state(ref_model, ref_toas, device="cpu", par: str = PAR_BARY):
     """(model, toas) of the port carrying the reference's exact state."""
     from pint_tpu_torch.interop import state_from_numpy
     from pint_tpu_torch.models import get_model
 
-    model = get_model(PAR_BARY)
+    model = get_model(par)
     toas = state_from_numpy(params_of(ref_model), columns_of(ref_toas),
                             model=model, device=device)
     return model, toas
