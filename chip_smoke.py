@@ -32,7 +32,21 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 7. the topocentric fit and the barycentric one (the earlier path, at this
    smaller depth) at 2,000 TOAs on the card and on the CPU (plain
    versions) must agree, the kernel's launches counted in each;
-8. a ``{"kernels": [...]}`` line, then the last line
+8. the fitter API, whose float64 solves never launch the kernel (its
+   launch count is set to 0 before and must read 0 after):
+   ``Fitter.auto`` on bench.py's par at 20,000 GBT TOAs must pick
+   ``DownhillGLSFitter`` (the dense noise basis, one column per ECORR
+   epoch) and, from F0/F1/DM/RAJ/DECJ kicked by a few sigma, converge
+   to a finite chi2 with every fitted parameter within 5 sigma of the
+   truth: steps, trials, Gram builds, cold and warm wall, peak memory,
+   the device's idle share of one warm step, the summary, the derived
+   quantities and the par file; ``DownhillWLSFitter`` on phase 6's
+   100,000 TOAs with the same gates; one ``make_wls_step`` and one
+   ``make_gls_step`` there, timed, the GLS step held to one hybrid step
+   with an exact float64 Gram; ``WLSFitter``, ``GLSFitter`` (Woodbury
+   and dense C), ``DownhillWLSFitter`` and ``DownhillGLSFitter`` on one
+   2,000-TOA table on the card and on the CPU must agree;
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -111,6 +125,30 @@ PLAIN_BAR = 1e-12
 TDB_BAR_S = 1e-12      # 1 ps
 POS_BAR_LS = 1e-11     # light-seconds, 3 mm
 VEL_BAR = 1e-15        # v/c
+# Phase 8. The dense GLS fit's TOA count: its noise basis is one column
+# per 4-TOA ECORR epoch, so F = [M, T] is 20,000 x 5,066 float64
+N_DENSE = 20_000
+# F0/F1/DM/RAJ/DECJ kicks off the truth: about 3 sigma of the 20,000-TOA
+# GLS fit (the port's CPU fits of 2,000 and 4,000 bench-par TOAs, RAJ/
+# DECJ/DM scaled as 1/sqrt(n); F0/F1 are held by the red-noise prior)
+KICK = {"F0": 3e-13, "F1": 1.3e-20, "DM": 2.5e-6, "RAJ": 2e-10, "DECJ": 3e-9}
+TRUTH_SIGMA = 5.0      # every fitted parameter within 5 sigma of the truth
+# the same 2,000-TOA table fitted on the card and on the CPU, float64 on
+# both: trial and final chi2 within rtol 1e-7 and values within 1e-5
+# sigma (the CPU tests hold the port to the reference at these bars; two
+# LAPACKs put the near-singular GLS steps ~3e-8 sigma apart). The card's
+# sin/cos round the Roemer delay's last bit differently (~3e-14 s), which
+# moves each chi2 by ~1e-9 relative, trial by trial: a damped loop's
+# accept/halve decisions must agree wherever a trial is more than the
+# chi2 bar from the kept value; where one is closer (the noise floor at
+# which the loops stop), the two may halve a different number of times.
+CARD_CHI2_RTOL = 1e-7
+CARD_VALUE_SIGMA = 1e-5
+# make_gls_step against one hybrid step with an exact float64 Gram, the
+# same Schur solve whitened in another order (tests/test_torch_steps.py:
+# 9.8e-11 sigma, 4.2e-11 in chi2 on the CPU)
+STEP_VS_HYBRID_SIGMA = 1e-8
+STEP_VS_HYBRID_RTOL = 1e-9
 
 
 def fail(msg: str) -> None:
@@ -215,6 +253,234 @@ def run_fit(model, toas):
     t2 = time.perf_counter()
     fitter._iterate, fitter._chi2_at = step, probe
     return fitter, chi2, t1 - t0, t2 - t1, calls["step"], calls["probe"]
+
+
+def kicked(par):
+    """A fresh model of `par` with F0/F1/DM/RAJ/DECJ kicked by KICK."""
+    from pint_tpu_torch.models import get_model
+
+    model = get_model(par)
+    for k, d in KICK.items():
+        model[k].add_delta(d)
+    return model
+
+
+def run_dense_fit(make, toas, **kw):
+    """Build ``make(toas, kicked model)`` and fit; count the trials
+    (``_chi2_now``), the full steps (``_step``) and the Gram builds
+    (``gls.gls_solve``). Returns (fitter, chi2, wall s, counts)."""
+    from pint_tpu_torch.fitting import gls
+
+    counts = {"steps": 0, "trials": 0, "G builds": 0}
+    solve = gls.gls_solve
+
+    def counted_solve(*args):
+        counts["G builds"] += 1
+        return solve(*args)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter = make(toas, kicked(PAR_FULL))
+    chi2_now, step = fitter._chi2_now, fitter._step
+
+    def counted_chi2():
+        counts["trials"] += 1
+        return chi2_now()
+
+    def counted_step(**k):
+        counts["steps"] += 1
+        return step(**k)
+
+    fitter._chi2_now, fitter._step = counted_chi2, counted_step
+    gls.gls_solve = counted_solve
+    try:
+        chi2 = fitter.fit_toas(maxiter=10, **kw)
+        torch.cuda.synchronize()
+    finally:
+        gls.gls_solve = solve
+    wall = time.perf_counter() - t0
+    del fitter._chi2_now, fitter._step   # the class's methods again
+    return fitter, chi2, wall, counts
+
+
+def record_trials(fitter):
+    """Wrap a Downhill fitter's ``_chi2_now`` (its trial judge) so that
+    every trial chi2 is recorded in the returned list."""
+    trials = []
+    inner = getattr(fitter, "_chi2_now", None)
+    if inner is not None:
+        def recorded():
+            trials.append(inner())
+            return trials[-1]
+
+        fitter._chi2_now = recorded
+    return trials
+
+
+def trial_decisions(trials, halvings=8):
+    """Replay a Downhill fit's trial chi2 sequence (the first is the
+    entry chi2): (trial chi2, kept chi2, accepted) per judged trial, in
+    order. A step whose every halving was rejected ends the list (the
+    fitter's re-evaluation at the restored point follows it)."""
+    out, kept, i = [], trials[0], 1
+    while i < len(trials):
+        for _ in range(halvings):
+            if i == len(trials):
+                return out
+            t = trials[i]
+            i += 1
+            out.append((t, kept, t <= kept + 1e-12))
+            if out[-1][2]:
+                kept = t
+                break
+        else:
+            return out
+    return out
+
+
+def same_trials(tc, tg):
+    """The card's trials `tg` against the CPU's `tc` (see CARD_CHI2_RTOL):
+    equal chi2 within the bar and equal decisions up to and including the
+    first decision resolved by less than the bar on either device; equal
+    lengths where no such decision was met."""
+    if abs(tg[0] - tc[0]) > CARD_CHI2_RTOL * abs(tc[0]):
+        return False
+    for (c, kc, ac), (g, kg, ag) in zip(trial_decisions(tc), trial_decisions(tg)):
+        if abs(g - c) > CARD_CHI2_RTOL * abs(c):
+            return False
+        if min(abs(c - kc), abs(g - kg)) <= CARD_CHI2_RTOL * abs(kc):
+            return True   # the noise floor: the paths may part here
+        if ac != ag:
+            return False
+    return len(tc) == len(tg)
+
+
+def check_truth(fitter, truth, label):
+    """Fail unless the fit converged to a finite chi2 with every fitted
+    parameter within TRUTH_SIGMA of the simulation's truth."""
+    model = fitter.model
+    pulls = {k: (model[k].value_f64 - truth[k].value_f64) / model[k].uncertainty
+             for k in fitter.fit_params}
+    print(f"  {label}: pulls from the truth (sigma) "
+          + ", ".join(f"{k} {v:+.3f}" for k, v in pulls.items())
+          + "; kicks (sigma) " + ", ".join(
+              f"{k} {d / model[k].uncertainty:.2f}" for k, d in KICK.items()),
+          flush=True)
+    chi2 = fitter.resids.chi2
+    if not (fitter.converged and not fitter.diverged and math.isfinite(chi2)):
+        fail(f"{label} did not converge to a finite chi2 ({chi2})")
+    if not max(abs(v) for v in pulls.values()) < TRUTH_SIGMA:
+        fail(f"{label} left a parameter {TRUTH_SIGMA} sigma from the truth")
+
+
+def fitter_api(dev, toas):
+    """Phase 8 (see the module docstring). `toas` is phase 6's table."""
+    from pint_tpu_torch.fitting import (DownhillGLSFitter, DownhillWLSFitter,
+                                        Fitter, GLSFitter, WLSFitter, gls_step,
+                                        step)
+    from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+
+    truth = get_model(PAR_FULL)
+    gram.ds32_gram.launches = 0
+    t0 = time.perf_counter()
+    dense = simulate(PAR_FULL, N_DENSE, seed=5, device=dev)
+    torch.cuda.synchronize()
+    print(f"simulated {len(dense)} GBT TOAs on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for run in ("cold", "warm"):
+        f = None   # the cold fit's basis is freed before the warm fit
+        torch.cuda.reset_peak_memory_stats()
+        f, chi2, wall, counts = run_dense_fit(Fitter.auto, dense)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        dims = f.model.noise_model_dimensions(dense)
+        print(f"Fitter.auto ({run}): {type(f).__name__}, noise basis {dims}; "
+              f"{wall:.3f} s wall (construction + fit_toas); {counts['steps']} "
+              f"full steps, {counts['trials']} trials, {counts['G builds']} Gram "
+              f"builds; GLS chi2 {chi2:.6f}, reduced {chi2 / f.resids.dof:.6f}; "
+              f"converged {f.converged}; peak memory {peak_mb:.1f} MiB",
+              flush=True)
+        if type(f) is not DownhillGLSFitter:
+            fail(f"Fitter.auto picked {type(f).__name__} for the bench par")
+        check_truth(f, truth, f"DownhillGLSFitter at {N_DENSE} TOAs ({run})")
+    step_ms = host_ms(lambda: f._step(), reps=3)
+    print(f"one warm DownhillGLSFitter._step: {step_ms:.2f} ms wall", flush=True)
+    profile_step("one warm DownhillGLSFitter._step", lambda: f._step(), step_ms)
+    print(f.get_summary())
+    print("derived: " + ", ".join(f"{k} {v:.6g} +- {e:.3g}"
+                                  for k, (v, e) in f.get_derived_params().items()))
+    print(f"as_parfile(): {len(f.model.as_parfile().splitlines())} lines",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    f, chi2, wall, counts = run_dense_fit(DownhillWLSFitter, toas)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"DownhillWLSFitter at {len(toas)} TOAs: {wall:.3f} s wall; "
+          f"{counts['steps']} full steps, {counts['trials']} trials; chi2 "
+          f"{chi2:.6f}, reduced {f.resids.reduced_chi2:.6f}; converged "
+          f"{f.converged}; peak memory {peak_mb:.1f} MiB", flush=True)
+    check_truth(f, truth, f"DownhillWLSFitter at {len(toas)} TOAs")
+
+    model = kicked(PAR_FULL)
+    base, d0 = model.base_dd(dev), model.zero_deltas(device=dev)
+    noise, specs = gls_step.build_noise_statics(model, toas)
+    wls = step.make_wls_step(model, device=dev)
+    glss = gls_step.make_gls_step(model, pl_specs=specs, device=dev)
+    wls_ms = median_ms(lambda: wls(base, d0, toas), reps=5, warm=1)
+    gls_ms = median_ms(lambda: glss(base, d0, toas, noise), reps=5, warm=1)
+    new, info = glss(base, d0, toas, noise)
+    gls_step.ds32_gram = lambda A: A.T @ A
+    try:
+        hnew, hinfo = HybridGLSFitter(toas, model, device=dev)._iterate(base, d0)
+    finally:
+        gls_step.ds32_gram = gram.ds32_gram
+    sig = torch.sqrt(torch.diagonal(hinfo["cov"]))
+    gaps = {k: abs(float(new[k] - hnew[k])) / float(sig[i + 1])
+            for i, k in enumerate(model.free_params)}
+    rel = {key: abs(float(info[key]) / float(hinfo[key]) - 1)
+           for key in ("chi2", "chi2_at_input")}
+    print(f"single-call steps at {len(toas)} TOAs (CUDA events, median of 5): "
+          f"make_wls_step {wls_ms:.2f} ms, make_gls_step {gls_ms:.2f} ms; "
+          f"make_gls_step - exact-Gram hybrid step: worst "
+          f"{max(gaps.values()):.3e} sigma (bar {STEP_VS_HYBRID_SIGMA:g}), chi2 "
+          f"{rel['chi2']:.3e}, chi2 at input {rel['chi2_at_input']:.3e} (bar "
+          f"{STEP_VS_HYBRID_RTOL:g})", flush=True)
+    if not (max(gaps.values()) <= STEP_VS_HYBRID_SIGMA
+            and max(rel.values()) <= STEP_VS_HYBRID_RTOL):
+        fail("make_gls_step disagrees with the exact-Gram hybrid step")
+
+    small = simulate(PAR_FULL, N_SMALL, seed=1, device="cpu")
+    for label, make, kw in (
+            ("WLSFitter", WLSFitter, {"maxiter": 2}),
+            ("GLSFitter", GLSFitter, {"maxiter": 2}),
+            ("GLSFitter full_cov", GLSFitter, {"full_cov": True}),
+            ("DownhillWLSFitter", DownhillWLSFitter, {"maxiter": 10}),
+            ("DownhillGLSFitter", DownhillGLSFitter, {"maxiter": 10})):
+        runs = []
+        for table in (small, small.to(dev)):
+            f = make(table, kicked(PAR_FULL))
+            trials = record_trials(f)
+            runs.append((f, f.fit_toas(**kw), trials))
+        (fc, cc, tc), (fg, cg, tg) = runs
+        worst = max(abs(fc.model[k].value_f64 - fg.model[k].value_f64)
+                    / fc.model[k].uncertainty for k in fc.fit_params)
+        print(f"{label}: chi2 cpu {cc:.9f} card {cg:.9f}; worst parameter gap "
+              f"{worst:.3e} sigma; trials cpu {len(tc)} card {len(tg)}; "
+              f"converged {fc.converged}/{fg.converged}, diverged "
+              f"{fc.diverged}/{fg.diverged}", flush=True)
+        if tc:
+            print(f"  trials cpu {tc}\n  trials card {tg}", flush=True)
+        same = ((same_trials(tc, tg) if tc else not tg)
+                and abs(cg - cc) <= CARD_CHI2_RTOL * abs(cc)
+                and worst <= CARD_VALUE_SIGMA
+                and (fc.converged, fc.diverged) == (fg.converged, fg.diverged))
+        if not same:
+            fail(f"{label} on the card disagrees with the CPU: trials "
+                 f"{tc} / {tg}")
+    if gram.ds32_gram.launches:
+        fail(f"the fitter API launched ds32_gram {gram.ds32_gram.launches} "
+             "times; its solves are float64")
 
 
 def profile_step(label, fn, wall_ms):
@@ -558,7 +824,11 @@ def main() -> None:
             fail(f"the {label} fit launched ds32_gram {n_gpu} times on the "
                  f"card and {n_cpu} times on the CPU")
 
-    phase("8 result")
+    phase(f"8 the fitter API: Fitter.auto at {N_DENSE} TOAs, the WLS fit and "
+          f"the single-call steps at {N_TOAS}, card against CPU at {N_SMALL}")
+    fitter_api(dev, toas)
+
+    phase("9 result")
     per_step = {k: (None if any(s[k] is None for s in main_shapes)
                     else sum(s[k] for s in main_shapes))
                 for k in ("ms", "device_ms", "plain_ms", "library_ms",

@@ -1,4 +1,5 @@
-"""The GLS step's noise statics and its Gram / Schur / Cholesky algebra.
+"""The single-call GLS step, its noise statics and its Gram / Schur /
+Cholesky algebra.
 
 Counterpart of ``pint_tpu.fitting.gls_step``. The correlated-noise
 covariance is
@@ -9,7 +10,7 @@ and the solve is the extended normal equations with nothing of size
 (n, n_epochs) ever formed:
 
 * the Fourier basis of power-law red noise is an outer product of the
-  TDB times with the harmonic frequencies;
+  TDB times with the harmonic frequencies (:func:`pl_bases`);
 * ECORR's quantization columns are disjoint 0/1 indicators, so the epoch
   block of the extended Gram matrix is diagonal and every cross term is
   a segment sum over the TOA axis (``index_add_``);
@@ -17,8 +18,10 @@ and the solve is the extended normal equations with nothing of size
   diagonal block), leaving a small (p + 2*nharm)^2 system solved by
   Cholesky.
 
-Both O(n q^2) products — the whitened Gram and the ECORR Schur term —
-go through :func:`pint_tpu_torch.ops.gram.ds32_gram`, the hand-written
+:func:`gls_gram_seg` and :func:`make_gls_step` compute both O(n q^2)
+products in float64, as the reference does. Only the hybrid fitter's
+:func:`gls_gram_whitened` sends them through
+:func:`pint_tpu_torch.ops.gram.ds32_gram`, the hand-written
 double-single kernel on the card.
 """
 
@@ -31,6 +34,7 @@ import torch
 
 from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.models.noise import FYR_HZ
+from pint_tpu_torch.models.parameter import toa_mask
 from pint_tpu_torch.ops.gram import ds32_gram
 
 _EPS = torch.finfo(torch.float64).eps
@@ -45,19 +49,65 @@ class PLSpec(NamedTuple):
 
 
 class NoiseStatics(NamedTuple):
-    """Per-dataset noise data, on the TOA table's device."""
+    """Per-dataset noise data, on the TOA table's device.
+
+    ``sigma`` optionally carries the EFAC/EQUAD-scaled per-TOA
+    uncertainties [s] (:func:`scaled_sigma_np`); the GLS step and probe
+    then read it instead of ``model.scaled_toa_uncertainty``.
+    """
 
     epoch_idx: torch.Tensor  # (n,) int64 in [0, ne]; ne = "no epoch" dummy
     ecorr_phi: torch.Tensor  # (ne,) prior variances [s^2]
     pl_params: torch.Tensor  # (n_pl, 2) [log10_amp, gamma] per PLSpec entry
+    sigma: torch.Tensor | None = None  # (n,) scaled uncertainties [s]
 
 
-def build_noise_statics(model, toas) -> tuple[NoiseStatics, tuple[PLSpec, ...]]:
+def scaled_sigma_np(model, toas) -> np.ndarray:
+    """Numpy mirror of ``model.scaled_toa_uncertainty``.
+
+    The EFAC/EQUAD formula (``scale * sqrt(sigma^2 + equad^2)``, the
+    reference convention) applied on the host, one (n,) vector.
+    """
+    sigma = toas.error_us.cpu().numpy() * 1e-6
+
+    def mask_of(selector):
+        return np.asarray(toa_mask(selector, toas), dtype=np.float64)
+
+    var = np.square(sigma)
+    scale = np.ones_like(sigma)
+    for c in model.components:
+        if not getattr(c, "is_noise_scale", False):
+            continue
+        for name in c.equad_names:
+            p = c.param(name)
+            var = var + mask_of(p.selector) * (p.value_f64 * 1e-6) ** 2
+        for name in c.tneq_names:
+            p = c.param(name)
+            var = var + mask_of(p.selector) * 10.0 ** (2.0 * p.value_f64)
+        for name in c.efac_names:
+            p = c.param(name)
+            scale = np.where(mask_of(p.selector) != 0.0, p.value_f64, scale)
+    return scale * np.sqrt(var)
+
+
+def sigma_traceable(model) -> bool:
+    """Can :func:`scaled_sigma_np` stand in for the model's scaling?
+
+    Exactly one noise-scale component: with several, the reference
+    applies them one after another and the one-shot mirror would
+    reassociate the chain. Zero components need no stand-in.
+    """
+    return sum(1 for c in model.components
+               if getattr(c, "is_noise_scale", False)) == 1
+
+
+def build_noise_statics(model, toas, *, as_numpy: bool = False
+                        ) -> tuple[NoiseStatics, tuple[PLSpec, ...]]:
     """Host-side scan of the model's noise components.
 
     Returns the ECORR epoch assignment + power-law hyperparameters on the
-    table's device, plus the static specs. O(n) host work — no (n, k)
-    basis is formed.
+    table's device (numpy leaves with ``as_numpy``), plus the static
+    specs. O(n) host work — no (n, k) basis is formed.
     """
     n = len(toas)
     epoch_idx = None
@@ -75,6 +125,12 @@ def build_noise_statics(model, toas) -> tuple[NoiseStatics, tuple[PLSpec, ...]]:
             pl_params.append((log10_amp, gamma))
     if epoch_idx is None:
         epoch_idx = np.zeros(n, dtype=np.int32)  # ne=0: everything is dummy
+    if as_numpy:
+        return (NoiseStatics(
+            np.asarray(epoch_idx, dtype=np.int32),
+            np.asarray(phi_e, dtype=np.float64),
+            np.asarray(pl_params, dtype=np.float64).reshape(len(specs), 2)),
+            tuple(specs))
     dev = toas.device
     return (NoiseStatics(
         torch.as_tensor(np.asarray(epoch_idx, dtype=np.int64), device=dev),
@@ -106,11 +162,76 @@ def powerlaw_phi(f: torch.Tensor, log10_amp, gamma, df) -> torch.Tensor:
             * (f / FYR_HZ) ** (-gamma) * df)
 
 
+def pl_bases(toas, specs: tuple[PLSpec, ...], pl_params: torch.Tensor
+             ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Stacked Fourier blocks (n, k_F) and prior variances (k_F,) on the
+    table's device. ``pl_params[i] = [log10_amp, gamma]`` pairs with
+    specs[i]."""
+    if not specs:
+        return None, None
+    t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
+    blocks, phis = [], []
+    for i, spec in enumerate(specs):
+        if spec.scale != "none":
+            # chromatic bases come with PLDMNoise/PLChromNoise
+            raise NotImplementedError(
+                f"chromatic noise basis {spec.scale!r}: PLDMNoise and "
+                "PLChromNoise are not ported to pint_tpu_torch yet")
+        F, f, df = fourier_design(t_s, spec.nharm)
+        blocks.append(F)
+        phis.append(torch.repeat_interleave(
+            powerlaw_phi(f, pl_params[i, 0], pl_params[i, 1], df), 2))
+    return torch.cat(blocks, dim=1), torch.cat(phis)
+
+
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, ne: int) -> torch.Tensor:
     """Sums of the rows of `x` per segment 0..ne-1 (``idx == ne`` is dropped)."""
     out = torch.zeros((ne + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, idx, x)[:ne]
+
+
+def gls_gram_seg(M: torch.Tensor, r: torch.Tensor, sigma: torch.Tensor,
+                 F: torch.Tensor | None, phi_F: torch.Tensor | None,
+                 epoch_idx: torch.Tensor, phi_e: torch.Tensor) -> dict:
+    """The O(n)/O(ne) reduction of the seg-GLS solve, in float64.
+
+    Everything that touches the TOA axis: whitened Gram matrix, ECORR
+    segment sums, Schur elimination of the diagonal epoch block. Returns
+    the small Schur system plus the pieces :func:`gls_finalize_seg`
+    needs — S/rhs are (q, q)/(q,), C is (ne, q).
+    """
+    p = M.shape[1]
+    zeros_p = torch.zeros(p, dtype=M.dtype, device=M.device)
+    if F is not None:
+        B = torch.cat([M, F], dim=1)
+        phiinv_B = torch.cat([zeros_p, 1.0 / phi_F])
+    else:
+        B = M
+        phiinv_B = zeros_p
+    q = B.shape[1]
+    w = 1.0 / (sigma * sigma)
+
+    norm = torch.sqrt(torch.sum(B * B * w[:, None], dim=0))
+    norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
+    A = B / norm
+    G_BB = A.T @ (A * w[:, None]) + torch.diag(phiinv_B / (norm * norm))
+    c_B = A.T @ (r * w)
+
+    ne = phi_e.shape[0]
+    if ne > 0:
+        d = segment_sum(w, epoch_idx, ne) + 1.0 / phi_e  # diagonal epoch block
+        C = segment_sum(A * w[:, None], epoch_idx, ne)   # (ne, q) U^T W A
+        c_e = segment_sum(r * w, epoch_idx, ne)
+        S = G_BB - C.T @ (C / d[:, None])
+        rhs = c_B - C.T @ (c_e / d)
+    else:
+        d = torch.ones(0, dtype=M.dtype, device=M.device)
+        C = torch.zeros((0, q), dtype=M.dtype, device=M.device)
+        c_e = torch.zeros(0, dtype=M.dtype, device=M.device)
+        S, rhs = G_BB, c_B
+    return {"S": S, "rhs": rhs, "c_B": c_B, "norm": norm,
+            "quad0": torch.sum(r * r * w), "C": C, "c_e": c_e, "d": d}
 
 
 def gls_gram_whitened(A_M: torch.Tensor, rw: torch.Tensor, sw: torch.Tensor,
@@ -164,17 +285,22 @@ def gls_gram_whitened(A_M: torch.Tensor, rw: torch.Tensor, sw: torch.Tensor,
             "quad0": torch.sum(rw * rw), "C": C, "c_e": c_e, "d": d}
 
 
-def cho_factor(S: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of S with the reference's eps*trace jitter.
+def cholesky(S: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of S, read from its lower triangle.
 
-    A matrix that is not positive definite gives a NaN factor, as the
-    reference's ``cho_factor`` does, so the solve's chi2 comes out NaN
-    and the damped loop flags the fit diverged (no host sync here).
+    A matrix that is not positive definite gives a NaN factor, as JAX's
+    ``cho_factor`` does, so a solve's chi2 comes out NaN and the damped
+    loops flag the fit diverged (no host sync here).
     """
-    q = S.shape[0]
-    S = S + torch.eye(q, dtype=S.dtype, device=S.device) * (_EPS * torch.trace(S))
     L, info = torch.linalg.cholesky_ex(S)
     return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
+def cho_factor(S: torch.Tensor) -> torch.Tensor:
+    """:func:`cholesky` of S plus the reference's eps*trace jitter."""
+    q = S.shape[0]
+    return cholesky(S + torch.eye(q, dtype=S.dtype, device=S.device)
+                    * (_EPS * torch.trace(S)))
 
 
 def gls_solve_normalized(parts: dict) -> dict:
@@ -228,3 +354,113 @@ def gls_finalize_seg(parts: dict, p: int) -> dict:
     cov = sol["Sigma"] / torch.outer(norm, norm)
     return {"x": x[:p], "cov": cov[:p, :p], "chi2": sol["chi2"],
             "fourier_coeffs": x[p:], "ecorr_coeffs": sol["x_e"]}
+
+
+def gls_solve_seg(M: torch.Tensor, r: torch.Tensor, sigma: torch.Tensor,
+                  F: torch.Tensor | None, phi_F: torch.Tensor | None,
+                  epoch_idx: torch.Tensor, phi_e: torch.Tensor) -> dict:
+    """Extended-normal-equation GLS with the ECORR block eliminated.
+
+    M: (n, p) timing design matrix; F/phi_F: stacked Fourier noise block
+    and its priors (or None); epoch_idx/phi_e: ECORR epoch assignment
+    (idx == ne means "no epoch"). Matches
+    :func:`pint_tpu_torch.fitting.gls.gls_solve` on the dense basis to
+    float64 roundoff.
+    """
+    return gls_finalize_seg(gls_gram_seg(M, r, sigma, F, phi_F,
+                                         epoch_idx, phi_e), M.shape[1])
+
+
+def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
+                  pl_specs: tuple[PLSpec, ...] = (),
+                  params: list[str] | None = None, device=None):
+    """Build ``step(base, deltas, toas, noise) -> (new_deltas, info)``.
+
+    The GLS analogue of :func:`pint_tpu_torch.fitting.step.make_wls_step`:
+    one call is a full Gauss-Newton GLS iteration — residuals, jacfwd
+    design matrix, Fourier noise bases, extended-normal-equation solve
+    with segment-sum ECORR — on the device the table lies on. ``info``
+    carries the GLS chi2 at the solution (the linearized post-fit value),
+    the noise-marginal chi2 at the input deltas, per-parameter
+    uncertainties and the noise coefficients. The TZR anchor (``tzr``,
+    or the model's own built on `device`) pins the phase; without one
+    (``abs_phase=False``) the residuals are re-centered on their circular
+    mean first.
+    """
+    from pint_tpu_torch.fitting.step import _circular_recenter
+
+    if tzr is None and abs_phase:
+        tzr = model.get_tzr_toas(device)
+    anchorless = tzr is None
+    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=not anchorless)
+    names = params if params is not None else model.free_params
+    # an explicit PHOFF replaces the implicit offset column + mean
+    # subtraction (see TimingModel.designmatrix)
+    has_phoff = model.has_component("PhaseOffset")
+    off = 0 if has_phoff else 1
+
+    def step(base, deltas, toas, noise: NoiseStatics):
+        f0 = base["F0"].hi + base["F0"].lo
+
+        def total_phase(d):
+            ph = phase_fn(base, d, toas)
+            # one DD pass serves residual and jacobian via has_aux
+            return (ph.int_part + (ph.frac.hi + ph.frac.lo),
+                    ph.frac.hi + ph.frac.lo)
+
+        err = (noise.sigma if noise.sigma is not None
+               else model.scaled_toa_uncertainty(toas))
+        w = 1.0 / (err * err)
+
+        J, resid_turns = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
+        if anchorless:
+            resid_turns = _circular_recenter(resid_turns, w)
+        if not has_phoff:
+            resid_turns = resid_turns - torch.sum(resid_turns * w) / torch.sum(w)
+        r = resid_turns / f0
+
+        cols = [] if has_phoff else [torch.ones_like(r) / f0]
+        cols += [-J[k] / f0 for k in names]
+        M = torch.stack(cols, dim=1)
+
+        F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
+        parts = gls_gram_seg(M, r, err, F, phi_F,
+                             noise.epoch_idx, noise.ecorr_phi)
+        sol = gls_finalize_seg(parts, M.shape[1])
+        new_deltas = {k: deltas[k] + sol["x"][i + off]
+                      for i, k in enumerate(names)}
+        sig = torch.sqrt(torch.diagonal(sol["cov"]))
+        errors = {k: sig[i + off] for i, k in enumerate(names)}
+        return new_deltas, {"chi2": sol["chi2"], "errors": errors,
+                            "chi2_at_input":
+                                noise_marginal_chi2(parts, M.shape[1]),
+                            "fourier_coeffs": sol["fourier_coeffs"],
+                            "ecorr_coeffs": sol["ecorr_coeffs"]}
+
+    return step
+
+
+def make_gls_probe(model, tzr=None, *, abs_phase: bool = True,
+                   pl_specs: tuple[PLSpec, ...] = (), device=None):
+    """Build ``probe(base, deltas, toas, noise) -> chi2`` — the
+    noise-marginal GLS chi2 at ``deltas`` without a design matrix.
+
+    One residual-only phase pass (the shared
+    :func:`pint_tpu_torch.fitting.step.make_resid_fn` convention) and the
+    Schur noise-column system of :func:`gls_gram_seg` with zero timing
+    columns: the value :func:`noise_marginal_chi2` extracts from the full
+    step's parts, to round-off.
+    """
+    from pint_tpu_torch.fitting.step import make_resid_fn
+
+    resid = make_resid_fn(model, tzr, abs_phase=abs_phase, device=device)
+
+    def probe(base, deltas, toas, noise: NoiseStatics):
+        r, err, _w = resid(base, deltas, toas, err=noise.sigma)
+        F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
+        M0 = torch.zeros((r.shape[0], 0), dtype=r.dtype, device=r.device)
+        parts = gls_gram_seg(M0, r, err, F, phi_F,
+                             noise.epoch_idx, noise.ecorr_phi)
+        return noise_marginal_chi2(parts, 0)
+
+    return probe

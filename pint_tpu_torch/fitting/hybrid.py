@@ -25,14 +25,12 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.fitting.damped import downhill_iterate
 from pint_tpu_torch.fitting.fitter import Fitter
-from pint_tpu_torch.fitting.gls_step import (PLSpec, build_noise_statics,
-                                             cho_factor, fourier_design,
+from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
                                              gls_finalize_seg,
                                              gls_gram_whitened,
-                                             noise_marginal_chi2, powerlaw_phi,
+                                             noise_marginal_chi2, pl_bases,
                                              segment_sum)
 from pint_tpu_torch.fitting.step import make_resid_fn
 
@@ -90,27 +88,6 @@ def make_resid_stage1(model, tzr=None, device=None):
     return stage1r
 
 
-def _pl_basis(t_s: torch.Tensor, specs: tuple[PLSpec, ...]):
-    """The iteration-independent stacked Fourier block (n, k_F) and the
-    per-spec frequency grids (only achromatic specs are carried)."""
-    blocks, fs = [], []
-    for spec in specs:
-        if spec.scale != "none":
-            raise NotImplementedError(f"chromatic noise basis {spec.scale!r}")
-        F, f, _df = fourier_design(t_s, spec.nharm)
-        blocks.append(F)
-        fs.append(f)
-    return torch.cat(blocks, dim=1), tuple(fs)
-
-
-def _pl_phi(fs, specs: tuple[PLSpec, ...], pl_params: torch.Tensor) -> torch.Tensor:
-    """Per-bin prior variances; ``f[0] == 1/tspan == df`` by construction."""
-    return torch.cat([
-        torch.repeat_interleave(powerlaw_phi(fs[i], pl_params[i, 0],
-                                             pl_params[i, 1], fs[i][0]), 2)
-        for i in range(len(specs))])
-
-
 class HybridGLSFitter(Fitter):
     """Damped GLS fit of one pulsar; both stages on ``device``.
 
@@ -134,12 +111,8 @@ class HybridGLSFitter(Fitter):
         self._stage1 = make_whiten_stage1(model, tzr)
         self._stage1r = make_resid_stage1(model, tzr, device=dev)
         # the Fourier block and its priors depend on the TOA table only
-        if self.pl_specs:
-            t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
-            self._F, fs = _pl_basis(t_s, self.pl_specs)
-            self._phi_F = _pl_phi(fs, self.pl_specs, self.noise.pl_params)
-        else:
-            self._F = self._phi_F = None
+        self._F, self._phi_F = pl_bases(toas, self.pl_specs,
+                                        self.noise.pl_params)
         self._chi2_probe = None  # built at the first probe (_chi2_at)
 
     def _iterate(self, base, deltas) -> tuple[dict, dict]:

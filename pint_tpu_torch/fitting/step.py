@@ -1,15 +1,18 @@
-"""The shared residual-only evaluator of the fit steps.
+"""Single-call WLS fit step: residuals + jacfwd design matrix + solve.
 
-Counterpart of ``make_resid_fn`` and ``_circular_recenter`` in
-``pint_tpu.fitting.step``: one phase pass (no jacfwd tangents), the
-wrapped fractional residual in seconds with the steps' exact
-weighted-mean convention, plus the scaled uncertainties and weights.
+Counterpart of ``pint_tpu.fitting.step`` (``make_wls_step``,
+``make_wls_probe``, ``make_resid_fn``, ``_circular_recenter``). One
+step call is a whole Gauss-Newton iteration on the device the TOA table
+lies on; the probe and :func:`make_resid_fn` are its residual-only
+evaluators, with the steps' exact weighted-mean convention.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pint_tpu_torch.fitting.fitter import wls_solve_gram
 
 
 def _circular_recenter(resid_turns: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,24 +31,89 @@ def _circular_recenter(resid_turns: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return shifted - torch.round(shifted)
 
 
-def make_resid_fn(model, tzr=None, *, device=None):
-    """Build ``resid(base, deltas, toas) -> (r, err, w)``.
+def make_wls_step(model, tzr=None, *, abs_phase: bool = True,
+                  params: list[str] | None = None, device=None):
+    """Build ``step(base, deltas, toas) -> (new_deltas, info)``.
 
-    The TZR anchor (``tzr``, or the model's own on `device`) pins the
-    phase; a model without one has its residuals re-centered on their
-    circular mean first.
+    `base` is the DD linearization point (``model.base_dd(device)``);
+    `deltas` the current float64 corrections per free parameter (or per
+    name of ``params``). One call performs a full Gauss-Newton
+    iteration: residuals, design matrix by ``jacfwd``, Gram-matrix WLS
+    solve, parameter update, linearized post-fit chi2. ``info`` carries
+    {"chi2", "errors": {name: sigma}, "chi2_at_input"}. The TZR anchor
+    (``tzr``, or the model's own built on `device`) pins the phase;
+    ``abs_phase=False`` skips it and re-centers the wrapped residuals on
+    their circular mean first.
     """
-    if tzr is None:
+    if tzr is None and abs_phase:
+        tzr = model.get_tzr_toas(device)
+    anchorless = tzr is None
+    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=not anchorless)
+    names = params if params is not None else model.free_params
+    # an explicit PHOFF replaces the implicit offset column + mean
+    # subtraction (see TimingModel.designmatrix)
+    has_phoff = model.has_component("PhaseOffset")
+    off = 0 if has_phoff else 1
+
+    def step(base, deltas, toas):
+        f0 = base["F0"].hi + base["F0"].lo
+
+        def total_phase(d):
+            ph = phase_fn(base, d, toas)
+            # one DD pass serves residual and jacobian via has_aux
+            return (ph.int_part + (ph.frac.hi + ph.frac.lo),
+                    ph.frac.hi + ph.frac.lo)
+
+        err = model.scaled_toa_uncertainty(toas)
+        w = 1.0 / (err * err)
+        J, resid_turns = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
+        if anchorless:
+            resid_turns = _circular_recenter(resid_turns, w)
+        if not has_phoff:
+            resid_turns = resid_turns - torch.sum(resid_turns * w) / torch.sum(w)
+        r = resid_turns / f0
+
+        cols = [] if has_phoff else [torch.ones_like(r) / f0]
+        cols += [-J[k] / f0 for k in names]
+        M = torch.stack(cols, dim=1)
+
+        sol = wls_solve_gram(M, r, err)
+        new_deltas = {k: deltas[k] + sol["x"][i + off]
+                      for i, k in enumerate(names)}
+        sig = torch.sqrt(torch.diagonal(sol["cov"]))
+        errors = {k: sig[i + off] for i, k in enumerate(names)}
+        # chi2 of the residuals at the INPUT deltas — what a damped outer
+        # loop judges the step by — and the linearized post-fit chi2
+        # chi2_in - x·g with g = M^T W r (the GLS step's convention)
+        chi2_in = torch.sum(r * r * w)
+        chi2 = chi2_in - sol["x"] @ (M.T @ (r * w))
+        return new_deltas, {"chi2": chi2, "errors": errors,
+                            "chi2_at_input": chi2_in}
+
+    return step
+
+
+def make_resid_fn(model, tzr=None, *, abs_phase: bool = True, device=None):
+    """Build ``resid(base, deltas, toas, err=None) -> (r, err, w)``.
+
+    The TZR anchor (``tzr``, or the model's own built on `device`) pins
+    the phase; without one (``abs_phase=False``, or a model without
+    ``AbsPhase``) the residuals are re-centered on their circular mean
+    first. ``err`` overrides the model's scaled uncertainties (the GLS
+    probe passes its statics' ``sigma``).
+    """
+    if tzr is None and abs_phase:
         tzr = model.get_tzr_toas(device)
     anchorless = tzr is None
     phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=not anchorless)
     has_phoff = model.has_component("PhaseOffset")
 
-    def resid(base, deltas, toas):
+    def resid(base, deltas, toas, err=None):
         f0 = base["F0"].hi + base["F0"].lo
         ph = phase_fn(base, deltas, toas)
         res = ph.frac.hi + ph.frac.lo
-        err = model.scaled_toa_uncertainty(toas)
+        if err is None:
+            err = model.scaled_toa_uncertainty(toas)
         w = 1.0 / (err * err)
         if anchorless:
             res = _circular_recenter(res, w)
@@ -54,3 +122,19 @@ def make_resid_fn(model, tzr=None, *, device=None):
         return res / f0, err, w
 
     return resid
+
+
+def make_wls_probe(model, tzr=None, *, abs_phase: bool = True, device=None):
+    """Build ``probe(base, deltas, toas) -> chi2`` — residual-only WLS chi2.
+
+    One phase evaluation, no jacfwd tangents and no solve: exactly the
+    ``chi2_at_input`` expression of :func:`make_wls_step`, which a damped
+    loop judges halved trials with.
+    """
+    resid = make_resid_fn(model, tzr, abs_phase=abs_phase, device=device)
+
+    def probe(base, deltas, toas):
+        r, _err, w = resid(base, deltas, toas)
+        return torch.sum(r * r * w)
+
+    return probe

@@ -84,6 +84,19 @@ class Component:
     def validate(self) -> None:
         pass
 
+    def par_line_overrides(self) -> dict:
+        """Map param name -> replacement par text (or None to emit
+        nothing) for parameters whose internal representation differs
+        from their par-file syntax. None of the ported components has
+        one; ``TimingModel.as_parfile`` honours the hook."""
+        return {}
+
+    def extra_par_lines(self) -> list[str]:
+        """Par lines this component must emit that correspond to no
+        param it owns. ``as_parfile`` appends these, skipping any whose
+        name another emitted line already carries."""
+        return []
+
     @classmethod
     def applicable(cls, pf) -> bool:
         """Does a parsed ParFile call for this component?"""

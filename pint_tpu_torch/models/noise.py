@@ -1,19 +1,22 @@
-"""Noise models: white-noise scaling and correlated-noise specs for GLS.
+"""Noise models: white-noise scaling and correlated-noise bases for GLS.
 
 Counterpart of ``pint_tpu.models.noise`` for ``ScaleToaError``,
 ``EcorrNoise`` and ``PLRedNoise``. Noise components are neither delay
 nor phase terms; they contribute
 
 * a rescaling of the per-TOA uncertainties (EFAC/EQUAD),
-* ECORR epochs (indices + prior variances) and power-law Fourier specs,
-  which the GLS step turns into the correlated-noise covariance
-  C = N + T diag(phi) T^T without ever forming the dense basis.
+* a basis/weight pair (U, phi) for the correlated-noise covariance
+  C = N + U diag(phi) U^T: dense host numpy arrays for the dense GLS
+  fitters (``basis_weight``), or ECORR epochs (indices + prior
+  variances) and power-law Fourier specs, which the GLS step turns into
+  the same covariance without forming the dense ECORR basis.
 
 Conventions (matching the reference):
 * scaled sigma = EFAC * sqrt(sigma^2 + EQUAD^2); TNEQ is log10(EQUAD/s).
 * ECORR: quantization epochs of selected TOAs within `dt` seconds
   (>= nmin TOAs per epoch); weight = (ECORR us)^2 in s^2.
-* PLRedNoise: Fourier basis at f_j = j / T_span, j = 1..nharm, with the
+* PLRedNoise: Fourier basis at f_j = j / T_span, j = 1..nharm; weight
+  phi_j = A^2/(12 pi^2) fyr^-3 (f_j/fyr)^-gamma df  [s^2], with the
   tempo RNAMP convention A = RNAMP / (86400*365.24*1e6 / (2 pi sqrt(3))).
 """
 
@@ -35,6 +38,11 @@ class NoiseComponent(Component):
     """Base for noise components (no delay/phase contribution)."""
 
     is_noise_scale = False  # rescales white-noise sigmas
+    is_noise_basis = False  # contributes (basis, weight) to GLS
+
+    def basis_weight(self, toas) -> tuple[np.ndarray, np.ndarray]:
+        """Return (U (n,k) float64, phi (k,) float64) as numpy arrays."""
+        raise NotImplementedError
 
 
 def _mask_lines(pf, names: tuple[str, ...]):
@@ -125,6 +133,7 @@ class EcorrNoise(NoiseComponent):
     """Epoch-correlated white noise (reference: EcorrNoise)."""
 
     category = "ecorr_noise"
+    is_noise_basis = True
     extra_par_names = ("ECORR", "TNECORR")
 
     def __init__(self, dt_s: float = 1.0, nmin: int = 2):
@@ -185,14 +194,76 @@ class EcorrNoise(NoiseComponent):
         idx[idx < 0] = ne
         return idx.astype(np.int32), np.asarray(weights)
 
+    def basis_weight(self, toas) -> tuple[np.ndarray, np.ndarray]:
+        idx, weights = self.epoch_indices(toas)
+        ne = weights.size
+        U = np.zeros((idx.size, ne))
+        rows = np.nonzero(idx < ne)[0]
+        U[rows, idx[rows]] = 1.0
+        return U, weights
 
-class PLRedNoise(NoiseComponent):
-    """Power-law achromatic red noise (reference: PLRedNoise)."""
 
-    category = "pl_red_noise"
+def powerlaw_psd_s2(f_hz: np.ndarray, log10_amp: float, gamma: float,
+                    df_hz: float) -> np.ndarray:
+    """Power-law timing-noise PSD integrated per bin -> variance [s^2]."""
+    amp = 10.0 ** log10_amp
+    return (amp ** 2 / (12.0 * np.pi ** 2) * FYR_HZ ** (-3.0)
+            * (f_hz / FYR_HZ) ** (-gamma) * df_hz)
+
+
+class _PLNoiseBase(NoiseComponent):
+    """Shared machinery for Fourier-basis power-law noise.
+
+    The dense basis is host numpy arithmetic, the reference's own, so T
+    and phi equal the reference's bit for bit.
+    """
+
+    is_noise_basis = True
+    _c_name = ""
     default_nharm = 30
     # how the Fourier basis scales per TOA ("none": achromatic)
     basis_scale = "none"
+
+    def pl_spec(self) -> tuple[str, float, float, int, float]:
+        """(basis_scale, log10_amp, gamma, nharm, alpha) for the GLS step."""
+        log10_amp, gamma = self.log10_amp_gamma()
+        return (self.basis_scale, float(log10_amp), float(gamma),
+                self.nharm(), 2.0)
+
+    def nharm(self) -> int:
+        v = self.param(self._c_name).value_f64
+        return int(v) if v > 0 else self.default_nharm
+
+    def log10_amp_gamma(self) -> tuple[float, float]:
+        raise NotImplementedError
+
+    def _fourier(self, toas, nharm: int) -> tuple[np.ndarray, np.ndarray, float]:
+        t_s = toas.get_mjds() * SECS_PER_DAY
+        tspan = float(t_s.max() - t_s.min())
+        tspan = max(tspan, SECS_PER_DAY)  # degenerate single-epoch guard
+        f = np.arange(1, nharm + 1) / tspan
+        arg = 2.0 * np.pi * np.outer(t_s - t_s.min(), f)
+        F = np.empty((len(t_s), 2 * nharm))
+        F[:, ::2] = np.sin(arg)
+        F[:, 1::2] = np.cos(arg)
+        return F, f, 1.0 / tspan
+
+    def basis_weight(self, toas) -> tuple[np.ndarray, np.ndarray]:
+        nharm = self.nharm()
+        F, f, df = self._fourier(toas, nharm)
+        log10_amp, gamma = self.log10_amp_gamma()
+        phi = powerlaw_psd_s2(f, log10_amp, gamma, df)
+        return self._scale_basis(F, toas), np.repeat(phi, 2)
+
+    def _scale_basis(self, F: np.ndarray, toas) -> np.ndarray:
+        return F
+
+
+class PLRedNoise(_PLNoiseBase):
+    """Power-law achromatic red noise (reference: PLRedNoise)."""
+
+    category = "pl_red_noise"
+    _c_name = "TNREDC"
 
     def __init__(self):
         super().__init__()
@@ -224,19 +295,9 @@ class PLRedNoise(NoiseComponent):
             p.frozen = True
         return self
 
-    def nharm(self) -> int:
-        v = self.param("TNREDC").value_f64
-        return int(v) if v > 0 else self.default_nharm
-
     def log10_amp_gamma(self) -> tuple[float, float]:
         rnamp = self.param("RNAMP").value_f64
         if np.isfinite(rnamp):
             return np.log10(rnamp / RNAMP_FAC), -self.param("RNIDX").value_f64
         return (self.param("TNREDAMP").value_f64,
                 self.param("TNREDGAM").value_f64)
-
-    def pl_spec(self) -> tuple[str, float, float, int, float]:
-        """(basis_scale, log10_amp, gamma, nharm, alpha) for the GLS step."""
-        log10_amp, gamma = self.log10_amp_gamma()
-        return (self.basis_scale, float(log10_amp), float(gamma),
-                self.nharm(), 2.0)

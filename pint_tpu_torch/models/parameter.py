@@ -154,6 +154,18 @@ class Param:
             u /= angles.RAD_PER_ARCSEC
         return f"{u:.8g}"
 
+    def as_parfile_line(self) -> str:
+        parts = [f"{self.name:<15}"]
+        if self.selector and self.selector[0].startswith("-"):
+            base = self.name.rstrip("0123456789")
+            parts = [f"{base:<8}", *self.selector]
+        parts.append(self.format_value())
+        if self.is_numeric and self.fittable:
+            parts.append("1" if not self.frozen else "0")
+            if self.uncertainty:
+                parts.append(self.format_uncertainty())
+        return " ".join(str(p) for p in parts)
+
 
 def _two_sum(a: float, b: float) -> tuple[float, float]:
     s = a + b

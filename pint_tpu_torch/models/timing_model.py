@@ -14,6 +14,7 @@ on whichever device the TOA table lies on.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pint_tpu_torch.models.component import DEFAULT_ORDER, Component
@@ -153,6 +154,10 @@ class TimingModel:
     # ------------------------------------------------------------------
     # noise-model plumbing
     # ------------------------------------------------------------------
+    @property
+    def has_correlated_errors(self) -> bool:
+        return any(getattr(c, "is_noise_basis", False) for c in self.components)
+
     def scaled_toa_uncertainty(self, toas) -> torch.Tensor:
         """Per-TOA sigma [s] after EFAC/EQUAD scaling."""
         sigma = toas.get_errors_s()
@@ -161,6 +166,50 @@ class TimingModel:
                 sigma = c.scale_sigma(sigma, toas)
         return sigma
 
+    def _noise_basis_pairs(self, toas) -> list[tuple[str, np.ndarray, np.ndarray]]:
+        """[(component name, U, phi)] — built once per (toas, noise params).
+
+        The Fourier/ECORR bases are O(n * k) host arrays; memoized so the
+        designmatrix/weight/dimension accessors don't rebuild them. The
+        key is the table's content (TDB, frequencies, flags), not its id.
+        """
+        comps = [c for c in self.components if getattr(c, "is_noise_basis", False)]
+        tdb = toas.get_mjds()
+        freq = toas.freq_mhz.cpu().numpy()
+        flags = tuple(tuple(sorted(d.items())) for d in toas.flags)
+        key = (len(toas), hash(tdb.tobytes()), hash(freq.tobytes()),
+               hash(flags),
+               tuple((p.name, p.value) for c in comps for p in c.params))
+        if getattr(self, "_noise_basis_key", None) != key:
+            self._noise_basis_val = [(type(c).__name__, *c.basis_weight(toas))
+                                     for c in comps]
+            self._noise_basis_key = key
+        return self._noise_basis_val
+
+    def noise_model_designmatrix(self, toas) -> np.ndarray | None:
+        """Stacked correlated-noise basis T (n, k); None if no noise basis."""
+        blocks = [U for _, U, _ in self._noise_basis_pairs(toas) if U.shape[1] > 0]
+        if not blocks:
+            return None
+        return np.concatenate(blocks, axis=1)
+
+    def noise_model_basis_weight(self, toas) -> np.ndarray | None:
+        """Prior variances phi (k,) matching noise_model_designmatrix columns."""
+        ws = [phi for _, _, phi in self._noise_basis_pairs(toas) if phi.size > 0]
+        if not ws:
+            return None
+        return np.concatenate(ws)
+
+    def noise_model_dimensions(self, toas) -> dict[str, tuple[int, int]]:
+        """Map component name -> (start column, size) in the stacked basis."""
+        out: dict[str, tuple[int, int]] = {}
+        start = 0
+        for name, U, _ in self._noise_basis_pairs(toas):
+            if U.shape[1]:
+                out[name] = (start, U.shape[1])
+                start += U.shape[1]
+        return out
+
     # ------------------------------------------------------------------
     # host entry points
     # ------------------------------------------------------------------
@@ -168,6 +217,22 @@ class TimingModel:
         """Model phase at each TOA (reference: TimingModel.phase)."""
         fn = self.phase_fn_toas(abs_phase=abs_phase, device=toas.device)
         return fn(self.base_dd(toas.device), {}, toas)
+
+    def delay(self, toas) -> torch.Tensor:
+        """Total delay [s] (reference: TimingModel.delay)."""
+        p = self.base_dd(toas.device)
+        aux: dict = {}
+        delay = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
+        for c in self.delay_components():
+            delay = delay + c.delay(p, toas, delay, aux)
+        return delay
+
+    def d_phase_d_param(self, toas, param: str) -> torch.Tensor:
+        """dphase/dparam [cycles per parameter unit] at each TOA: one jacfwd
+        column of the composed phase function (the design column is
+        -dphase/dparam / F0)."""
+        M, _ = self.designmatrix(toas, [param], incoffset=False)
+        return -self.f0_f64 * M[:, 0]
 
     def designmatrix(self, toas, params: list[str] | None = None,
                      incoffset: bool = True) -> tuple[torch.Tensor, list[str]]:
@@ -192,6 +257,101 @@ class TimingModel:
         cols += [-J[k] / f0 for k in names]
         return torch.stack(cols, dim=1), out_names
 
+    # ------------------------------------------------------------------
+    # par-file output (reference: TimingModel.as_parfile)
+    # ------------------------------------------------------------------
+    _HEADER_ORDER = ["PSR", "PSRJ", "EPHEM", "CLK", "CLOCK", "UNITS", "TIMEEPH",
+                     "T2CMETHOD", "DILATEFREQ", "DMDATA", "NTOA", "TRES",
+                     "CHI2", "MODE", "INFO", "BINARY", "SOLARN0", "START",
+                     "FINISH"]
+
+    def as_parfile(self) -> str:
+        lines = ["# Created by pint_tpu_torch v0 (TimingModel.as_parfile)"]
+        psr = self.header.get("PSR") or self.header.get("PSRJ") or self.name
+        if psr:
+            lines.append(f"{'PSR':<15} {psr}")
+        for key in self._HEADER_ORDER:
+            if key in ("PSR", "PSRJ"):
+                continue
+            if key in self.header:
+                lines.append(f"{key:<15} {self.header[key]}")
+        skip_defaults = {"PMRA", "PMDEC", "PMELONG", "PMELAT", "PX",
+                         "PLANET_SHAPIRO", "TZRFRQ"}
+        for c in self.components:
+            overrides = c.par_line_overrides()
+            for p in c.params:
+                if p.name in overrides:
+                    if overrides[p.name]:
+                        lines.append(overrides[p.name])
+                    continue
+                if p.kind == "bool":
+                    if p.value:
+                        lines.append(f"{p.name:<15} Y")
+                    continue
+                if p.name in skip_defaults and p.frozen and (
+                    not p.is_numeric or p.value_f64 == 0.0
+                ):
+                    continue
+                if p.kind == "str" and not p.value:
+                    continue
+                if p.kind == "float" and not np.isfinite(p.value_f64):
+                    continue
+                lines.append(p.as_parfile_line())
+
+        # component lines owned by no param (see extra_par_lines), emitted
+        # once per name across the whole file; every physical line's
+        # first token counts
+        def _line_names(s: str) -> set[str]:
+            return {pl.split()[0] for pl in s.splitlines()
+                    if pl.strip() and not pl.lstrip().startswith("#")}
+
+        emitted: set[str] = set()
+        for ln in lines:
+            if ln:
+                emitted |= _line_names(ln)
+        for c in self.components:
+            for extra in c.extra_par_lines():
+                names = _line_names(extra)
+                if not (names & emitted):
+                    emitted |= names
+                    lines.append(extra)
+        return "\n".join(lines) + "\n"
+
+    def compare(self, other: "TimingModel") -> str:
+        """Parameter-level diff table (reference: TimingModel.compare)."""
+        return compare_models(self, other)
+
     def __repr__(self) -> str:
         comps = ", ".join(type(c).__name__ for c in self.components)
         return f"TimingModel({self.name or '?'}: {comps})"
+
+
+def compare_models(m1, m2) -> str:
+    """Tabulate parameter differences between two models.
+
+    For parameters with uncertainties the difference is also expressed in
+    units of the first model's sigma (the reference's compare() column).
+    """
+    lines = [f"{'PAR':<12}{'model1':>24}{'model2':>24}{'diff':>14}{'diff/sig1':>11}"]
+    names = list(dict.fromkeys(list(m1.params) + list(m2.params)))
+    for name in names:
+        p1 = m1.params.get(name)
+        p2 = m2.params.get(name)
+        if p1 is None or p2 is None:
+            only = "model1" if p2 is None else "model2"
+            p = p1 or p2
+            if p.is_numeric or p.kind == "str":
+                lines.append(f"{name:<12}{'(only in ' + only + ')':>24}")
+            continue
+        if not p1.is_numeric or not p2.is_numeric:
+            continue
+        v1, v2 = p1.value_f64, p2.value_f64
+        d = v2 - v1
+        sig = ""
+        if p1.uncertainty:
+            sig = f"{d / p1.uncertainty:10.2f}"
+        if d == 0.0 and not p1.uncertainty:
+            continue
+        lines.append(f"{name:<12}{p1.format_value():>24}{p2.format_value():>24}"
+                     f"{d:>14.4e}{sig:>11}")
+    return "\n".join(lines)

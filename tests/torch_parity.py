@@ -6,6 +6,7 @@ port as numpy arrays through ``pint_tpu_torch.interop.state_from_numpy``.
 """
 
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -63,6 +64,33 @@ def epoch_mjds(n: int, rng) -> np.ndarray:
     return (centers[:, None]
             + rng.uniform(0, 0.5 / 86400.0, (n_ep, 4))).ravel()[:n]
 
+
+# The reference's own fitter cases. tests/test_fit_wls.py's PAR: the
+# bench par without noise, RAJ/DECJ/F0/F1/DM fitted.
+PAR_WLS = """
+PSRJ           J1748-2021E
+RAJ             17:48:52.75  1
+DECJ           -20:21:29.0  1
+F0             61.485476554  1
+F1             -1.181D-15  1
+PEPOCH        53750.000000
+POSEPOCH      53750.000000
+DM              223.9  1
+EPHEM          DE421
+UNITS          TDB
+TZRMJD  53801.38605120074849
+TZRFRQ  1949.609
+TZRSITE 1
+"""
+# tests/test_noise_gls.py's BASE_PAR (DM frozen) and its noise lines
+PAR_NOISE_BASE = PAR_WLS.replace("DM              223.9  1",
+                                 "DM              223.9")
+NOISE_LINES = "EFAC -f fake 1.5\nEQUAD -f fake 0.8\n"
+ECORR_LINES = "ECORR -f fake 1.2\n"
+RED_LINES = "TNREDAMP -13.5\nTNREDGAM 3.5\nTNREDC 12\n"
+# tests/test_utils_matrix.py's PAR: RAJ/DECJ frozen
+PAR_MATRIX = PAR_WLS.replace("17:48:52.75  1", "17:48:52.75").replace(
+    "-20:21:29.0  1", "-20:21:29.0")
 
 # par text -> the site its TOAs are observed at
 SITES = {PAR_FULL: "gbt", PAR_BARY: "@"}
@@ -128,3 +156,55 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+def with_flag(toas, flag="f", value="fake"):
+    """The reference table with one tim-file flag added to every TOA (as
+    tests/test_noise_gls.py::_with_flag does)."""
+    import dataclasses
+
+    from pint_tpu.toas import Flags
+
+    return dataclasses.replace(
+        toas, flags=Flags(dict(d, **{flag: value}) for d in toas.flags))
+
+
+def _as_number(token: str):
+    """A par/summary token as a float (sexagesimal d:m:s as seconds), or
+    None; and the number of digits after its decimal point."""
+    t = token.replace("D", "E")
+    parts = t.split(":")
+    try:
+        if len(parts) == 3:
+            sign = -1.0 if parts[0].startswith("-") else 1.0
+            v = sign * (abs(float(parts[0])) * 3600.0 + float(parts[1]) * 60.0
+                        + float(parts[2]))
+        else:
+            v = float(t)
+    except ValueError:
+        return None, 0
+    mantissa = parts[-1].split("E")[0]
+    decimals = len(mantissa.split(".")[1]) if "." in mantissa else 0
+    exp = int(t.split("E")[1]) if "E" in t else 0
+    return v, 10.0 ** (exp - decimals)
+
+
+# a number (sexagesimal d:m:s too, exponent D or E) or any other character
+_TOKEN = re.compile(r"[-+]?(?:\d+:\d+:)?\d*\.?\d+(?:[eEdD][-+]?\d+)?|\S")
+
+
+def assert_text_close(a: str, b: str, rtol: float) -> None:
+    """Two reports agree line by line and token by token: words equal, or
+    numbers within `rtol` relative or one unit of their last printed digit
+    (a last-digit rounding flip)."""
+    la, lb = a.splitlines(), b.splitlines()
+    assert len(la) == len(lb), (len(la), len(lb))
+    for x, y in zip(la, lb):
+        tx, ty = _TOKEN.findall(x), _TOKEN.findall(y)
+        assert len(tx) == len(ty), (x, y)
+        for u, v in zip(tx, ty):
+            if u == v:
+                continue
+            (nu, du), (nv, dv) = _as_number(u), _as_number(v)
+            assert nu is not None and nv is not None, (x, y)
+            assert abs(nu - nv) <= rtol * max(abs(nu), abs(nv)) + 1.01 * max(du, dv), (x, y)
