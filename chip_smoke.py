@@ -23,15 +23,28 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 6. the main path: bench.py's par verbatim (RAJ/DECJ fitted, EPHEM DE421
    through the analytic fallback, TZRSITE 1), 100,000 GBT TOAs in 4-TOA
    ECORR epochs simulated on the card, the table build timed, then the
-   damped GLS fit (``HybridGLSFitter(...).fit_toas(maxiter=10)``) —
-   every kernel's launch count is set to 0 just before and read just
-   after, and each must have launched; then the same fit with an exact
-   float64 Gram as a witness of where the damped loop stops, the warm
-   step's times and torch.profiler traces of one warm step and of its
-   stage 1 (the device's idle share and the kernels that take the time);
+   damped GLS fit (``HybridGLSFitter(...).fit_toas(maxiter=10)``) through
+   the fused loop, whose first fit captures a full step and a probe as
+   CUDA graphs and replays them — every kernel's launch count is set to
+   0 just before and read just after (a replay counts the launches its
+   graph recorded), and each must have launched; captures, replays, host
+   fetches, cold and warm wall and peak memory; then the host loop
+   (``PINT_TORCH_DEVICE_LOOP=0``) as a witness (the same trace,
+   counters, steps and probes, every full evaluation's chi2 within
+   1e-12), the captured fit from a
+   kicked start against the host loop from there (nothing stale baked
+   in), the same fit with an exact float64 Gram as a witness of where the
+   damped loop stops (its own capture), torch.profiler over one warm
+   fused fit (whose trace must hold one ds32_gram partials and one reduce
+   kernel per launch counted per replay) and one warm host-loop fit (the
+   device's idle share of the whole fit), the graph replays' device span (CUDA events), no host
+   sync in an eager step or probe
+   (``torch.cuda.set_sync_debug_mode("error")``), the eager step's times
+   and traces of one step and its stage 1;
 7. the topocentric fit and the barycentric one (the earlier path, at this
-   smaller depth) at 2,000 TOAs on the card and on the CPU (plain
-   versions) must agree, the kernel's launches counted in each;
+   smaller depth) at 2,000 TOAs on the card (fused), on the CPU (plain
+   versions) and on the card through the host loop must agree, the
+   kernel's launches counted in each;
 8. the fitter API, whose float64 solves never launch the kernel (its
    launch count is set to 0 before and must read 0 after):
    ``Fitter.auto`` on bench.py's par at 20,000 GBT TOAs must pick
@@ -41,7 +54,10 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    truth: steps, trials, Gram builds, cold and warm wall, peak memory,
    the device's idle share of one warm step, the summary, the derived
    quantities and the par file; ``DownhillWLSFitter`` on phase 6's
-   100,000 TOAs with the same gates; one ``make_wls_step`` and one
+   100,000 TOAs with the same gates; the fused ``dense_wls_fit`` and
+   ``dense_gls_fit`` there, cold (capture) and warm (replays), each
+   against the host loop over the same cached step/probe pair (the same
+   gates, chi2 within 1e-12); one ``make_wls_step`` and one
    ``make_gls_step`` there, timed, the GLS step held to one hybrid step
    with an exact float64 Gram; ``WLSFitter``, ``GLSFitter`` (Woodbury
    and dense C), ``DownhillWLSFitter`` and ``DownhillGLSFitter`` on one
@@ -149,6 +165,14 @@ CARD_VALUE_SIGMA = 1e-5
 # 9.8e-11 sigma, 4.2e-11 in chi2 on the CPU)
 STEP_VS_HYBRID_SIGMA = 1e-8
 STEP_VS_HYBRID_RTOL = 1e-9
+# The fused loop against the host loop on one card: the same kernels
+# (replayed or launched eagerly) in the same order but for the atomics of
+# the ECORR segment sums (main path: 1.5e-11 of 65,878 in chi2, 2e-16
+# relative), so every full evaluation's chi2 within rtol 1e-12 and the
+# same decisions, counters, steps and probes
+LOOP_RTOL = 1e-12
+LOOP_COUNTERS = ("iterations", "accepts", "halvings", "probe_evals",
+                 "probe_rejects")
 
 
 def fail(msg: str) -> None:
@@ -225,34 +249,95 @@ def host_ms(fn, reps=7):
     return float(np.median(times))
 
 
-def run_fit(model, toas):
-    """Construct the fitter on the card and run the damped fit, counting
-    its calls. Returns (fitter, chi2, construction s, fit_toas s, full
-    steps, probes)."""
-    from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
+def free_values(model):
+    """The model's free parameters' values (hi, lo): a fit's start."""
+    return {k: model[k].value for k in model.free_params}
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fitter = HybridGLSFitter(toas, model)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    calls = {"step": 0, "probe": 0}
-    step, probe = fitter._iterate, fitter._chi2_at
 
-    def counted_step(base, deltas):
-        calls["step"] += 1
-        return step(base, deltas)
+def run_fit(fitter, start=None, loop="1", maxiter=10):
+    """One damped fit of `fitter` (from `start`, when given), through the
+    fused loop (``loop="1"``) or the host loop (``"0"``). Returns a
+    record: chi2, wall s, full steps, probes, the loop's counters, the
+    fused loop's captures/replays/fetches, the flight-recorder trace and
+    the ds32_gram launches (counted per replay)."""
+    import os
 
-    def counted_probe(base, deltas):
-        calls["probe"] += 1
-        return probe(base, deltas)
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.telemetry import recorder
 
-    fitter._iterate, fitter._chi2_at = counted_step, counted_probe
-    chi2 = fitter.fit_toas(maxiter=10)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    fitter._iterate, fitter._chi2_at = step, probe
-    return fitter, chi2, t1 - t0, t2 - t1, calls["step"], calls["probe"]
+    if start is not None:
+        for k, v in start.items():
+            fitter.model[k].value = v
+    os.environ["PINT_TORCH_DEVICE_LOOP"] = loop
+    try:
+        before = gram.ds32_gram.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chi2 = fitter.fit_toas(maxiter=maxiter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PINT_TORCH_DEVICE_LOOP")
+    trace = recorder.last_trace()
+    return {"chi2": chi2, "wall": wall, "steps": trace["n"],
+            "probes": fitter.counters["probe_evals"],
+            "counters": {k: fitter.counters[k] for k in LOOP_COUNTERS},
+            "stats": dict(fitter.loop_stats), "trace": trace,
+            "launches": gram.ds32_gram.launches - before,
+            "converged": fitter.converged}
+
+
+def replay_spans(fitter, start):
+    """One warm fused fit of `fitter` from `start` with CUDA events around
+    each graph replay: (replays, their summed device span in ms, the fit's
+    wall in ms). A replay's span holds its kernels and the gaps between
+    them on the card; the rest of the wall is the host's."""
+    from pint_tpu_torch.fitting import device_loop
+
+    events = []
+    replay = device_loop._Captured.replay
+
+    def timed(cap, kind):
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        replay(cap, kind)
+        end_ev.record()
+        events.append((start_ev, end_ev))
+
+    device_loop._Captured.replay = timed
+    try:
+        wall_ms = run_fit(fitter, start)["wall"] * 1e3
+    finally:
+        device_loop._Captured.replay = replay
+    return len(events), sum(a.elapsed_time(b) for a, b in events), wall_ms
+
+
+def describe_fit(label, r):
+    st = r["stats"]
+    loop = (f"{st['captures']} captures, {st['replays']} graph replays, "
+            f"{st['fetches']} host fetches" if st else "host loop")
+    print(f"{label}: {r['wall']:.4f} s wall; {r['steps']} full "
+          f"steps, {r['probes']} probes ({loop}); counters {r['counters']}; "
+          f"ds32_gram launches {r['launches']}; GLS chi2 {r['chi2']:.9f}, "
+          f"converged {r['converged']}", flush=True)
+
+
+def same_loop(a, b, rtol=LOOP_RTOL):
+    """Two fits of one problem on one card (fused and host loop, or cold
+    and warm) make the same loop: every full evaluation's chi2 and the
+    final chi2 within `rtol`, the same trace otherwise (damping factors,
+    decisions, halvings and probes after each evaluation), and equal
+    counters, steps and probes."""
+    ta, tb = a["trace"], b["trace"]
+    return (len(ta["chi2"]) == len(tb["chi2"])
+            and all(abs(x - y) <= rtol * abs(y)
+                    for x, y in zip(ta["chi2"], tb["chi2"]))
+            and abs(a["chi2"] - b["chi2"]) <= rtol * abs(b["chi2"])
+            and all(ta[f] == tb[f]
+                    for f in ("lam", "accepted", "halvings", "probe_evals"))
+            and (a["counters"], a["steps"], a["probes"])
+            == (b["counters"], b["steps"], b["probes"]))
 
 
 def kicked(par):
@@ -478,15 +563,88 @@ def fitter_api(dev, toas):
         if not same:
             fail(f"{label} on the card disagrees with the CPU: trials "
                  f"{tc} / {tg}")
+    dense_fits(toas)
     if gram.ds32_gram.launches:
         fail(f"the fitter API launched ds32_gram {gram.ds32_gram.launches} "
              "times; its solves are float64")
 
 
+def dense_host_loop(kind, model, toas):
+    """``downhill_iterate`` over the cached step/probe pair that
+    ``dense_<kind>_fit`` runs, on the same bucketed table and statics."""
+    from pint_tpu_torch import bucketing
+    from pint_tpu_torch.fitting import damped, device_loop, gls_step, step
+
+    dev = toas.device
+    base = model.base_dd(dev)
+    if kind == "wls":
+        toas_b = bucketing.bucket_toas(toas)
+        s = step.cached_wls_step(model, device=dev)
+        p = step.cached_wls_probe(model, device=dev)
+        ops = model.scaled_toa_uncertainty(toas_b)
+    else:
+        toas_b, ops, specs = device_loop.dense_gls_operands(model, toas)
+        s = gls_step.cached_gls_step(model, pl_specs=specs, device=dev)
+        p = gls_step.cached_gls_probe(model, pl_specs=specs, device=dev)
+    counters = {}
+    _, _, chi2, conv = damped.downhill_iterate(
+        lambda d: s(base, d, toas_b, ops), model.zero_deltas(device=dev),
+        maxiter=10, chi2_at=lambda d: p(base, d, toas_b, ops),
+        counters=counters)
+    return chi2, conv, counters
+
+
+def dense_fits(toas):
+    """Phase 8: ``dense_wls_fit`` and ``dense_gls_fit`` on the main path's
+    table, cold (capture) and warm (replays), each against the host loop
+    over the same cached step/probe pair."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.telemetry import recorder
+
+    def statics():
+        device_loop.dense_gls_operands(kicked(PAR_FULL), toas)
+
+    print(f"dense_gls_fit's host-built noise statics (ECORR epochs, scaled "
+          f"sigma) at {len(toas)} TOAs: {host_ms(statics, reps=3):.2f} ms a "
+          f"call", flush=True)
+    for kind in ("wls", "gls"):
+        fit = getattr(device_loop, f"dense_{kind}_fit")
+        model = kicked(PAR_FULL)
+        recs = {}
+        for run in ("cold", "warm", "host loop"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run == "host loop":
+                chi2, conv, counters = dense_host_loop(kind, model, toas)
+                stats = {}
+            else:
+                stats = {}
+                _, _, chi2, conv, counters = fit(toas, model, maxiter=10,
+                                                 stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            trace = recorder.last_trace()
+            recs[run] = {"chi2": chi2, "wall": wall, "steps": trace["n"],
+                         "probes": counters["probe_evals"], "trace": trace,
+                         "counters": {k: counters[k] for k in LOOP_COUNTERS},
+                         "stats": stats, "launches": 0, "converged": conv}
+            describe_fit(f"dense_{kind}_fit at {len(toas)} TOAs ({run})",
+                         recs[run])
+        if not (recs["cold"]["stats"]["captures"] == 2
+                and recs["warm"]["stats"]["captures"] == 0
+                and recs["cold"]["converged"]
+                and math.isfinite(recs["cold"]["chi2"])
+                and same_loop(recs["cold"], recs["warm"])
+                and same_loop(recs["cold"], recs["host loop"])):
+            fail(f"dense_{kind}_fit disagrees with the host loop over its "
+                 f"step and probe")
+
+
 def profile_step(label, fn, wall_ms):
-    """torch.profiler over one warm call of fn (a step or its stage 1):
-    the kernels that take the time, and the device's idle share of the
-    unprofiled call's wall time `wall_ms`."""
+    """torch.profiler over one warm call of fn (a fit, a step or its
+    stage 1): the kernels that take the time, and the device's idle share
+    of the unprofiled call's wall time `wall_ms`. Returns the trace's
+    device time (ms) and launches by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -507,7 +665,7 @@ def profile_step(label, fn, wall_ms):
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms == 0.0:
         print(f"profile of {label}: the trace holds no device time (not measured)")
-        return
+        return by_name
     print(f"profile of {label}: wall {prof_ms:.2f} ms profiled, "
           f"{wall_ms:.2f} ms not; device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} of the unprofiled wall, "
@@ -515,6 +673,7 @@ def profile_step(label, fn, wall_ms):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (ms, count) in top:
         print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
+    return by_name
 
 
 def kernel_name(text: str) -> str:
@@ -652,7 +811,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     sys.path.insert(0, str(ROOT))
-    from pint_tpu_torch.fitting import gls_step
+    from pint_tpu_torch.fitting import device_loop, gls_step
     from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops import dd, gram
@@ -741,91 +900,205 @@ def main() -> None:
           f"{build_ms:.2f} ms wall", flush=True)
     profile_step("one table build", lambda: gbt_table(N_TOAS, 0, dev, model.ephem),
                  build_ms)
+    # the main path: the damped fit through the fused loop (the first fit
+    # captures a full step and a probe as CUDA graphs)
     gram.ds32_gram.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    fitter, chi2, build_s, fit_s, steps, probes = run_fit(model, toas)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter = HybridGLSFitter(toas, model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    start = free_values(model)
+    cold = run_fit(fitter)
     launches = gram.ds32_gram.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    reserved_mb = torch.cuda.memory_reserved() / 2 ** 20
+    chi2, steps, st = cold["chi2"], cold["steps"], cold["stats"]
     red = fitter.resids.reduced_chi2
     dof = fitter.resids.dof
-    print(f"fit (cold): {build_s + fit_s:.3f} s wall = construction "
-          f"{build_s:.3f} s + fit_toas {fit_s:.3f} s; {steps} full steps, "
-          f"{probes} probes, converged {fitter.converged}, GLS chi2 {chi2:.6f} "
-          f"(chi2/dof {chi2 / dof:.6f}), post-fit residual chi2/dof {red:.6f}, "
-          f"peak memory {peak_mb:.1f} MiB", flush=True)
+    describe_fit(f"fit (cold, fused loop, with capture; construction "
+                 f"{build_s:.3f} s more)", cold)
+    print(f"  chi2/dof {chi2 / dof:.6f}, post-fit residual chi2/dof "
+          f"{red:.6f}; peak memory {peak_mb:.1f} MiB allocated (graph pool "
+          f"included), {reserved_mb:.1f} MiB reserved; kernel launches "
+          f"recorded in the captures: ds32_gram {gram.ds32_gram.captured}",
+          flush=True)
     for k in fitter.fit_params:
         p = model[k]
         print(f"  {k} = {p.format_value()} +- {p.format_uncertainty()}")
-    print(f"ds32_gram launches in the fit: {launches}", flush=True)
+    print(f"ds32_gram launches in the fit (counted per replay): {launches}",
+          flush=True)
     if not (math.isfinite(chi2) and fitter.converged):
         fail(f"fit did not converge to a finite chi2 ({chi2})")
     if not 0.8 <= red <= 1.25:
         fail(f"post-fit reduced chi2 {red} outside [0.8, 1.25]")
     if launches == 0 or launches < 2 * steps:
         fail(f"{launches} ds32_gram launches for {steps} full steps")
+    # every evaluation but the eager init pass (the capture's warm-up) is
+    # a graph replay
+    if not (st["captures"] == 2 and st["full"] == steps
+            and st["probe"] == cold["probes"]
+            and st["replays"] == steps + cold["probes"] - 1):
+        fail(f"the fit did not run as graph replays: {st}")
+    warm = run_fit(fitter, start)
+    describe_fit("fit (warm, fused loop: the same fitter from the same start)",
+                 warm)
+    if not (warm["stats"]["captures"] == 0
+            and warm["stats"]["replays"] == warm["steps"] + warm["probes"]
+            and same_loop(cold, warm)):
+        fail("the warm fused fit is not the cold one replayed")
+    # the host loop (PINT_TORCH_DEVICE_LOOP=0) as the witness: the same
+    # trace, counters, steps and probes, chi2 within LOOP_RTOL
+    hfitter = HybridGLSFitter(toas, get_model(PAR_FULL))
+    hcold = run_fit(hfitter, loop="0")
+    hwarm = run_fit(hfitter, start, loop="0")
+    describe_fit("fit (host loop, first)", hcold)
+    describe_fit("fit (host loop, warm)", hwarm)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
+                                                   hwarm["trace"]["chi2"]))
+    print(f"  fused - host loop chi2: {cold['chi2'] - hwarm['chi2']:+.3e}; "
+          f"largest relative gap of a full evaluation's chi2 {gap:.3e} "
+          f"(bar {LOOP_RTOL:g}); trace chi2 fused {cold['trace']['chi2']}\n  host "
+          f"{hwarm['trace']['chi2']}", flush=True)
+    if not (same_loop(cold, hcold) and same_loop(warm, hwarm)):
+        fail("the fused fit disagrees with the host loop")
+    # baked values: the captured fit from another start must be the host
+    # loop's fit from there
+    for k, d in KICK.items():
+        fitter.model[k].add_delta(d)
+    start2 = free_values(fitter.model)
+    moved = run_fit(fitter)
+    hmoved = run_fit(hfitter, start2, loop="0")
+    worst = max(abs(fitter.model[k].value_f64 - hfitter.model[k].value_f64)
+                / hfitter.model[k].uncertainty for k in fitter.fit_params)
+    describe_fit("fit from a kicked start (fused, replayed)", moved)
+    describe_fit("fit from the kicked start (host loop)", hmoved)
+    print(f"  worst parameter gap fused - host loop {worst:.3e} sigma",
+          flush=True)
+    if not (moved["stats"]["captures"] == 0 and worst <= 1e-6
+            and same_loop(moved, hmoved)):
+        fail("the captured fit from a new start is not the host loop's")
     # a second witness of where the damped loop stops: the same fit with
-    # an exact f64 Gram in place of the kernel
+    # an exact f64 Gram in place of the kernel (a capture of its own)
+    captured = gram.ds32_gram.captured
     gls_step.ds32_gram = lambda A: A.T @ A
     try:
-        _, chi2_f64, _, _, steps_f64, probes_f64 = run_fit(get_model(PAR_FULL),
-                                                           toas)
+        f64 = run_fit(HybridGLSFitter(toas, get_model(PAR_FULL)))
     finally:
         gls_step.ds32_gram = gram.ds32_gram
-    print(f"fit with an exact f64 Gram (witness): {steps_f64} full steps, "
-          f"{probes_f64} probes, GLS chi2 {chi2_f64:.6f}, the kernel's fit "
-          f"{chi2 - chi2_f64:+.6f} from it", flush=True)
-    if not abs(chi2 - chi2_f64) <= 1e-6 * chi2_f64:
-        fail(f"the fit's chi2 {chi2} is not the f64 Gram fit's {chi2_f64}")
-    warm, _, wbuild_s, wfit_s, wsteps, wprobes = run_fit(
-        get_model(PAR_FULL), toas)
-    print(f"fit (warm, same table, fresh model): {wbuild_s + wfit_s:.3f} s wall"
-          f" = construction {wbuild_s:.3f} s + fit_toas {wfit_s:.3f} s; "
-          f"{wsteps} full steps, {wprobes} probes", flush=True)
+    describe_fit("fit with an exact f64 Gram (witness)", f64)
+    print(f"  the kernel's fit {chi2 - f64['chi2']:+.6f} from it", flush=True)
+    if not abs(chi2 - f64["chi2"]) <= 1e-6 * f64["chi2"]:
+        fail(f"the fit's chi2 {chi2} is not the f64 Gram fit's {f64['chi2']}")
+    if f64["launches"] or gram.ds32_gram.captured != captured \
+            or f64["stats"]["captures"] != 2:
+        fail("the f64-Gram witness replayed the kernel's capture")
+    # the whole fit's idle share, fused and host loop (warm, same start)
+    fused_ms = host_ms(lambda: run_fit(fitter, start), reps=3)
+    host_ms_ = host_ms(lambda: run_fit(hfitter, start, loop="0"), reps=3)
+    resid_ms = host_ms(fitter._new_resids, reps=3)
+    print(f"one warm fit (fused loop): {fused_ms:.2f} ms wall; one warm fit "
+          f"(host loop): {host_ms_:.2f} ms (median of 3, fit_toas from the "
+          f"same start); of either, the post-fit residuals (eager, after the "
+          f"loop) {resid_ms:.2f} ms", flush=True)
+    # the profiled fit's kernels inside the graph replays: one partials
+    # and one reduce pass for each ds32_gram launch counted per replay
+    profiled = []
+    by_name = profile_step("one warm fused fit",
+                           lambda: profiled.append(run_fit(fitter, start)),
+                           fused_ms)
+    traced = {p: sum(c for name, (_, c) in by_name.items()
+                     if f"ds32_gram_{p}" in name)
+              for p in ("partials", "reduce")}
+    counted = profiled[-1]["launches"]
+    print(f"  ds32_gram in the profiled fit: {counted} launches counted per "
+          f"replay; the trace holds {traced['partials']} partials and "
+          f"{traced['reduce']} reduce kernels", flush=True)
+    if traced != {"partials": counted, "reduce": counted}:
+        fail(f"the trace of a fused fit holds {traced} ds32_gram kernels, "
+             f"not the {counted} launches counted per replay")
+    n_rep, span_ms, wall_ms = replay_spans(fitter, start)
+    print(f"one warm fused fit: {n_rep} graph replays span {span_ms:.2f} ms "
+          f"on the card (CUDA events around each replay) of its "
+          f"{wall_ms:.2f} ms wall", flush=True)
+    profile_step("one warm host-loop fit",
+                 lambda: run_fit(hfitter, start, loop="0"), host_ms_)
     base = model.base_dd(dev)
     deltas = model.zero_deltas(device=dev)
 
     def full_step():
-        float(warm._iterate(base, deltas)[1]["chi2_at_input"])
+        float(fitter._iterate(base, deltas)[1]["chi2_at_input"])
 
     def stage1():
-        warm._stage1(base, deltas, warm.toas)
+        fitter._stage1(base, deltas, fitter.toas, fitter._sigma)
 
+    # what capture needs: no host sync in a step or a probe (raises here)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fitter._iterate(base, deltas)
+        fitter._chi2_at(base, deltas)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("no host sync in an eager full step or probe "
+          "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
     step_ms = host_ms(full_step)
     stage1_ms = host_ms(stage1)
-    probe_ms = host_ms(lambda: warm._chi2_at(base, deltas))
-    print(f"one full step (warm): {step_ms:.2f} ms, of which stage 1 "
+    probe_ms = host_ms(lambda: float(fitter._chi2_at(base, deltas)))
+    print(f"one full step (warm, eager): {step_ms:.2f} ms, of which stage 1 "
           f"(DD phase + jacfwd design) {stage1_ms:.2f} ms; one probe "
           f"{probe_ms:.2f} ms", flush=True)
     profile_step("one full step", full_step, step_ms)
     profile_step("stage 1 of a step", stage1, stage1_ms)
 
-    phase(f"7 the fits on the card agree with the CPU at {N_SMALL} TOAs")
-    launches_by_path = {f"topocentric {N_TOAS} (main path)": launches}
+    phase(f"7 the fits on the card agree with the CPU and the host loop at "
+          f"{N_SMALL} TOAs")
+    launches_by_path = {
+        f"topocentric {N_TOAS} (main path, fused, cold)": launches,
+        f"topocentric {N_TOAS} (fused, warm)": warm["launches"],
+        f"topocentric {N_TOAS} (host loop, warm)": hwarm["launches"]}
     for label, par in (("topocentric", PAR_FULL), ("barycentric", PAR_BARY)):
         small = simulate(par, N_SMALL, seed=1, device="cpu")
-        fits = []
-        for d in ("cpu", dev):
-            m = get_model(par)
-            gram.ds32_gram.launches = 0
-            f = HybridGLSFitter(small, m, device=d)
-            fits.append((m, f.fit_toas(maxiter=3), f.converged,
-                         gram.ds32_gram.launches))
-        (m_cpu, c_cpu, v_cpu, n_cpu), (m_gpu, c_gpu, v_gpu, n_gpu) = fits
-        launches_by_path[f"{label} {N_SMALL}"] = n_gpu
+        recs = {}
+        for name, d, loop in (("cpu", "cpu", "1"), ("card", dev, "1"),
+                              ("card host loop", dev, "0")):
+            f = HybridGLSFitter(small, get_model(par), device=d)
+            recs[name] = (f.model, run_fit(f, loop=loop, maxiter=3))
+        (m_cpu, r_cpu), (m_gpu, r_gpu), (_, r_host) = recs.values()
+        c_cpu, c_gpu = r_cpu["chi2"], r_gpu["chi2"]
+        launches_by_path[f"{label} {N_SMALL} (fused)"] = r_gpu["launches"]
+        launches_by_path[f"{label} {N_SMALL} (host loop)"] = r_host["launches"]
         worst = max(abs(m_cpu[k].value_f64 - m_gpu[k].value_f64)
                     / m_cpu[k].uncertainty for k in m_cpu.free_params)
-        print(f"{label}: chi2 cpu {c_cpu:.9f} card {c_gpu:.9f}; worst parameter "
-              f"gap {worst:.3e} sigma; converged {v_cpu}/{v_gpu}; ds32_gram "
-              f"launches cpu {n_cpu}, card {n_gpu}", flush=True)
-        if not (v_cpu == v_gpu and abs(c_gpu - c_cpu) <= 1e-6 * abs(c_cpu)
-                and worst < 0.05):
+        print(f"{label}: chi2 cpu {c_cpu:.9f} card {c_gpu:.9f} card host loop "
+              f"{r_host['chi2']:.9f}; worst parameter gap {worst:.3e} sigma; "
+              f"converged {r_cpu['converged']}/{r_gpu['converged']}; steps "
+              f"{r_cpu['steps']}/{r_gpu['steps']}/{r_host['steps']}, probes "
+              f"{r_cpu['probes']}/{r_gpu['probes']}/{r_host['probes']}; "
+              f"ds32_gram launches cpu {r_cpu['launches']}, card "
+              f"{r_gpu['launches']}, card host loop {r_host['launches']}; card "
+              f"{r_gpu['stats']}", flush=True)
+        if not (r_cpu["converged"] == r_gpu["converged"]
+                and abs(c_gpu - c_cpu) <= 1e-6 * abs(c_cpu) and worst < 0.05):
             fail(f"the {label} fit on the card disagrees with the CPU fit")
-        if n_gpu == 0 or n_cpu != 0:
-            fail(f"the {label} fit launched ds32_gram {n_gpu} times on the "
-                 f"card and {n_cpu} times on the CPU")
+        if not same_loop(r_gpu, r_host):
+            fail(f"the {label} fused fit disagrees with the host loop")
+        if r_gpu["launches"] == 0 or r_host["launches"] == 0 \
+                or r_cpu["launches"] != 0:
+            fail(f"the {label} fits launched ds32_gram {r_gpu['launches']} / "
+                 f"{r_host['launches']} times on the card and "
+                 f"{r_cpu['launches']} times on the CPU")
 
     phase(f"8 the fitter API: Fitter.auto at {N_DENSE} TOAs, the WLS fit and "
           f"the single-call steps at {N_TOAS}, card against CPU at {N_SMALL}")
+    # the captured loops of phases 6-7 hold their graphs' memory; free
+    # it, so that phase 8's peaks measure phase 8
+    del fitter, hfitter
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
+    device_loop.clear_cache()
+    print(f"device_loop.clear_cache() freed "
+          f"{held_mb - torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB of "
+          f"captured loops", flush=True)
     fitter_api(dev, toas)
 
     phase("9 result")

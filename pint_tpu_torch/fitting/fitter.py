@@ -13,26 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pint_tpu_torch.bucketing import bucket_size
 from pint_tpu_torch.fitting.gls_step import cho_factor
 from pint_tpu_torch.residuals import Residuals
 
 _EPS = torch.finfo(torch.float64).eps
-
-# The reference pads the dense solvers' rows with exact zeros to its
-# compile bucket (pint_tpu/bucketing.py::bucket_size at its defaults):
-# the next power of two, at least 32, for up to 16,384 rows, and the
-# exact count above. Zero rows change nothing but the SVD cutoff
-# eps * rows, so the port pads nothing and takes the cutoff from that
-# same row count.
-_BUCKET_FLOOR = 32
-_BUCKET_CEILING = 16384
-
-
-def solve_rows(n: int) -> int:
-    """The row count the reference's dense solvers see for n TOAs."""
-    if n > _BUCKET_CEILING:
-        return n
-    return max(_BUCKET_FLOOR, 1 << (n - 1).bit_length())
 
 
 def wls_solve(M: torch.Tensor, r: torch.Tensor, werr: torch.Tensor,
@@ -41,7 +26,10 @@ def wls_solve(M: torch.Tensor, r: torch.Tensor, werr: torch.Tensor,
 
     M: (n, p) design matrix [s/unit]; r: (n,) residuals [s]; werr: (n,)
     per-TOA uncertainties [s]; `threshold` is the relative singular-value
-    cutoff (default eps * solve_rows(n), the reference WLSFitter's).
+    cutoff (default eps * bucket_size(n), the reference WLSFitter's: it
+    pads the rows with exact zeros to the bucket, which changes nothing
+    but that cutoff, so the port pads nothing and takes the cutoff from
+    the bucket's row count).
     Returns deltas, covariance, post-fit chi2.
     """
     sw = 1.0 / werr
@@ -51,7 +39,7 @@ def wls_solve(M: torch.Tensor, r: torch.Tensor, werr: torch.Tensor,
     norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
     A = A / norm
     U, s, Vt = torch.linalg.svd(A, full_matrices=False)
-    rel = threshold if threshold is not None else _EPS * solve_rows(A.shape[0])
+    rel = threshold if threshold is not None else _EPS * bucket_size(A.shape[0])
     tol = rel * torch.max(s)
     keep = s > tol
     sinv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),

@@ -62,16 +62,30 @@ class NoiseStatics(NamedTuple):
     sigma: torch.Tensor | None = None  # (n,) scaled uncertainties [s]
 
 
-def scaled_sigma_np(model, toas) -> np.ndarray:
-    """Numpy mirror of ``model.scaled_toa_uncertainty``.
+def scaled_sigma_np(model, toas, n_target: int | None = None) -> np.ndarray:
+    """Numpy mirror of ``model.scaled_toa_uncertainty`` (+ padding).
 
     The EFAC/EQUAD formula (``scale * sqrt(sigma^2 + equad^2)``, the
-    reference convention) applied on the host, one (n,) vector.
+    reference convention) applied on the host, one (n,) vector: a static
+    that a captured fit reads instead of scaling the uncertainties
+    itself. ``n_target`` extends it the way ``bucketing.pad_toas`` and
+    the scaling would: padding rows replicate the LAST row's selector
+    masks with ``PAD_ERROR_US`` uncertainty.
     """
+    from pint_tpu_torch.bucketing import PAD_ERROR_US
+
     sigma = toas.error_us.cpu().numpy() * 1e-6
+    k = 0 if n_target is None else n_target - len(sigma)
+    if k < 0:
+        raise ValueError(f"n_target {n_target} < ntoas {len(sigma)}")
+    if k:
+        sigma = np.concatenate([sigma, np.full(k, PAD_ERROR_US * 1e-6)])
 
     def mask_of(selector):
-        return np.asarray(toa_mask(selector, toas), dtype=np.float64)
+        m = np.asarray(toa_mask(selector, toas), dtype=np.float64)
+        if k:
+            m = np.concatenate([m, np.full(k, m[-1])])
+        return m
 
     var = np.square(sigma)
     scale = np.ones_like(sigma)
@@ -138,6 +152,33 @@ def build_noise_statics(model, toas, *, as_numpy: bool = False
         torch.as_tensor(np.asarray(pl_params, dtype=np.float64),
                         device=dev).reshape(len(specs), 2)),
         tuple(specs))
+
+
+def pad_noise_statics(noise: NoiseStatics, n_target: int) -> NoiseStatics:
+    """Extend the statics to ``n_target`` rows (a bucketed table's).
+
+    Padding rows point at the dummy ECORR segment (``ne``), so they join
+    no epoch; a per-row ``sigma`` gets ``PAD_ERROR_US`` rows (zero
+    weight). The reference's ``ne_target`` (the batched fits' epoch
+    bucket) and its numpy statics are not ported yet.
+    """
+    from pint_tpu_torch.bucketing import PAD_ERROR_US
+
+    n = int(noise.epoch_idx.shape[0])
+    if n_target < n:
+        raise ValueError(f"n_target {n_target} < ntoas {n}")
+    k = n_target - n
+    if k == 0:
+        return noise
+    idx = noise.epoch_idx
+    epoch_idx = torch.cat([idx, torch.full((k,), noise.ecorr_phi.shape[0],
+                                           dtype=idx.dtype, device=idx.device)])
+    sigma = noise.sigma
+    if sigma is not None and sigma.shape[0] == n:
+        sigma = torch.cat([sigma, torch.full((k,), PAD_ERROR_US * 1e-6,
+                                             dtype=sigma.dtype,
+                                             device=sigma.device)])
+    return noise._replace(epoch_idx=epoch_idx, sigma=sigma)
 
 
 def fourier_design(t_s: torch.Tensor, nharm: int
@@ -438,6 +479,29 @@ def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
                             "ecorr_coeffs": sol["ecorr_coeffs"]}
 
     return step
+
+
+def cached_gls_step(model, *, pl_specs: tuple[PLSpec, ...] = (),
+                    device=None):
+    """:func:`make_gls_step` memoized on the model (one step object per
+    model, noise specs, free-parameter list and device: the fused loop's
+    capture cache keys on it). Counterpart of the reference's
+    ``jitted_gls_step``. The step reads ``noise.sigma`` when the statics
+    carry it, which a captured fit needs (see :func:`scaled_sigma_np`)."""
+    dev = torch.device("cuda" if device is None else device)
+    return model.cached_fn(
+        ("gls_step", tuple(pl_specs), tuple(model.free_params), str(dev)),
+        lambda m: make_gls_step(m, pl_specs=pl_specs, device=dev))
+
+
+def cached_gls_probe(model, *, pl_specs: tuple[PLSpec, ...] = (),
+                     device=None):
+    """:func:`make_gls_probe` memoized on the model (the counterpart of
+    the reference's ``jitted_gls_probe``)."""
+    dev = torch.device("cuda" if device is None else device)
+    return model.cached_fn(
+        ("gls_probe", tuple(pl_specs), str(dev)),
+        lambda m: make_gls_probe(m, pl_specs=pl_specs, device=dev))
 
 
 def make_gls_probe(model, tzr=None, *, abs_phase: bool = True,

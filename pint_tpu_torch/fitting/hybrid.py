@@ -17,6 +17,17 @@ The reference runs stage 1 on the CPU because the TPU fails
 PyTorch does not contract), so here both stages run on one ``device``:
 the CUDA card by default. Nothing falls back to another device or to
 another Gram route.
+
+The damped loop over the two stages is the fused one
+(:mod:`pint_tpu_torch.fitting.device_loop`): a full step and a probe are
+each captured once as a CUDA graph, with both Gram kernel launches
+inside the full step's graph, and a fit replays them. The reference's
+hybrid pipelines its loop instead (``downhill_iterate_pipelined``),
+overlapping its CPU stage 1 with the accelerator's stage 2; its fused
+loop is for fits whose two stages share one device, which is this
+fitter's case. Every static the captured stages read (σ, the Fourier
+block and its priors, the probe's noise factor, the TZR table) is built
+at construction. ``PINT_TORCH_DEVICE_LOOP=0`` runs the host loop.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
+from pint_tpu_torch.fitting import device_loop, gls_step
 from pint_tpu_torch.fitting.damped import downhill_iterate
 from pint_tpu_torch.fitting.fitter import Fitter
 from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
@@ -38,15 +50,16 @@ from pint_tpu_torch.fitting.step import make_resid_fn
 def make_whiten_stage1(model, tzr=None):
     """Stage-1 builder: DD phase -> whitened, column-normalized design.
 
-    ``stage1(base, deltas, toas) -> (A_M, rw, sw, norm_M)`` with
+    ``stage1(base, deltas, toas, sigma) -> (A_M, rw, sw, norm_M)`` with
     ``A_M = M sqrt(w) / ||M sqrt(w)||`` (unit columns), ``rw = r sqrt(w)``
-    and ``sw = sqrt(w)``.
+    and ``sw = sqrt(w)``, ``w = 1 / sigma^2`` (``sigma``: the scaled
+    uncertainties, a static).
     """
     phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None)
     names = model.free_params
     has_phoff = model.has_component("PhaseOffset")
 
-    def stage1(base, deltas, toas):
+    def stage1(base, deltas, toas, sigma):
         f0 = base["F0"].hi + base["F0"].lo
 
         def total_phase(d):
@@ -56,8 +69,7 @@ def make_whiten_stage1(model, tzr=None):
             return (ph.int_part + (ph.frac.hi + ph.frac.lo),
                     ph.frac.hi + ph.frac.lo)
 
-        err = model.scaled_toa_uncertainty(toas)
-        w = 1.0 / (err * err)
+        w = 1.0 / (sigma * sigma)
         sw = torch.sqrt(w)
         J, resid = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
         if not has_phoff:
@@ -78,11 +90,12 @@ def make_resid_stage1(model, tzr=None, device=None):
 
     The DD phase pipeline without the jacfwd tangents: a halved trial
     point needs only the noise-marginal chi2 at its input.
+    ``stage1r(base, deltas, toas, sigma)``.
     """
     resid = make_resid_fn(model, tzr, device=device)
 
-    def stage1r(base, deltas, toas):
-        r, _err, w = resid(base, deltas, toas)
+    def stage1r(base, deltas, toas, sigma):
+        r, _err, w = resid(base, deltas, toas, err=sigma)
         return r * torch.sqrt(w)
 
     return stage1r
@@ -110,14 +123,21 @@ class HybridGLSFitter(Fitter):
         tzr = model.get_tzr_toas(dev)
         self._stage1 = make_whiten_stage1(model, tzr)
         self._stage1r = make_resid_stage1(model, tzr, device=dev)
-        # the Fourier block and its priors depend on the TOA table only
+        # statics of the captured stages, built here, before any capture:
+        # the scaled uncertainties (the EFAC/EQUAD masks are host arrays),
+        # the Fourier block and its priors, the probe's noise factor
+        self._sigma = model.scaled_toa_uncertainty(toas)
         self._F, self._phi_F = pl_bases(toas, self.pl_specs,
                                         self.noise.pl_params)
-        self._chi2_probe = None  # built at the first probe (_chi2_at)
+        self._chi2_probe = self._build_chi2_probe()
+        # the last fit's loop events and (fused) captures/replays/fetches
+        self.counters: dict = {}
+        self.loop_stats: dict = {}
 
     def _iterate(self, base, deltas) -> tuple[dict, dict]:
         """One full step: chi2 at ``deltas`` and the proposed next deltas."""
-        A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas)
+        A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas,
+                                           self._sigma)
         parts = gls_gram_whitened(A_M, rw, sw, norm_M, self._F, self._phi_F,
                                   self.noise.epoch_idx, self.noise.ecorr_phi)
         info = gls_finalize_seg(parts, self._n_params)
@@ -135,7 +155,7 @@ class HybridGLSFitter(Fitter):
         :func:`gls_gram_whitened` restricted to the noise columns +
         :func:`noise_marginal_chi2`, in exact float64.
         """
-        sw = 1.0 / self.model.scaled_toa_uncertainty(self.toas)
+        sw = 1.0 / self._sigma
         ne = self._ne
         epoch_idx, ecorr_phi = self.noise.epoch_idx, self.noise.ecorr_phi
         f64 = dict(dtype=torch.float64, device=self.device)
@@ -161,12 +181,10 @@ class HybridGLSFitter(Fitter):
         L = cho_factor(S) if k > 0 else torch.zeros((0, 0), **f64)
         return A_F, C, d, L, sw
 
-    def _chi2_at(self, base, deltas) -> float:
+    def _chi2_at(self, base, deltas) -> torch.Tensor:
         """Noise-marginal chi2 at ``deltas`` without a design matrix (the
-        damped loop's cheap trial-point judge)."""
-        rw = self._stage1r(base, deltas, self.toas)
-        if self._chi2_probe is None:
-            self._chi2_probe = self._build_chi2_probe()
+        damped loop's cheap trial-point judge), a 0-d tensor."""
+        rw = self._stage1r(base, deltas, self.toas, self._sigma)
         A_F, C, d, L, sw = self._chi2_probe
         ne, k = self._ne, A_F.shape[1]
         chi2 = torch.sum(rw * rw)
@@ -182,16 +200,29 @@ class HybridGLSFitter(Fitter):
                 chi2 = chi2 - c_e @ x_e
         elif ne > 0:
             chi2 = chi2 - c_e @ (c_e / d)
-        return float(chi2)
+        return chi2
 
     def fit_toas(self, maxiter: int = 20, min_chi2_decrease: float = 1e-3,
                  **kw) -> float:
         base = self.model.base_dd(self.device)
         deltas0 = self.model.zero_deltas(self._names, self.device)
-        deltas, sol, chi2, converged = downhill_iterate(
-            lambda d: self._iterate(base, d), deltas0, maxiter=maxiter,
-            min_chi2_decrease=min_chi2_decrease,
-            chi2_at=lambda d: self._chi2_at(base, d))
+        self.counters, self.loop_stats = {}, {}
+        if device_loop.enabled():
+            # the capture bakes in this fitter's statics and the Gram
+            # function the stages call (a swapped Gram captures anew)
+            deltas, sol, chi2, converged, counters = device_loop.run_damped(
+                lambda d, b: self._iterate(b, d), deltas0, base,
+                probe=lambda d, b: self._chi2_at(b, d),
+                key=("hybrid", id(self), gls_step.ds32_gram),
+                maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
+                kind="hybrid", stats=self.loop_stats)
+            self.counters.update(counters)
+        else:
+            deltas, sol, chi2, converged = downhill_iterate(
+                lambda d: self._iterate(base, d), deltas0, maxiter=maxiter,
+                min_chi2_decrease=min_chi2_decrease,
+                chi2_at=lambda d: self._chi2_at(base, d),
+                counters=self.counters)
         # a diverged fit (non-finite chi2) must never write NaN
         # parameters/uncertainties back into the model
         self.diverged = bool(sol.get("diverged", False))

@@ -33,7 +33,7 @@ def _circular_recenter(resid_turns: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 def make_wls_step(model, tzr=None, *, abs_phase: bool = True,
                   params: list[str] | None = None, device=None):
-    """Build ``step(base, deltas, toas) -> (new_deltas, info)``.
+    """Build ``step(base, deltas, toas, sigma=None) -> (new_deltas, info)``.
 
     `base` is the DD linearization point (``model.base_dd(device)``);
     `deltas` the current float64 corrections per free parameter (or per
@@ -43,7 +43,9 @@ def make_wls_step(model, tzr=None, *, abs_phase: bool = True,
     {"chi2", "errors": {name: sigma}, "chi2_at_input"}. The TZR anchor
     (``tzr``, or the model's own built on `device`) pins the phase;
     ``abs_phase=False`` skips it and re-centers the wrapped residuals on
-    their circular mean first.
+    their circular mean first. ``sigma`` replaces the model's scaled
+    uncertainties (a static built before a graph capture: the model's
+    EFAC/EQUAD masks are host arrays).
     """
     if tzr is None and abs_phase:
         tzr = model.get_tzr_toas(device)
@@ -55,7 +57,7 @@ def make_wls_step(model, tzr=None, *, abs_phase: bool = True,
     has_phoff = model.has_component("PhaseOffset")
     off = 0 if has_phoff else 1
 
-    def step(base, deltas, toas):
+    def step(base, deltas, toas, sigma=None):
         f0 = base["F0"].hi + base["F0"].lo
 
         def total_phase(d):
@@ -64,7 +66,7 @@ def make_wls_step(model, tzr=None, *, abs_phase: bool = True,
             return (ph.int_part + (ph.frac.hi + ph.frac.lo),
                     ph.frac.hi + ph.frac.lo)
 
-        err = model.scaled_toa_uncertainty(toas)
+        err = model.scaled_toa_uncertainty(toas) if sigma is None else sigma
         w = 1.0 / (err * err)
         J, resid_turns = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
         if anchorless:
@@ -125,7 +127,8 @@ def make_resid_fn(model, tzr=None, *, abs_phase: bool = True, device=None):
 
 
 def make_wls_probe(model, tzr=None, *, abs_phase: bool = True, device=None):
-    """Build ``probe(base, deltas, toas) -> chi2`` — residual-only WLS chi2.
+    """Build ``probe(base, deltas, toas, sigma=None) -> chi2`` — the
+    residual-only WLS chi2.
 
     One phase evaluation, no jacfwd tangents and no solve: exactly the
     ``chi2_at_input`` expression of :func:`make_wls_step`, which a damped
@@ -133,8 +136,25 @@ def make_wls_probe(model, tzr=None, *, abs_phase: bool = True, device=None):
     """
     resid = make_resid_fn(model, tzr, abs_phase=abs_phase, device=device)
 
-    def probe(base, deltas, toas):
-        r, _err, w = resid(base, deltas, toas)
+    def probe(base, deltas, toas, sigma=None):
+        r, _err, w = resid(base, deltas, toas, err=sigma)
         return torch.sum(r * r * w)
 
     return probe
+
+
+def cached_wls_step(model, *, device=None):
+    """:func:`make_wls_step` memoized on the model (one step object per
+    model, free-parameter list and device: the fused loop's capture
+    cache keys on it). Counterpart of the reference's ``jitted_wls_step``."""
+    dev = torch.device("cuda" if device is None else device)
+    return model.cached_fn(("wls_step", tuple(model.free_params), str(dev)),
+                           lambda m: make_wls_step(m, device=dev))
+
+
+def cached_wls_probe(model, *, device=None):
+    """:func:`make_wls_probe` memoized on the model (the counterpart of
+    the reference's ``jitted_wls_probe``)."""
+    dev = torch.device("cuda" if device is None else device)
+    return model.cached_fn(("wls_probe", str(dev)),
+                           lambda m: make_wls_probe(m, device=dev))

@@ -96,6 +96,21 @@ class TimingModel:
         return {k: torch.zeros((), dtype=torch.float64, device=device)
                 for k in names}
 
+    def cached_fn(self, key, build):
+        """``build(self)``, memoized on this model under ``key``.
+
+        The counterpart of the reference's ``_cached_jit``: one step and
+        one probe object per model and configuration, so that the fused
+        loop's capture cache (keyed on those objects) is hit by every fit
+        of this model. Callers put everything ``build`` reads from the
+        model's structure (free parameters, device) into ``key``.
+        """
+        cache = self.__dict__.setdefault("_fn_cache", {})
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = build(self)
+        return fn
+
     @staticmethod
     def resolve(base: dict[str, DD], deltas: dict[str, torch.Tensor]) -> dict[str, DD]:
         out = dict(base)

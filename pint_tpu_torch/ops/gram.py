@@ -129,7 +129,10 @@ def ds32_gram(A: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
     :func:`ds32_gram_reference`. ``ds32_gram.launches`` counts kernel
-    launches.
+    launches. A call under CUDA graph capture only records the launch
+    into the graph: it counts in ``ds32_gram.captured`` instead, and
+    whoever replays the graph adds the launches it recorded to
+    ``launches`` at each replay (:mod:`pint_tpu_torch.fitting.device_loop`).
     """
     _check(A)
     if A.device.type == "cpu":
@@ -152,11 +155,15 @@ def ds32_gram(A: torch.Tensor) -> torch.Tensor:
                               n, q, bn, nb, A.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"ds32_gram kernel launch failed: cudaError {rc}")
-    ds32_gram.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        ds32_gram.captured += 1
+    else:
+        ds32_gram.launches += 1
     return G
 
 
 ds32_gram.launches = 0
+ds32_gram.captured = 0
 
 
 def ds32_gram_reference(A: torch.Tensor) -> torch.Tensor:

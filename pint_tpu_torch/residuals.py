@@ -8,8 +8,9 @@ Counterpart of ``pint_tpu.residuals.Residuals``. Conventions:
 * ``track_mode="use_pulse_numbers"``: residual = full phase minus the
   per-TOA pulse number (from ``-pn`` flags).
 * PHASE-command offsets from the tim file enter as added turns.
-* Optional (default on) subtraction of the weighted mean phase; a
-  ``PhaseOffset`` component turns it off.
+* Optional (default on) subtraction of the mean phase, weighted by the
+  noise-scaled uncertainties (``use_weighted_mean=False``: the plain
+  mean); a ``PhaseOffset`` component turns it off.
 * ``time_resids = phase_resids / F0``.
 """
 
@@ -26,13 +27,14 @@ class Residuals:
     """Computed once at construction; tensors live on the TOAs' device."""
 
     def __init__(self, toas, model, *, subtract_mean: bool = True,
-                 track_mode: str | None = None):
+                 use_weighted_mean: bool = True, track_mode: str | None = None):
         self.toas = toas
         self.model = model
         # an explicit PHOFF parameter replaces the implicit mean subtraction
         if model.has_component("PhaseOffset"):
             subtract_mean = False
         self.subtract_mean = subtract_mean
+        self.use_weighted_mean = use_weighted_mean
         if track_mode is None:
             has_pn = bool(torch.isfinite(toas.pulse_number).any())
             track_mode = "use_pulse_numbers" if has_pn else "nearest"
@@ -53,10 +55,16 @@ class Residuals:
         else:
             raise ValueError(f"unknown track_mode {self.track_mode!r}")
         if self.subtract_mean:
-            # weighted by the noise-scaled uncertainties, as every fitter is
-            err = self.get_errors_s()
-            w = torch.where(err > 0, 1.0 / (err * err), torch.zeros_like(err))
-            resid = resid - torch.sum(resid * w) / torch.sum(w)
+            if self.use_weighted_mean:
+                # weighted by the noise-scaled uncertainties, as every
+                # fitter is
+                err = self.get_errors_s()
+                w = torch.where(err > 0, 1.0 / (err * err),
+                                torch.zeros_like(err))
+                mean = torch.sum(resid * w) / torch.sum(w)
+            else:
+                mean = torch.mean(resid)
+            resid = resid - mean
         return resid
 
     def get_errors_s(self) -> torch.Tensor:

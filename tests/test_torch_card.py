@@ -51,3 +51,65 @@ def test_true_div_is_the_ieee_quotient_on_the_card(cuda_device):
     x = torch.as_tensor(np.random.default_rng(0).uniform(-4e4, 4e4, 100_000))
     for c in (86400.0, 36525.0, 365250.0, 299792458.0, 299792458.0 ** 2):
         assert torch.equal(true_div(x.to(cuda_device), c).cpu(), x / c), c
+
+
+def test_fused_loop_polls_without_blocking(cuda_device):
+    """``InFlightFit.ready`` advances a captured fit by event queries
+    only; the fetched result is the host loop's, counter for counter."""
+    from pint_tpu_torch.fitting import damped, device_loop
+
+    def full(d, ops):
+        x = d["x"]
+        return {"x": x + 4.6 * (3.0 - x)}, {"chi2_at_input": (x - 3.0) ** 2}
+
+    def probe(d, ops):
+        return 0.25 * (d["x"] - 3.0) ** 2
+
+    counters = {}
+    hd, _, hc, hconv = damped.downhill_iterate(
+        lambda d: full(d, ()), {"x": torch.zeros((), dtype=torch.float64,
+                                                  device=cuda_device)},
+        maxiter=10, chi2_at=lambda d: probe(d, ()), counters=counters)
+    for _ in range(2):   # the first dispatch captures, the second replays
+        h = device_loop.dispatch_damped(
+            full, {"x": torch.zeros((), dtype=torch.float64,
+                                    device=cuda_device)}, (),
+            key=("card_poll",), probe=probe, maxiter=10)
+        while not h.ready():
+            pass
+        d, _, chi2, conv, cnt = h.fetch()
+        assert h.fetch()[2] is chi2
+        assert float(d["x"]) == float(hd["x"]) and float(chi2) == hc
+        assert bool(conv) == hconv
+        assert cnt == {k: counters[k] for k in damped.COUNTERS}
+    assert h.stats["captures"] == 0
+    assert h.stats["replays"] == h.stats["full"] + h.stats["probe"]
+
+
+def test_fused_fit_counts_the_kernel_per_replay(cuda_device, monkeypatch):
+    """The hybrid fit on the card: captured once, the Gram kernel
+    counted at every replay of the full step (2 a step), and the host
+    loop's fit (chi2 within 1e-9: the ECORR atomics' order)."""
+    from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+    from torch_parity import PAR_FULL, epoch_mjds
+
+    rng = np.random.default_rng(2)
+    mjds = epoch_mjds(2000, rng)
+    toas = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(2000)), get_model(PAR_FULL), freq_mhz=1400.0,
+        error_us=1.0, obs="gbt", add_noise=True, seed=5, niter=2,
+        device=cuda_device)
+    fits = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PINT_TORCH_DEVICE_LOOP", mode)
+        f = HybridGLSFitter(toas, get_model(PAR_FULL))
+        before = ds32_gram.launches
+        fits[mode] = (f, f.fit_toas(maxiter=10), ds32_gram.launches - before)
+    (fd, cd, nd), (fh, ch, nh) = fits["1"], fits["0"]
+    assert fd.loop_stats["captures"] == 2
+    assert nd == nh == 2 * fd.loop_stats["full"]
+    assert fd.counters == {k: fh.counters[k] for k in fd.counters}
+    assert abs(cd - ch) <= 1e-9 * abs(ch) and fd.converged == fh.converged

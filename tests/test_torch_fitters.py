@@ -44,7 +44,7 @@ from pint_tpu.models import get_model as jget_model
 from pint_tpu.residuals import Residuals as JResiduals
 from pint_tpu.simulation import make_fake_toas_uniform
 from pint_tpu.toas import merge_TOAs
-from pint_tpu_torch import fitting
+from pint_tpu_torch import bucketing, fitting
 from pint_tpu_torch.fitting import fitter, gls
 from pint_tpu_torch.matrix import DesignMatrix
 from pint_tpu_torch.models import get_model
@@ -377,8 +377,9 @@ def test_svd_cutoff_sees_the_reference_row_count():
     x_unpadded = np.asarray(jfitter.wls_solve(M, r, sigma)["x"])
     np.testing.assert_allclose(x, x_ref, rtol=1e-9)
     assert np.max(np.abs(x_unpadded - x_ref)) > 1e3 * np.max(np.abs(x_ref))
-    assert fitter.solve_rows(40) == 64 and fitter.solve_rows(3) == 32
-    assert fitter.solve_rows(16384) == 16384 and fitter.solve_rows(20000) == 20000
+    assert bucketing.bucket_size(40) == 64 and bucketing.bucket_size(3) == 32
+    assert bucketing.bucket_size(16384) == 16384
+    assert bucketing.bucket_size(20000) == 20000
 
 
 # ------------------------------------------------------------- residuals
