@@ -13,10 +13,11 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 3. ``dd.self_check`` on the card must pass: the DD phase runs there;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (q = 66: the bench par with RAJ/DECJ), at the
-   barycentric path's (q = 64), at an odd row count that pads and at two
-   column tiles, and against float64 within 10x its error bound, with its
-   time (CUDA events around one call, and each pass's device time), the
-   plain version's, its bound and a library call's;
+   barycentric path's (q = 64), at the binary path's (phase 7's q, six
+   64-wide tiles), at an odd row count that pads and at two column
+   tiles, and against float64 within 10x its error bound, with its time
+   (CUDA events around one call, and each pass's device time), the plain
+   version's, its bound and a library call's;
 5. the data layer: the same 2,000-row GBT table (clock chain, TDB,
    observatory and planet positions) built on the card and on the CPU
    must agree column by column;
@@ -41,11 +42,28 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    sync in an eager step or probe
    (``torch.cuda.set_sync_debug_mode("error")``), the eager step's times
    and traces of one step and its stage 1;
-7. the topocentric fit and the barycentric one (the earlier path, at this
+7. slice 7's path, after the loop cache is cleared: a J1909-3744-like
+   binary MSP (PAR_J1909: ELL1 with Shapiro, 267 fitted 30-day DMX
+   windows, FD1/FD2, a receiver JUMP, the solar wind held fixed, EFAC/
+   EQUAD/ECORR per receiver, bench.py's red noise), 100,000 GBT TOAs in
+   4-TOA epochs at two receivers simulated on the card from that par,
+   the table build timed, the hybrid fit through the fused loop (the
+   Gram kernel's launch count set to 0 before and read after), cold and
+   warm, with the host loop as its witness (the same gates as phase 6),
+   every fitted parameter within 5 sigma of the truth, post-fit
+   chi2/dof in [0.8, 1.25], peak memory, the warm fits' wall and idle
+   share (torch.profiler, whose trace must hold one partials and one
+   reduce kernel per counted launch);
+8. each new component on the card against the CPU at 2,000 GBT TOAs at
+   two receivers: the ten binary models, DMX (disjoint and overlapping
+   windows), the solar wind, FD, FDJUMP, JUMP, DelayJump, DMJUMP and
+   PHOFF, each one's delay (phase, DM) within 1e-12 s and its jacfwd
+   columns within 1e-10 of their largest entry;
+9. the topocentric fit and the barycentric one (the earlier path, at this
    smaller depth) at 2,000 TOAs on the card (fused), on the CPU (plain
    versions) and on the card through the host loop must agree, the
    kernel's launches counted in each;
-8. the fitter API, whose float64 solves never launch the kernel (its
+10. the fitter API, whose float64 solves never launch the kernel (its
    launch count is set to 0 before and must read 0 after):
    ``Fitter.auto`` on bench.py's par at 20,000 GBT TOAs must pick
    ``DownhillGLSFitter`` (the dense noise basis, one column per ECORR
@@ -62,7 +80,7 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    with an exact float64 Gram; ``WLSFitter``, ``GLSFitter`` (Woodbury
    and dense C), ``DownhillWLSFitter`` and ``DownhillGLSFitter`` on one
    2,000-TOA table on the card and on the CPU must agree;
-9. a ``{"kernels": [...]}`` line, then the last line
+11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -125,6 +143,140 @@ TNREDGAM 3.5
 TNREDC 30
 """
 SITES = {PAR_FULL: "gbt", PAR_BARY: "@"}
+# Phase 7: a J1909-3744-like binary MSP with the NANOGrav delay set. The
+# spin, astrometry and ELL1 orbit are J1909-3744's, rounded from the
+# NANOGrav 15-year data set (Agazie et al. 2023, ApJL 951, L9), with the
+# epochs (PEPOCH, POSEPOCH, TASC) moved to the data's middle. TASC is an
+# epoch, which neither package fits; the other six orbital parameters
+# are. DM is frozen: the DMX windows (j1909_par) tile the data.
+PAR_J1909 = """
+PSRJ           J1909-3744
+RAJ            19:09:47.4335737  1
+DECJ           -37:44:14.46674  1
+PMRA           -9.51
+PMDEC          -35.86
+PX             0.86
+F0             339.31568666962  1
+F1             -1.614D-15  1
+PEPOCH         54000
+POSEPOCH       54000
+DM             10.3932
+EPHEM          DE421
+UNITS          TDB
+TZRMJD         54000.1
+TZRFRQ         1400
+TZRSITE        1
+BINARY         ELL1
+PB             1.533449474406  1
+A1             1.89799111  1
+TASC           54000.31
+EPS1           2.7e-8  1
+EPS2           -1.0e-8  1
+M2             0.209  1
+SINI           0.9980  1
+FD1            -1.6e-5  1
+FD2            1.2e-5  1
+JUMP -fe Rcvr_800  -7.2e-6  1
+NE_SW          7.9
+EFAC -fe Rcvr_800  1.05
+EFAC -fe Rcvr1_2  1.1
+EQUAD -fe Rcvr_800  0.05
+EQUAD -fe Rcvr1_2  0.03
+ECORR -fe Rcvr_800  0.3
+ECORR -fe Rcvr1_2  0.2
+TNREDAMP -13.5
+TNREDGAM 3.5
+TNREDC 30
+"""
+# DMX windows 30 days wide from MJD 50000 (267 tile MJD 50000-58010), a
+# 0.001-day gap between neighbours, values drawn from a seed
+N_DMX = 267
+# the receivers' sub-bands [MHz]: an epoch's four TOAs are one receiver's
+RCVR_BANDS = {"Rcvr_800": (740.0, 790.0, 840.0, 890.0),
+              "Rcvr1_2": (1180.0, 1330.0, 1480.0, 1630.0)}
+# Phase 8: each new component on the card against the CPU. A DDK-ready
+# pulsar (proper motion, parallax) carries each binary model in turn; a
+# second par carries the delay set, and a third DMX windows that overlap.
+CARD_BASE = """
+PSRJ J1012+5307
+RAJ 10:12:33.43 1
+DECJ 53:07:02.5 1
+PMRA 2.5
+PMDEC -25.0
+PX 1.2
+F0 190.2678370 1
+F1 -6.2e-16 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 9.02
+EPHEM DE421
+TZRMJD 55000.1
+TZRFRQ 1400
+TZRSITE 1
+"""
+_ORBIT = "PB 0.60467 1\nA1 0.58182 1\nPBDOT 3.2 1\nXDOT -0.2 1\n"
+_KEPLER = "T0 54999.92\nECC 0.087 1\nOM 112.0 1\nEDOT 1e-16 1\n"
+_ELL1 = "TASC 54999.92\nEPS1 1.2e-5 1\nEPS2 -0.5e-5 1\n"
+BINARY_LINES = {
+    "ELL1": _ORBIT + _ELL1 + "EPS1DOT 1e-16 1\nM2 0.2 1\nSINI 0.98 1\n",
+    "ELL1H": _ORBIT + _ELL1 + "H3 2.7e-7 1\nSTIG 0.8 1\n",
+    "ELL1K": _ORBIT + _ELL1 + "OMDOT 3.5 1\nLNEDOT 1e-12 1\nM2 0.2 1\nSINI 0.98 1\n",
+    "DD": _ORBIT + _KEPLER + "OMDOT 1.2 1\nM2 0.3 1\nSINI 0.95 1\nGAMMA 2e-4 1\n"
+                             "A0 1e-6 1\nB0 -2e-6 1\n",
+    "DDS": _ORBIT + _KEPLER + "OMDOT 1.2 1\nM2 0.3 1\nSHAPMAX 3.0 1\n",
+    "DDH": _ORBIT + _KEPLER + "OMDOT 1.2 1\nH3 4e-7 1\nSTIG 0.75 1\n",
+    "DDGR": _ORBIT + _KEPLER + "M2 0.3 1\nMTOT 1.7 1\nXOMDOT 0.1 1\nXPBDOT 1e-13 1\n",
+    "DDK": _ORBIT + _KEPLER + "OMDOT 1.2 1\nM2 0.3 1\nKIN 60.0 1\nKOM 40.0 1\n",
+    "BT": _ORBIT + _KEPLER + "OMDOT 1.2 1\nGAMMA 2e-4 1\n",
+    "BTX": "A1 0.58182 1\nFB0 1.9141e-5 1\nFB1 -2e-21 1\n" + _KEPLER
+           + "OMDOT 1.2 1\nGAMMA 2e-4 1\n",
+}
+DELAY_SET = """
+DMX_0001 1.5e-4 1
+DMXR1_0001 54000
+DMXR2_0001 54600
+DMX_0002 -2.5e-4 1
+DMXR1_0002 54600.001
+DMXR2_0002 55300
+DMX_0003 3e-4 1
+DMXR1_0003 55500
+DMXR2_0003 56000
+NE_SW 7.9 1
+FD1 1.1e-5 1
+FD2 -3e-6 1
+FD3 4e-7 1
+FD1JUMP -fe Rcvr_800 2e-6 1
+FD2JUMP -fe Rcvr1_2 -1e-6 1
+JUMP -fe Rcvr_800 1.3e-5 1
+JUMP -mjd 54500 55000 -4e-6 1
+DMJUMP -fe Rcvr1_2 2e-4 1
+PHOFF 0.013 1
+"""
+OVERLAP_DMX = """
+DMX_0001 1.5e-4 1
+DMXR1_0001 54000
+DMXR2_0001 55200
+DMX_0002 -2.5e-4 1
+DMXR1_0002 54300
+DMXR2_0002 54700
+DMX_0003 3e-4 1
+DMXR1_0003 55000
+DMXR2_0003 56000
+"""
+# (label, par, the components held card against CPU)
+COMPONENT_CASES = [
+    (model, CARD_BASE + f"BINARY {model}\n" + lines,
+     ("BinaryELL1k" if model == "ELL1K" else f"Binary{model}",))
+    for model, lines in BINARY_LINES.items()] + [
+    ("delay set", CARD_BASE + DELAY_SET,
+     ("SolarWindDispersion", "DispersionDMX", "FD", "FDJump", "PhaseJump",
+      "DispersionJump", "PhaseOffset")),
+    ("overlapping DMX", CARD_BASE + OVERLAP_DMX, ("DispersionDMX",)),
+    ("DelayJump", CARD_BASE + DELAY_SET, ("DelayJump",))]
+# card against CPU: delays (phases over F0) within 1 ps, each jacfwd
+# column within 1e-10 of its largest entry (the CPU tests' bars)
+COMPONENT_BAR_S = 1e-12
+COLUMN_RTOL = 1e-10
 N_TOAS = 100_000
 N_SMALL = 2_000
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
@@ -141,7 +293,7 @@ PLAIN_BAR = 1e-12
 TDB_BAR_S = 1e-12      # 1 ps
 POS_BAR_LS = 1e-11     # light-seconds, 3 mm
 VEL_BAR = 1e-15        # v/c
-# Phase 8. The dense GLS fit's TOA count: its noise basis is one column
+# Phase 10. The dense GLS fit's TOA count: its noise basis is one column
 # per 4-TOA ECORR epoch, so F = [M, T] is 20,000 x 5,066 float64
 N_DENSE = 20_000
 # F0/F1/DM/RAJ/DECJ kicks off the truth: about 3 sigma of the 20,000-TOA
@@ -173,6 +325,28 @@ STEP_VS_HYBRID_RTOL = 1e-9
 LOOP_RTOL = 1e-12
 LOOP_COUNTERS = ("iterations", "accepts", "halvings", "probe_evals",
                  "probe_rejects")
+
+
+def j1909_par() -> str:
+    """PAR_J1909 with its N_DMX fitted DMX windows."""
+    rng = np.random.default_rng(1909)
+    lines = []
+    for i in range(1, N_DMX + 1):
+        lo = 50000.0 + 30.0 * (i - 1)
+        lines += [f"DMX_{i:04d} {rng.normal(0.0, 2e-4):.6e} 1",
+                  f"DMXR1_{i:04d} {lo:.3f}", f"DMXR2_{i:04d} {lo + 29.999:.3f}"]
+    return PAR_J1909 + "\n".join(lines) + "\n"
+
+
+def two_receivers(n, rng):
+    """(frequencies, flags) of n TOAs in 4-TOA epochs, each epoch at one
+    receiver (half at each), its TOAs in the receiver's four sub-bands."""
+    n_ep = (n + 3) // 4
+    rcvr = np.repeat(np.where(rng.random(n_ep) < 0.5, "Rcvr_800", "Rcvr1_2"),
+                     4)[:n]
+    sub = np.tile(np.arange(4), n_ep)[:n]
+    freq = np.asarray([RCVR_BANDS[r][k] for r, k in zip(rcvr, sub)])
+    return freq, [{"fe": str(r)} for r in rcvr]
 
 
 def fail(msg: str) -> None:
@@ -208,15 +382,36 @@ def simulate(par, n, seed, device):
         seed=int(rng.integers(2 ** 31)), niter=2, device=device)
 
 
-def gbt_table(n, seed, device, ephem):
-    """n GBT TOAs at the bench's MJDs, built (not simulated) on `device`."""
+def simulate_binary(par, n, seed, device):
+    """Phase 7's traffic from `par`: n GBT TOAs in 4-TOA epochs at two
+    receivers (two_receivers), 1 us."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjds = epoch_mjds(n, rng)
+    freq, flags = two_receivers(n, rng)
+    return make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(n)), get_model(par), freq_mhz=freq, error_us=1.0,
+        obs="gbt", flags=flags, add_noise=True,
+        seed=int(rng.integers(2 ** 31)), niter=2, device=device)
+
+
+def gbt_table(n, seed, device, ephem, receivers=False):
+    """n GBT TOAs at the bench's MJDs, built (not simulated) on `device`:
+    at 1400/430 MHz, or at phase 7's two receivers (with their flags)."""
     from pint_tpu_torch.ops.dd import DD
     from pint_tpu_torch.toas import build_TOAs_from_arrays
 
     rng = np.random.default_rng(seed)
+    mjds = epoch_mjds(n, rng)
+    if receivers:
+        freq, flags = two_receivers(n, rng)
+    else:
+        freq, flags = np.where(rng.random(n) < 0.5, 1400.0, 430.0), None
     return build_TOAs_from_arrays(
-        DD(epoch_mjds(n, rng), np.zeros(n)),
-        freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0), error_us=1.0,
+        DD(mjds, np.zeros(n)), freq_mhz=freq, error_us=1.0, flags=flags,
         obs_names=("gbt",), eph=ephem, device=device)
 
 
@@ -440,26 +635,29 @@ def same_trials(tc, tg):
     return len(tc) == len(tg)
 
 
-def check_truth(fitter, truth, label):
+def check_truth(fitter, truth, label, kicks=KICK):
     """Fail unless the fit converged to a finite chi2 with every fitted
-    parameter within TRUTH_SIGMA of the simulation's truth."""
+    parameter within TRUTH_SIGMA of the simulation's truth; the largest
+    pulls (and the start's `kicks`, in sigma) are printed."""
     model = fitter.model
     pulls = {k: (model[k].value_f64 - truth[k].value_f64) / model[k].uncertainty
              for k in fitter.fit_params}
-    print(f"  {label}: pulls from the truth (sigma) "
-          + ", ".join(f"{k} {v:+.3f}" for k, v in pulls.items())
-          + "; kicks (sigma) " + ", ".join(
-              f"{k} {d / model[k].uncertainty:.2f}" for k, d in KICK.items()),
-          flush=True)
+    worst = sorted(pulls.items(), key=lambda kv: -abs(kv[1]))
+    kick_text = ("; kicks (sigma) " + ", ".join(
+        f"{k} {d / model[k].uncertainty:.2f}" for k, d in kicks.items())
+        if kicks else "")
+    print(f"  {label}: {len(pulls)} fitted parameters; largest pulls from the "
+          "truth (sigma) " + ", ".join(f"{k} {v:+.3f}" for k, v in worst[:8])
+          + kick_text, flush=True)
     chi2 = fitter.resids.chi2
     if not (fitter.converged and not fitter.diverged and math.isfinite(chi2)):
         fail(f"{label} did not converge to a finite chi2 ({chi2})")
-    if not max(abs(v) for v in pulls.values()) < TRUTH_SIGMA:
-        fail(f"{label} left a parameter {TRUTH_SIGMA} sigma from the truth")
+    if not abs(worst[0][1]) < TRUTH_SIGMA:
+        fail(f"{label} left {worst[0][0]} {worst[0][1]:.2f} sigma from the truth")
 
 
 def fitter_api(dev, toas):
-    """Phase 8 (see the module docstring). `toas` is phase 6's table."""
+    """Phase 10 (see the module docstring). `toas` is phase 6's table."""
     from pint_tpu_torch.fitting import (DownhillGLSFitter, DownhillWLSFitter,
                                         Fitter, GLSFitter, WLSFitter, gls_step,
                                         step)
@@ -595,7 +793,7 @@ def dense_host_loop(kind, model, toas):
 
 
 def dense_fits(toas):
-    """Phase 8: ``dense_wls_fit`` and ``dense_gls_fit`` on the main path's
+    """Phase 10: ``dense_wls_fit`` and ``dense_gls_fit`` on the main path's
     table, cold (capture) and warm (replays), each against the host loop
     over the same cached step/probe pair."""
     from pint_tpu_torch.fitting import device_loop
@@ -638,6 +836,172 @@ def dense_fits(toas):
                 and same_loop(recs["cold"], recs["host loop"])):
             fail(f"dense_{kind}_fit disagrees with the host loop over its "
                  f"step and probe")
+
+
+def binary_path(dev, q_binary):
+    """Phase 7 (see the module docstring): the J1909-3744-like fit."""
+    from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+
+    par = j1909_par()
+    model, truth = get_model(par), get_model(par)
+    print("components: " + ", ".join(type(c).__name__ for c in model.components)
+          + f"; {len(model.free_params)} free parameters", flush=True)
+    t0 = time.perf_counter()
+    toas = simulate_binary(par, N_TOAS, seed=7, device=dev)
+    torch.cuda.synchronize()
+    print(f"simulated {len(toas)} GBT TOAs at Rcvr_800 and Rcvr1_2 on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    build_ms = host_ms(lambda: gbt_table(N_TOAS, 7, dev, model.ephem,
+                                         receivers=True), reps=3)
+    print(f"one {N_TOAS}-row GBT table build at two receivers on the card "
+          f"(warm): {build_ms:.2f} ms wall", flush=True)
+    gram.ds32_gram.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter = HybridGLSFitter(toas, model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = fitter._n_params + fitter._F.shape[1]
+    print(f"q = {q} whitened columns: {fitter._n_params} timing (offset "
+          f"included) + {fitter._F.shape[1]} red-noise; "
+          f"{fitter._ne} ECORR epochs; construction {build_s:.3f} s", flush=True)
+    if q != q_binary:
+        fail(f"the binary path's Gram has q = {q}, phase 4 timed {q_binary}")
+    start = free_values(model)
+    cold = run_fit(fitter)
+    launches = gram.ds32_gram.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    reserved_mb = torch.cuda.memory_reserved() / 2 ** 20
+    st = cold["stats"]
+    red = fitter.resids.reduced_chi2
+    describe_fit("binary fit (cold, fused loop, with capture)", cold)
+    print(f"  chi2/dof {cold['chi2'] / fitter.resids.dof:.6f}, post-fit residual "
+          f"chi2/dof {red:.6f}; peak memory {peak_mb:.1f} MiB allocated (graph "
+          f"pool included), {reserved_mb:.1f} MiB reserved", flush=True)
+    for k in ("PB", "A1", "EPS1", "EPS2", "M2", "SINI", "FD1", "FD2", "JUMP1",
+              "DMX_0001", "DMX_0134", "DMX_0267"):
+        print(f"  {k} = {model[k].format_value()} +- {model[k].format_uncertainty()}")
+    print(f"ds32_gram launches in the binary fit (counted per replay): "
+          f"{launches}", flush=True)
+    if not 0.8 <= red <= 1.25:
+        fail(f"binary fit: post-fit reduced chi2 {red} outside [0.8, 1.25]")
+    if launches == 0 or launches < 2 * cold["steps"]:
+        fail(f"{launches} ds32_gram launches for {cold['steps']} full steps")
+    if not (st["captures"] == 2 and st["full"] == cold["steps"]
+            and st["replays"] == cold["steps"] + cold["probes"] - 1):
+        fail(f"the binary fit did not run as graph replays: {st}")
+    check_truth(fitter, truth, f"the binary fit at {N_TOAS} TOAs", kicks={})
+    warm = run_fit(fitter, start)
+    describe_fit("binary fit (warm, fused loop, the same start)", warm)
+    if not (warm["stats"]["captures"] == 0 and same_loop(cold, warm)):
+        fail("the warm binary fit is not the cold one replayed")
+    hfitter = HybridGLSFitter(toas, get_model(par))
+    hcold = run_fit(hfitter, loop="0")
+    hwarm = run_fit(hfitter, start, loop="0")
+    describe_fit("binary fit (host loop, first)", hcold)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
+                                                   hcold["trace"]["chi2"]))
+    print(f"  fused - host loop chi2: {cold['chi2'] - hcold['chi2']:+.3e}; "
+          f"largest relative gap of a full evaluation's chi2 {gap:.3e} (bar "
+          f"{LOOP_RTOL:g})", flush=True)
+    if not (same_loop(cold, hcold) and same_loop(warm, hwarm)):
+        fail("the fused binary fit disagrees with the host loop")
+    fused_ms = host_ms(lambda: run_fit(fitter, start), reps=3)
+    host_loop_ms = host_ms(lambda: run_fit(hfitter, start, loop="0"), reps=3)
+    resid_ms = host_ms(fitter._new_resids, reps=3)
+    print(f"one warm binary fit (fused loop): {fused_ms:.2f} ms wall; through "
+          f"the host loop: {host_loop_ms:.2f} ms (median of 3); of either, the "
+          f"post-fit residuals (eager, after the loop) {resid_ms:.2f} ms",
+          flush=True)
+    n_rep, span_ms, wall_ms = replay_spans(fitter, start)
+    print(f"one warm fused binary fit: {n_rep} graph replays span "
+          f"{span_ms:.2f} ms on the card (CUDA events around each replay) of "
+          f"its {wall_ms:.2f} ms wall", flush=True)
+    profiled = []
+    by_name = profile_step("one warm fused binary fit",
+                           lambda: profiled.append(run_fit(fitter, start)),
+                           fused_ms)
+    traced = {p: sum(c for name, (_, c) in by_name.items()
+                     if f"ds32_gram_{p}" in name)
+              for p in ("partials", "reduce")}
+    counted = profiled[-1]["launches"]
+    print(f"  ds32_gram in the profiled binary fit: {counted} launches counted "
+          f"per replay; the trace holds {traced['partials']} partials and "
+          f"{traced['reduce']} reduce kernels", flush=True)
+    if by_name and traced != {"partials": counted, "reduce": counted}:
+        fail(f"the trace of the binary fit holds {traced} ds32_gram kernels, "
+             f"not the {counted} launches counted per replay")
+    profile_step("one warm host-loop binary fit",
+                 lambda: run_fit(hfitter, start, loop="0"), host_loop_ms)
+    return {f"binary {N_TOAS} (fused, cold)": launches,
+            f"binary {N_TOAS} (fused, warm)": warm["launches"],
+            f"binary {N_TOAS} (host loop, warm)": hwarm["launches"]}
+
+
+def component_eval(model, name, toas):
+    """Component `name` of `model` on `toas`: its delay (a phase one's
+    phase in seconds, DMJUMP's DM) and jacfwd columns in its free
+    parameters, on the host."""
+    c = model.get_component(name)
+    p = model.base_dd(toas.device)
+    acc = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
+    aux: dict = {}
+    for other in model.delay_components() if c.is_delay or c.is_phase else ():
+        if other is c:
+            break
+        acc = acc + other.delay(p, toas, acc, aux)
+
+    def fn(d):
+        q = model.resolve(p, d)
+        if c.is_delay:
+            return c.delay(q, toas, acc, dict(aux))
+        if c.is_phase:
+            ph = c.phase(q, toas, acc, dict(aux))
+            return (ph.int_part + (ph.frac.hi + ph.frac.lo)) / model.f0_f64
+        return c.dm_value(q, toas)
+
+    names = [q.name for q in c.params if not q.frozen and q.fittable]
+    J = torch.func.jacfwd(fn)(model.zero_deltas(names, toas.device))
+    return fn({}).cpu(), {k: J[k].cpu() for k in names}
+
+
+def components_card_vs_cpu(dev):
+    """Phase 8: every new component card against CPU (COMPONENT_CASES)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.models.jump import DelayJump
+
+    cpu = gbt_table(N_SMALL, seed=8, device="cpu", ephem="DE421",
+                    receivers=True)
+    card = cpu.to(dev)
+    bad = []
+    for label, par, names in COMPONENT_CASES:
+        model = get_model(par)
+        if label == "DelayJump":   # built programmatically, as the reference's
+            jumps = [(model[k].selector, model[k].value_f64)
+                     for k in ("JUMP1", "JUMP2")]
+            model.remove_component("PhaseJump")
+            dj = DelayJump()
+            for sel, v in jumps:
+                dj.add_jump(sel, value=v, frozen=False)
+            model.add_component(dj)
+        for name in names:
+            (vc, cc), (vg, cg) = (component_eval(model, name, t)
+                                  for t in (cpu, card))
+            gap = float(torch.max(torch.abs(vc - vg)))
+            col = max(float(torch.max(torch.abs(cc[k] - cg[k])))
+                      / float(torch.max(torch.abs(cc[k]))) for k in cc)
+            unit = "pc/cm^3" if name == "DispersionJump" else "s"
+            print(f"  {label}: {name} max |card - cpu| {gap:.3e} {unit} (max "
+                  f"|value| {float(torch.max(torch.abs(vc))):.3e}); {len(cc)} "
+                  f"jacfwd columns, worst gap {col:.3e} of max|column|",
+                  flush=True)
+            if not (gap <= COMPONENT_BAR_S and col <= COLUMN_RTOL):
+                bad.append(f"{label}: {name}")
+    if bad:
+        fail(f"components differ between card and CPU: {bad}")
 
 
 def profile_step(label, fn, wall_ms):
@@ -713,29 +1077,32 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-# Gram shapes of phase 4: (label, n, q, timed, main path). G_BB is every
-# TOA x (offset, RAJ, DECJ, DM, F0, F1, 60 Fourier columns) on the main
-# path, q = 64 without RAJ/DECJ on the barycentric one;
-# the ECORR Schur term has one row per 4-TOA epoch. 2,000 and 500 rows are
-# phase 7's fits; 137 rows pad the block and its last 32-row chunk;
-# 3,001 x 100 takes the off-diagonal tile path and an odd row count.
+# Gram shapes of phase 4: (label, n, q, timed, path). G_BB is every TOA
+# x (offset, RAJ, DECJ, DM, F0, F1, 60 Fourier columns) on the main path
+# ("main"), q = 64 without RAJ/DECJ on the barycentric one; the ECORR
+# Schur term has one row per 4-TOA epoch. Phase 7's binary path
+# ("binary") adds its q (check_gram's q_binary: 6 tiles of 64). 2,000
+# and 500 rows are phase 9's fits; 137 rows pad the block and its last
+# 32-row chunk; 3,001 x 100 takes the off-diagonal tile path and an odd
+# row count.
 GRAM_SHAPES = (
-    ("G_BB", N_TOAS, 66, True, True),
-    ("Schur", N_TOAS // 4, 66, True, True),
-    ("G_BB q64", N_TOAS, 64, True, False),
-    ("Schur q64", N_TOAS // 4, 64, True, False),
-    ("G_BB small", N_SMALL, 66, False, False),
-    ("Schur small", N_SMALL // 4, 66, False, False),
-    ("G_BB small q64", N_SMALL, 64, False, False),
-    ("Schur small q64", N_SMALL // 4, 64, False, False),
-    ("padding", 137, 64, False, False),
-    ("two tiles", 3001, 100, False, False),
+    ("G_BB", N_TOAS, 66, True, "main"),
+    ("Schur", N_TOAS // 4, 66, True, "main"),
+    ("G_BB q64", N_TOAS, 64, True, None),
+    ("Schur q64", N_TOAS // 4, 64, True, None),
+    ("G_BB small", N_SMALL, 66, False, None),
+    ("Schur small", N_SMALL // 4, 66, False, None),
+    ("G_BB small q64", N_SMALL, 64, False, None),
+    ("Schur small q64", N_SMALL // 4, 64, False, None),
+    ("padding", 137, 64, False, None),
+    ("two tiles", 3001, 100, False, None),
 )
 
 
-def check_gram(gram, dev):
+def check_gram(gram, dev, q_binary):
     """ds32_gram against its plain version and f64 at every shape of
-    GRAM_SHAPES; the timed ones are returned with their times.
+    GRAM_SHAPES and at the binary path's (G_BB and Schur at `q_binary`
+    columns); the timed ones are returned with their times.
 
     Times: `ms`, `library_ms` and `plain_ms` are CUDA events around one
     call on an idle card, so they include the launches' host latency;
@@ -743,7 +1110,9 @@ def check_gram(gram, dev):
     device time per call (torch.profiler, every kernel the call
     launches)."""
     shapes = []
-    for label, n, q, timed, main_path in GRAM_SHAPES:
+    for label, n, q, timed, path in GRAM_SHAPES + (
+            ("G_BB binary", N_TOAS, q_binary, True, "binary"),
+            ("Schur binary", N_TOAS // 4, q_binary, True, "binary")):
         A = whitened(n, q, seed=n, device=dev)
         bn, nb = gram._block_rows(n)
         before = gram.ds32_gram.launches
@@ -783,7 +1152,7 @@ def check_gram(gram, dev):
         nbytes = 8.0 * (n * q + q * q)   # A read once, G written once
         bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
         shapes.append({
-            "shape": label, "n": n, "q": q, "main_path": main_path,
+            "shape": label, "n": n, "q": q, "path": path,
             "bn": bn, "nb": nb,
             "ms": median_ms(lambda: gram.ds32_gram(A)),
             "device_ms": (None if None in passes.values()
@@ -850,11 +1219,17 @@ def main() -> None:
         fail("double-double error-free transforms do not hold on the card")
 
     phase("4 ds32_gram against its plain version")
-    shapes = check_gram(gram, dev)
-    main_shapes = [s for s in shapes if s["main_path"]]
-    print("bound per GLS step at the main path's shapes: "
-          + " + ".join(f"{s['shape']} {s['bound_ms']:.4f}" for s in main_shapes)
-          + f" = {sum(s['bound_ms'] for s in main_shapes):.4f} ms", flush=True)
+    # the binary path's q: its fitted parameters, the offset and 2 x 30
+    # red-noise harmonics
+    q_binary = len(get_model(j1909_par()).free_params) + 1 + 60
+    shapes = check_gram(gram, dev, q_binary)
+    per_path = {path: [s for s in shapes if s["path"] == path]
+                for path in ("main", "binary")}
+    main_shapes = per_path["main"]
+    for path, ss in per_path.items():
+        print(f"bound per GLS step at the {path} path's shapes: "
+              + " + ".join(f"{s['shape']} {s['bound_ms']:.4f}" for s in ss)
+              + f" = {sum(s['bound_ms'] for s in ss):.4f} ms", flush=True)
 
     phase(f"5 the data layer: {N_SMALL} GBT TOAs built on the card and the CPU")
     ephem = get_model(PAR_FULL).ephem
@@ -1050,13 +1425,32 @@ def main() -> None:
           f"{probe_ms:.2f} ms", flush=True)
     profile_step("one full step", full_step, step_ms)
     profile_step("stage 1 of a step", stage1, stage1_ms)
+    # phase 6's captured loops hold their graphs' memory: free it, so
+    # that phase 7's peak measures phase 7
+    del fitter, hfitter
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
+    device_loop.clear_cache()
+    print(f"device_loop.clear_cache() freed "
+          f"{held_mb - torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB of "
+          f"captured loops", flush=True)
 
-    phase(f"7 the fits on the card agree with the CPU and the host loop at "
+    phase(f"7 slice 7's path: a J1909-3744-like binary MSP (ELL1, {N_DMX} DMX "
+          f"windows, FD, JUMP, the solar wind), {N_TOAS} GBT TOAs, damped GLS "
+          f"fit")
+    launches_binary = binary_path(dev, q_binary)
+    device_loop.clear_cache()
+
+    phase(f"8 each new component on the card against the CPU at {N_SMALL} "
+          f"GBT TOAs")
+    components_card_vs_cpu(dev)
+
+    phase(f"9 the fits on the card agree with the CPU and the host loop at "
           f"{N_SMALL} TOAs")
     launches_by_path = {
         f"topocentric {N_TOAS} (main path, fused, cold)": launches,
         f"topocentric {N_TOAS} (fused, warm)": warm["launches"],
-        f"topocentric {N_TOAS} (host loop, warm)": hwarm["launches"]}
+        f"topocentric {N_TOAS} (host loop, warm)": hwarm["launches"],
+        **launches_binary}
     for label, par in (("topocentric", PAR_FULL), ("barycentric", PAR_BARY)):
         small = simulate(par, N_SMALL, seed=1, device="cpu")
         recs = {}
@@ -1089,11 +1483,10 @@ def main() -> None:
                  f"{r_host['launches']} times on the card and "
                  f"{r_cpu['launches']} times on the CPU")
 
-    phase(f"8 the fitter API: Fitter.auto at {N_DENSE} TOAs, the WLS fit and "
+    phase(f"10 the fitter API: Fitter.auto at {N_DENSE} TOAs, the WLS fit and "
           f"the single-call steps at {N_TOAS}, card against CPU at {N_SMALL}")
-    # the captured loops of phases 6-7 hold their graphs' memory; free
-    # it, so that phase 8's peaks measure phase 8
-    del fitter, hfitter
+    # the captured loops of phase 9 hold their graphs' memory; free it,
+    # so that phase 10's peaks measure phase 10
     held_mb = torch.cuda.memory_allocated() / 2 ** 20
     device_loop.clear_cache()
     print(f"device_loop.clear_cache() freed "
@@ -1101,24 +1494,28 @@ def main() -> None:
           f"captured loops", flush=True)
     fitter_api(dev, toas)
 
-    phase("9 result")
-    per_step = {k: (None if any(s[k] is None for s in main_shapes)
-                    else sum(s[k] for s in main_shapes))
+    phase("11 result")
+
+    def per_step(ss):
+        return {k: (None if any(s[k] is None for s in ss)
+                    else sum(s[k] for s in ss))
                 for k in ("ms", "device_ms", "plain_ms", "library_ms",
                           "library_device_ms", "bound_ms")}
+
     kernels = [{
         "name": "ds32_gram", "route": "cuda",
         "source": "pint_tpu_torch/csrc/ds32_gram.cu",
         "replaces": "pint_tpu/ops/pallas_gram.py:47",
         "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        **per_step,
+        **per_step(main_shapes),
         "bound_by": ("operations" if all(s["bound_by"] == "operations"
                                          for s in main_shapes) else "bytes"),
         "timing": "per GLS step of the main path: its G_BB + Schur shapes "
                   "summed; ms, plain_ms and library_ms are CUDA events around "
                   "one call, device_ms and library_device_ms device time "
                   "(torch.profiler)",
+        "binary_path_per_step": per_step(per_path["binary"]),
         "launches_by_path": launches_by_path,
         "shapes": shapes,
     }]

@@ -45,6 +45,7 @@ from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
                                              noise_marginal_chi2, pl_bases,
                                              segment_sum)
 from pint_tpu_torch.fitting.step import make_resid_fn
+from pint_tpu_torch.models.parameter import materialize_selector_masks
 
 
 def make_whiten_stage1(model, tzr=None):
@@ -121,6 +122,11 @@ class HybridGLSFitter(Fitter):
         self._n_params = len(self._names) + self._off
         self._ne = int(self.noise.ecorr_phi.shape[0])
         tzr = model.get_tzr_toas(dev)
+        # the device tensors the components derive from host data (the
+        # JUMP/FDJUMP masks, DMX's window slots) exist before any capture
+        materialize_selector_masks(model, toas)
+        if tzr is not None:
+            materialize_selector_masks(model, tzr)
         self._stage1 = make_whiten_stage1(model, tzr)
         self._stage1r = make_resid_stage1(model, tzr, device=dev)
         # statics of the captured stages, built here, before any capture:
@@ -208,12 +214,14 @@ class HybridGLSFitter(Fitter):
         deltas0 = self.model.zero_deltas(self._names, self.device)
         self.counters, self.loop_stats = {}, {}
         if device_loop.enabled():
-            # the capture bakes in this fitter's statics and the Gram
-            # function the stages call (a swapped Gram captures anew)
+            # the capture bakes in this fitter's statics, the Gram
+            # function the stages call (a swapped Gram captures anew) and
+            # the model's structure (DMX bounds, JUMP selectors, ...)
             deltas, sol, chi2, converged, counters = device_loop.run_damped(
                 lambda d, b: self._iterate(b, d), deltas0, base,
                 probe=lambda d, b: self._chi2_at(b, d),
-                key=("hybrid", id(self), gls_step.ds32_gram),
+                key=("hybrid", id(self), gls_step.ds32_gram,
+                     self.model.structure_key()),
                 maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
                 kind="hybrid", stats=self.loop_stats)
             self.counters.update(counters)

@@ -5,8 +5,9 @@ Counterpart of ``pint_tpu.models.builder``. Component classes advertise
 component (the first applicable class of a category wins), hands each
 the parsed par file, and validates the assembled model.
 
-Only the components of the topocentric GLS slice are carried. A par file
-that selects any other component of the reference raises
+The binary models, DMX, the solar wind, FD, FDJUMP, JUMP, DMJUMP and
+PHOFF are carried beside the topocentric GLS components. A par file that
+selects any other component of the reference raises
 ``NotImplementedError`` naming it, rather than building a model that
 silently lacks a term.
 """
@@ -19,10 +20,16 @@ import re
 from pint_tpu_torch.io.parfile import ParFile, parse_parfile
 from pint_tpu_torch.models.absolute_phase import AbsPhase
 from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
+from pint_tpu_torch.models.binary import ALL_BINARY_MODELS
 from pint_tpu_torch.models.component import has_series_term
-from pint_tpu_torch.models.dispersion import DispersionDM
+from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
+from pint_tpu_torch.models.fdjump import FDJump
+from pint_tpu_torch.models.frequency_dependent import FD
+from pint_tpu_torch.models.jump import DispersionJump, PhaseJump
 from pint_tpu_torch.models.noise import EcorrNoise, PLRedNoise, ScaleToaError
+from pint_tpu_torch.models.phase_offset import PhaseOffset
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
+from pint_tpu_torch.models.solar_wind import SolarWindDispersion
 from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.timing_model import TimingModel
 
@@ -37,23 +44,19 @@ COMPONENT_BUILD_ORDER: list[type] = [
     AstrometryEquatorial,
     SolarSystemShapiro,
     DispersionDM,
+    DispersionDMX,
+    SolarWindDispersion,
+    *ALL_BINARY_MODELS,
+    FD,
+    FDJump,
+    PhaseJump,
+    DispersionJump,
+    PhaseOffset,
     ScaleToaError,
     EcorrNoise,
     PLRedNoise,
     AbsPhase,
 ]
-
-
-def _nonzero(pf, keys) -> bool:
-    for key in keys:
-        line = pf.get(key)
-        if line is not None:
-            try:
-                if float(line.value.replace("D", "e")) != 0.0:
-                    return True
-            except ValueError:
-                pass
-    return False
 
 
 def _yes(pf, key) -> bool:
@@ -70,10 +73,7 @@ def _any_line(pf, pattern: str) -> bool:
 # The reference's components this package does not carry yet, each with
 # the par-file test its applicable() makes.
 UNPORTED_COMPONENTS = {
-    "DispersionDMX": lambda pf: bool(pf.get_all("DMX_")),
-    "SolarWindDispersion": lambda pf: _nonzero(pf, ("NE_SW", "NE1AU", "SOLARN0")),
     "TroposphereDelay": lambda pf: _yes(pf, "CORRECT_TROPOSPHERE"),
-    "binary model": lambda pf: "BINARY" in pf,
     "Glitch": lambda pf: bool(pf.get_all("GLEP_")),
     "PiecewiseSpindown": lambda pf: bool(pf.get_all("PWEP_")),
     "Wave": lambda pf: "WAVE_OM" in pf or has_series_term(pf, "WAVE"),
@@ -83,11 +83,6 @@ UNPORTED_COMPONENTS = {
                                or has_series_term(pf, "CM")),
     "CMWaveX": lambda pf: bool(pf.get_all("CMWXFREQ_")),
     "IFunc": lambda pf: bool(pf.get_all("IFUNC1")),
-    "FD": lambda pf: has_series_term(pf, "FD"),
-    "FDJump": lambda pf: _any_line(pf, r"^FD\d+JUMP\d*$"),
-    "PhaseJump": lambda pf: _any_line(pf, r"^JUMP"),
-    "DispersionJump": lambda pf: _any_line(pf, r"^DMJUMP\d*$"),
-    "PhaseOffset": lambda pf: "PHOFF" in pf,
     "ScaleDmError": lambda pf: _any_line(pf, r"^(DMEFAC|DMEQUAD)\d*$"),
     "PLDMNoise": lambda pf: "TNDMAMP" in pf or "TNDMAmp" in pf,
     "PLChromNoise": lambda pf: "TNCHROMAMP" in pf or "TNChromAmp" in pf,
@@ -132,10 +127,19 @@ def get_model(parfile: str | ParFile) -> TimingModel:
     recognized = set(_HEADER_KEYS) | set(model.params)
     for p in model.params.values():
         recognized.update(p.aliases)
+    extra_res = []
     for c in model.components:
         recognized.update(getattr(c, "extra_par_names", ()))
+        pat = getattr(c, "extra_par_regex", None)
+        if pat is not None:
+            extra_res.append(pat)
     for line in pf.lines:
-        if line.name not in recognized:
-            log.warning("par parameter %s not recognized by any component; "
-                        "ignored", line.name)
+        nm = line.name
+        # an orphan DMXR1_0007 with no DMX_0007 window warns: the window
+        # lines are claimed by DispersionDMX.extra_par_names only
+        if nm in recognized or nm.startswith("JUMP") \
+                or any(p.match(nm) for p in extra_res):
+            continue
+        log.warning("par parameter %s not recognized by any component; "
+                    "ignored", nm)
     return model

@@ -16,7 +16,10 @@ from __future__ import annotations
 
 import re as _re
 
+import torch
+
 from pint_tpu_torch.models.parameter import Param
+from pint_tpu_torch.ops import dd
 from pint_tpu_torch.ops.dd import DD
 
 # Evaluation order of delay/phase categories (reference:
@@ -64,6 +67,9 @@ class Component:
                 return p
         raise KeyError(f"{type(self).__name__} has no parameter {name}")
 
+    def has_param(self, name: str) -> bool:
+        return any(p.name == name for p in self.params)
+
     def setup_from_parfile(self, pf) -> None:
         """Consume this component's lines from a parsed ParFile."""
         for p in self.params:
@@ -96,6 +102,28 @@ class Component:
         param it owns. ``as_parfile`` appends these, skipping any whose
         name another emitted line already carries."""
         return []
+
+    def _ranged_window_overrides(self, prefix: str) -> dict:
+        """DMX-style serialization: the per-window value param plus its
+        R1/R2 bound lines (the bounds live in ``self.ranges``, not in
+        params)."""
+        out: dict = {}
+        for i in self.indices:
+            p = self.param(f"{prefix}_{i:04d}")
+            lo, hi = self.ranges[i]
+            out[p.name] = (p.as_parfile_line()
+                           + f"\n{f'{prefix}R1_{i:04d}':<15} {float(lo)!r}"
+                           + f"\n{f'{prefix}R2_{i:04d}':<15} {float(hi)!r}")
+        return out
+
+    def trace_facts(self) -> tuple:
+        """Hashable host-side facts the delay or phase branches on or
+        bakes into device tensors, beyond the parameter values: a CUDA
+        graph replays what its capture saw, so
+        :meth:`TimingModel.structure_key` carries these into the keys of
+        every cached step and captured loop. DMX's window bounds, a mask
+        parameter's selector and ELL1H's mode are such facts."""
+        return tuple((p.name, p.selector) for p in self.params if p.selector)
 
     @classmethod
     def applicable(cls, pf) -> bool:
@@ -141,6 +169,17 @@ def has_series_term(pf, prefix: str) -> bool:
     """True when any ``{prefix}<int>`` line exists."""
     pat = _re.compile(_re.escape(prefix) + r"\d+")
     return any(pat.fullmatch(line.name) for line in pf.get_all(prefix))
+
+
+def safe_log_nu(toas):
+    """``(valid, log(nu/1GHz))`` with non-finite or zero frequencies masked:
+    an infinite-frequency (barycentred photon) TOA sees no profile-
+    evolution delay. Shared by FD and FDJump."""
+    f = toas.freq_mhz
+    valid = torch.isfinite(f) & (f > 0.0)
+    log_nu = torch.log(dd.true_div(torch.where(valid, f, torch.full_like(f, 1000.0)),
+                                   1000.0))
+    return valid, log_nu
 
 
 def f64(p: dict[str, DD], name: str):

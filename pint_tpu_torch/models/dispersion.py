@@ -1,14 +1,15 @@
-"""Dispersion delay: cold-plasma DM delay with a Taylor series DM(t).
+"""Dispersion delay: cold-plasma DM delay, Taylor DM(t), DMX windows.
 
-Counterpart of ``pint_tpu.models.dispersion.DispersionDM``. delay =
-K * DM(t) / freq^2 with K = 1/2.41e-4 s MHz^2 cm^3 / pc (the
-tempo-compatible dispersion constant).
+Counterpart of ``pint_tpu.models.dispersion`` (``DispersionDM``,
+``DispersionDMX``). delay = K * DM(t) / freq^2 with K = 1/2.41e-4 s
+MHz^2 cm^3 / pc (the tempo-compatible dispersion constant).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_tpu_torch.constants import DM_CONST
@@ -61,6 +62,94 @@ class DispersionDM(Component):
             name = "DM" if k == 0 else f"DM{k}"
             dm = dm * dt_yr + f64(p, name) / math.factorial(k)
         return dm
+
+    def delay(self, p: dict[str, DD], toas, acc_delay, aux: dict) -> torch.Tensor:
+        return DM_CONST * self.dm_value(p, toas) / (toas.freq_mhz * toas.freq_mhz)
+
+
+class DispersionDMX(Component):
+    """Piecewise-constant DM offsets over MJD windows (DMX_#### with
+    DMXR1_####/DMXR2_####).
+
+    The reference sums one mask * DMX_i per window. Here each TOA's
+    windows are found once per table, on the host, and kept on the
+    table's device as slots into the stacked window values (one gather
+    per layer of overlap, ``layers[l]`` holding each TOA's l-th window in
+    window order, or the zero slot): the same sum in the same order, and
+    no host data in a captured step.
+    """
+
+    category = "dispersion_dmx"
+    is_delay = True
+
+    def __init__(self, indices: list[int] | None = None):
+        super().__init__()
+        self.indices = list(indices or [])
+        self.ranges: dict[int, tuple[float, float]] = {}
+        for i in self.indices:
+            self.add_param(float_param(f"DMX_{i:04d}", units="pc cm^-3", index=i,
+                                       desc=f"DM offset in window {i}"))
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return bool(pf.get_all("DMX_"))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "DispersionDMX":
+        idx = sorted(int(l.name.split("_")[1]) for l in pf.get_all("DMX_"))
+        self = cls(indices=idx)
+        self.setup_from_parfile(pf)
+        for i in idx:
+            r1 = pf.get(f"DMXR1_{i:04d}")
+            r2 = pf.get(f"DMXR2_{i:04d}")
+            self.ranges[i] = (float(r1.value) if r1 else 0.0,
+                              float(r2.value) if r2 else 1e9)
+        return self
+
+    def par_line_overrides(self) -> dict:
+        # the window bounds live in self.ranges, not in params
+        return self._ranged_window_overrides("DMX")
+
+    @property
+    def extra_par_names(self) -> tuple[str, ...]:
+        # the DMXR1_/DMXR2_ bound lines are read, but are not params
+        return tuple(f"DMXR{j}_{i:04d}" for i in self.indices for j in (1, 2))
+
+    def trace_facts(self) -> tuple:
+        # the window bounds are baked into the device slots
+        return (("dmx_ranges", tuple(self.ranges[i] for i in self.indices)),)
+
+    def materialize(self, toas) -> torch.Tensor:
+        """The (m, n) int64 window slots of `toas` on its device: slot k
+        (the number of windows) is a zero. Built once per table and set
+        of bounds."""
+        cache = toas.__dict__.setdefault("_device_masks", {})
+        key = ("dmx",) + self.trace_facts()
+        layers = cache.get(key)
+        if layers is None:
+            mjds = toas.get_mjds()
+            k, n = len(self.indices), mjds.shape[0]
+            lo = np.asarray([self.ranges[i][0] for i in self.indices])
+            hi = np.asarray([self.ranges[i][1] for i in self.indices])
+            member = (mjds[:, None] >= lo) & (mjds[:, None] <= hi)  # (n, k)
+            toa, win = np.nonzero(member)   # by TOA, then window order
+            count = member.sum(axis=1)
+            rank = np.arange(toa.shape[0]) - (np.cumsum(count) - count)[toa]
+            slots = np.full((int(count.max(initial=0)), n), k, dtype=np.int64)
+            slots[rank, toa] = win
+            layers = cache[key] = torch.as_tensor(slots, device=toas.device)
+        return layers
+
+    def dm_value(self, p: dict[str, DD], toas) -> torch.Tensor:
+        layers = self.materialize(toas)
+        names = [f"DMX_{i:04d}" for i in self.indices]
+        zero = torch.zeros(1, dtype=torch.float64, device=toas.device)
+        v = torch.cat([torch.stack([p[k].hi for k in names])
+                       + torch.stack([p[k].lo for k in names]), zero])
+        total = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
+        for slots in layers:
+            total = total + v[slots]
+        return total
 
     def delay(self, p: dict[str, DD], toas, acc_delay, aux: dict) -> torch.Tensor:
         return DM_CONST * self.dm_value(p, toas) / (toas.freq_mhz * toas.freq_mhz)

@@ -18,6 +18,7 @@ import torch
 
 from pint_tpu_torch.ops import dd
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.toas import host_array
 from pint_tpu_torch.utils import angles
 
 # parameter kinds
@@ -126,6 +127,9 @@ class Param:
             u *= angles.RAD_PER_ARCSEC
         self.uncertainty = u
 
+    def set_value_dd(self, hi: float, lo: float = 0.0) -> None:
+        self.value = (float(hi), float(lo))
+
     def add_delta(self, delta: float) -> None:
         """Apply a fitted correction exactly: value <- value (+) delta."""
         s, e = _two_sum(self.hi, float(delta))
@@ -221,7 +225,45 @@ def toa_mask(selector: tuple[str, ...], toas) -> np.ndarray:
         mjds = toas.get_mjds()
         return (mjds >= float(selector[1])) & (mjds <= float(selector[2]))
     if key == "freq":
-        f = toas.freq_mhz.cpu().numpy()
+        f = host_array(toas.freq_mhz)
         return (f >= float(selector[1])) & (f <= float(selector[2]))
     vals = np.asarray([fl.get(key, "") for fl in toas.flags])
     return vals == selector[1]
+
+
+def device_mask(selector: tuple[str, ...], toas) -> torch.Tensor:
+    """:func:`toa_mask` as a float64 (n,) tensor on the table's device.
+
+    Built once per table and selector and kept on the table: a captured
+    step then reads the same device tensor at every replay and never
+    copies a host mask. (A table made by ``dataclasses.replace`` starts
+    with no masks.)
+    """
+    cache = toas.__dict__.setdefault("_device_masks", {})
+    key = tuple(selector)
+    m = cache.get(key)
+    if m is None:
+        m = cache[key] = torch.as_tensor(toa_mask(key, toas),
+                                         dtype=torch.float64, device=toas.device)
+    return m
+
+
+def materialize_selector_masks(models, toas):
+    """Build, on `toas`'s device, every device tensor that the components
+    of `models` derive from host data: each mask parameter's selector
+    mask and each component's own (``materialize``, e.g. DMX's window
+    index). Returns `toas`, which now holds them.
+
+    Counterpart of the reference's ``materialize_selector_masks``. Call it
+    before a step is captured: a capture must not copy host data.
+    """
+    if not isinstance(models, (list, tuple)):
+        models = [models]
+    for model in models:
+        for c in model.components:
+            for p in c.params:
+                if p.selector:
+                    device_mask(p.selector, toas)
+            if hasattr(c, "materialize"):
+                c.materialize(toas)
+    return toas

@@ -38,6 +38,9 @@ class TimingModel:
         self.name = name
         self.components: list[Component] = sorted(components, key=_order_key)
         self.header: dict[str, str] = dict(header or {})
+        self._validate_unique_params()
+
+    def _validate_unique_params(self) -> None:
         seen: dict[str, str] = {}
         for c in self.components:
             for p in c.params:
@@ -61,6 +64,9 @@ class TimingModel:
     def __getitem__(self, name: str) -> Param:
         return self.params[name]
 
+    def __contains__(self, name: str) -> bool:
+        return name in self.params
+
     def get_component(self, cls_name: str) -> Component | None:
         for c in self.components:
             if type(c).__name__ == cls_name:
@@ -69,6 +75,34 @@ class TimingModel:
 
     def has_component(self, cls_name: str) -> bool:
         return self.get_component(cls_name) is not None
+
+    def add_component(self, comp: Component) -> None:
+        """Insert `comp` in evaluation order. The memoized steps of the
+        old structure are dropped, so no fit replays them."""
+        components = sorted(self.components + [comp], key=_order_key)
+        old, self.components = self.components, components
+        try:
+            self._validate_unique_params()
+        except ValueError:
+            self.components = old
+            raise
+        self.__dict__.pop("_fn_cache", None)
+
+    def remove_component(self, cls_name: str) -> None:
+        """Drop every component of class `cls_name` (and the memoized
+        steps of the old structure)."""
+        self.components = [c for c in self.components
+                           if type(c).__name__ != cls_name]
+        self.__dict__.pop("_fn_cache", None)
+
+    def structure_key(self) -> tuple:
+        """What the composed functions read from the host besides the
+        parameter values: the components in order, their parameters and
+        their :meth:`~Component.trace_facts`. Part of every
+        :meth:`cached_fn` key, so that a step memoized (and captured) for
+        one structure is never run for another."""
+        return tuple((type(c).__name__, tuple(p.name for p in c.params),
+                      c.trace_facts()) for c in self.components)
 
     def validate(self) -> None:
         for c in self.components:
@@ -102,10 +136,12 @@ class TimingModel:
         The counterpart of the reference's ``_cached_jit``: one step and
         one probe object per model and configuration, so that the fused
         loop's capture cache (keyed on those objects) is hit by every fit
-        of this model. Callers put everything ``build`` reads from the
-        model's structure (free parameters, device) into ``key``.
+        of this model. Callers put what ``build`` reads besides the
+        model's structure (free parameters, device) into ``key``; the
+        structure itself (:meth:`structure_key`) is added here.
         """
         cache = self.__dict__.setdefault("_fn_cache", {})
+        key = (key, self.structure_key())
         fn = cache.get(key)
         if fn is None:
             fn = cache[key] = build(self)
@@ -165,6 +201,47 @@ class TimingModel:
             return ph
 
         return fn
+
+    # ------------------------------------------------------------------
+    # DM as a function of the parameters (DM, DMX, the solar wind and
+    # DMJUMP contribute)
+    # ------------------------------------------------------------------
+    def dm_fn(self, toas):
+        """Build ``fn(base, deltas) -> (n,) DM [pc/cm^3]`` at each TOA."""
+        comps = [c for c in self.components if hasattr(c, "dm_value")]
+
+        def fn(base: dict[str, DD], deltas: dict[str, torch.Tensor]) -> torch.Tensor:
+            p = self.resolve(base, deltas)
+            total = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
+            for c in comps:
+                total = total + c.dm_value(p, toas)
+            return total
+
+        return fn
+
+    def total_dm(self, toas) -> torch.Tensor:
+        """Model DM at each TOA (reference: TimingModel.total_dm)."""
+        return self.dm_fn(toas)(self.base_dd(toas.device), {})
+
+    def dm_designmatrix(self, toas, params: list[str] | None = None
+                        ) -> tuple[torch.Tensor, list[str]]:
+        """d(DM)/d(param) columns [pc/cm^3 per unit], in ``designmatrix``'s
+        column order (the Offset column is zeros: a phase offset does not
+        move the DM)."""
+        names = list(params if params is not None else self.free_params)
+        base = self.base_dd(toas.device)
+        fn = self.dm_fn(toas)
+        J = torch.func.jacfwd(lambda d: fn(base, d))(
+            self.zero_deltas(names, toas.device))
+        n = len(toas)
+        cols, out_names = [], []
+        if not self.has_component("PhaseOffset"):
+            cols.append(torch.zeros(n, dtype=torch.float64, device=toas.device))
+            out_names.append("Offset")
+        for k in names:
+            cols.append(J[k])
+            out_names.append(k)
+        return torch.stack(cols, dim=1), out_names
 
     # ------------------------------------------------------------------
     # noise-model plumbing

@@ -112,6 +112,7 @@ def make_fake_toas_uniform(startMJD: float, endMJD: float, ntoas: int, model,
 
 def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
                                error_us, obs: str = "gbt",
+                               flags=None,
                                add_noise: bool = False,
                                seed: int | None = None, niter: int = 3,
                                include_clock: bool = True,
@@ -120,8 +121,10 @@ def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
 
     The caller supplies the local MJDs as a DD of arrays; the fixed-point
     iteration makes them arrivals the model times perfectly, with the
-    model's ephemeris. ``device`` (``None``: the CUDA card) is where the
-    table is built and the iteration runs.
+    model's ephemeris. ``flags`` (per-TOA dicts, e.g. ``{"fe":
+    "Rcvr_800"}``) select the model's JUMP, FDJUMP and EFAC/EQUAD/ECORR
+    masks, in the inversion too. ``device`` (``None``: the CUDA card) is
+    where the table is built and the iteration runs.
     """
     dev = resolve_device(device)
     mjd_dd = dd.DD(torch.as_tensor(mjd_dd.hi, dtype=torch.float64, device=dev),
@@ -132,7 +135,7 @@ def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
 
     def build(m):
         return build_TOAs_from_arrays(
-            m, freq_mhz=freqs, error_us=errs, obs_names=(obs,),
+            m, freq_mhz=freqs, error_us=errs, obs_names=(obs,), flags=flags,
             eph=model.ephem, include_clock=include_clock, device=dev)
 
     return _invert_to_model(build, mjd_dd, model,

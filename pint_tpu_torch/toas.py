@@ -36,6 +36,14 @@ from pint_tpu_torch.ops.dd import DD
 PLANET_NAMES = ("sun", "venus", "jupiter", "saturn", "uranus", "neptune")
 
 
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """A table column as a host numpy array, also inside a ``torch.func``
+    transform (which forbids reading tensor data): a selector mask is
+    built lazily there, at the first evaluation of a model on a table."""
+    with torch._C._DisableFuncTorch():
+        return x.detach().cpu().numpy()
+
+
 @dataclass
 class TOAs:
     """TOA table. Tensor columns are (n,) float64 unless noted; positions
@@ -70,7 +78,7 @@ class TOAs:
 
     def get_mjds(self) -> np.ndarray:
         """TDB MJDs as float64 (display/selection precision), on the host."""
-        return (self.tdb.hi + self.tdb.lo).cpu().numpy()
+        return host_array(self.tdb.hi + self.tdb.lo)
 
     def get_errors_s(self) -> torch.Tensor:
         return self.error_us * 1e-6

@@ -1,1 +1,1 @@
-"""Host-side utilities (sexagesimal angles)."""
+"""Host-side utilities (sexagesimal angles, DMX reports)."""

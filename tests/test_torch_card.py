@@ -113,3 +113,72 @@ def test_fused_fit_counts_the_kernel_per_replay(cuda_device, monkeypatch):
     assert nd == nh == 2 * fd.loop_stats["full"]
     assert fd.counters == {k: fh.counters[k] for k in fd.counters}
     assert abs(cd - ch) <= 1e-9 * abs(ch) and fd.converged == fh.converged
+
+
+def test_binary_par_delays_on_the_card_equal_the_cpus(cuda_device):
+    """A binary MSP with the NANOGrav delay set (ELL1 with Shapiro, DMX,
+    FD, FDJUMP, a receiver JUMP, the solar wind, PHOFF): every delay
+    component on the card against the CPU within 1e-12 s."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    par = """
+PSRJ J1909-3744
+RAJ 19:09:47.4335737 1
+DECJ -37:44:14.46674 1
+F0 339.31568666962 1
+F1 -1.614D-15 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 10.3932
+EPHEM DE421
+TZRMJD 55000.1
+TZRFRQ 1400
+TZRSITE 1
+BINARY ELL1
+PB 1.533449474406 1
+A1 1.89799111 1
+TASC 55000.0
+EPS1 2.7e-8 1
+EPS2 -1.0e-8 1
+M2 0.209 1
+SINI 0.998 1
+DMX_0001 1e-4 1
+DMXR1_0001 54000
+DMXR2_0001 55000
+DMX_0002 -1e-4 1
+DMXR1_0002 55000.0001
+DMXR2_0002 56000
+FD1 1.1e-5 1
+FD2 -3e-6 1
+FD1JUMP -fe Rcvr_800 2e-6 1
+JUMP -fe Rcvr_800 1.3e-5 1
+NE_SW 7.9
+PHOFF 0.01 1
+"""
+    rng = np.random.default_rng(4)
+    n = 2000
+    low = rng.random(n) < 0.5
+    kw = dict(freq_mhz=np.where(low, 800.0, 1400.0), error_us=1.0,
+              obs_names=("gbt",), eph="DE421",
+              flags=[{"fe": "Rcvr_800" if lo else "Rcvr1_2"} for lo in low])
+    mjd = DD(np.sort(rng.uniform(54000.0, 56000.0, n)), np.zeros(n))
+    model = get_model(par)
+    cpu = build_TOAs_from_arrays(mjd, device="cpu", **kw)
+    card = cpu.to(cuda_device)
+    delays = {}
+    for toas in (cpu, card):
+        p, aux = model.base_dd(toas.device), {}
+        acc = torch.zeros(n, dtype=torch.float64, device=toas.device)
+        for c in model.delay_components():
+            d = c.delay(p, toas, acc, aux)
+            delays.setdefault(type(c).__name__, []).append(d.cpu())
+            acc = acc + d
+    for name, (c, g) in delays.items():
+        assert float(torch.max(torch.abs(c - g))) <= 1e-12, name
+    ph_c, ph_g = model.phase(cpu), model.phase(card)
+    assert torch.equal(ph_c.int_part, ph_g.int_part.cpu())
+    gap = torch.max(torch.abs((ph_c.frac.hi - ph_g.frac.hi.cpu())
+                              + (ph_c.frac.lo - ph_g.frac.lo.cpu())))
+    assert float(gap) / model.f0_f64 <= 1e-12

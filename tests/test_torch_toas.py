@@ -112,14 +112,60 @@ def test_utc_to_tt_is_the_references(mjds):
     np.testing.assert_array_equal(tt.hi.numpy(), np.asarray(ref.hi))
 
 
+def fb_series_numpy(hi, lo) -> np.ndarray:
+    """TDB-TT [s] from the reference's FB1990 tables in numpy float64: a
+    third evaluation that names which side moved when the two differ."""
+    T = (hi - 51544.5 + lo) / 365250.0
+    total = np.zeros_like(T)
+    for power, table in enumerate((jfb.FB1990_T0, jfb.FB1990_T1, jfb.FB1990_T2)):
+        amp, freq, phase = (np.asarray(col, np.float64) for col in table)
+        total = total + T ** power * np.sum(
+            amp * np.sin(freq * T[:, None] + phase), axis=-1)
+    return total * 1e-6
+
+
 def test_tdb_minus_tt_is_the_references(mjds):
     hi, lo = mjds
     got = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
     ref = np.asarray(jts.tdb_minus_tt(JDD(jnp.asarray(hi), jnp.asarray(lo))))
+    npv = fb_series_numpy(hi, lo)
     print(f"tdb_minus_tt gap {np.max(np.abs(got - ref)):.3e} s, "
-          f"max |TDB-TT| {np.max(np.abs(ref)):.3e} s")
+          f"max |TDB-TT| {np.max(np.abs(ref)):.3e} s; against numpy: port "
+          f"{np.max(np.abs(got - npv)):.3e} s, reference "
+          f"{np.max(np.abs(ref - npv)):.3e} s")
     assert np.max(np.abs(got - ref)) < PS
     assert 1.5e-3 < np.max(np.abs(got)) < 1.8e-3  # the annual term
+
+
+def test_tdb_minus_tt_after_the_candidate_state_changes(mjds):
+    """The order-dependent TDB-TT failure (ROADMAP Queue 3): the states an
+    earlier test could leave behind, set up in this one process, leave
+    the parity at its bar. The reference's TOA pipeline runs jitted (XLA
+    compiles TDB-TT inside it), the port's TDB-TT runs under
+    ``torch.func.jacfwd`` and on one thread, and the reference's FB1990
+    lists (mutable) and the port's tables are held to be unchanged."""
+    hi, lo = mjds
+    tables = [np.asarray(getattr(jfb, n), np.float64).copy()
+              for n in ("FB1990_T0", "FB1990_T1", "FB1990_T2")]
+    jtoas.build_TOAs_from_arrays(JDD(hi[:64], lo[:64]), freq_mhz=np.full(64, 1400.0),
+                                 error_us=np.ones(64), obs_names=("gbt",))
+    torch.func.jacfwd(lambda d: ts.tdb_minus_tt(DD(t64(hi[:8]) + d, t64(lo[:8]))))(
+        torch.zeros(8, dtype=torch.float64))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    got = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
+    ref = np.asarray(jts.tdb_minus_tt(JDD(jnp.asarray(hi), jnp.asarray(lo))))
+    np.testing.assert_array_equal(one, got)
+    for name, t in zip(("FB1990_T0", "FB1990_T1", "FB1990_T2"), tables):
+        np.testing.assert_array_equal(np.asarray(getattr(jfb, name)), t)
+    for t, port in zip(tables, ts._FB_TABLES):
+        np.testing.assert_array_equal(port, t)
+    assert np.max(np.abs(got - ref)) < PS
+    assert np.max(np.abs(got - fb_series_numpy(hi, lo))) < PS
 
 
 @pytest.mark.parametrize("with_topo", [False, True])

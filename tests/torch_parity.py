@@ -35,7 +35,8 @@ TNREDAMP -13.5
 TNREDGAM 3.5
 TNREDC 30
 """
-BENCH_PY = pathlib.Path(__file__).resolve().parents[1] / "bench.py"
+REPO = pathlib.Path(__file__).resolve().parents[1]
+BENCH_PY = REPO / "bench.py"
 
 # The bench par (bench.py PAR) with barycentric TOAs: no RAJ/DECJ/
 # POSEPOCH/EPHEM, TZRSITE @.
@@ -96,10 +97,11 @@ PAR_MATRIX = PAR_WLS.replace("17:48:52.75  1", "17:48:52.75").replace(
 SITES = {PAR_FULL: "gbt", PAR_BARY: "@"}
 
 
-def simulate_reference(n: int, seed: int = 0, par: str = PAR_BARY):
+def simulate_reference(n: int, seed: int = 0, par: str = PAR_BARY,
+                       site: str | None = None):
     """(model, toas) of the reference: n TOAs simulated from `par` with
-    1 us white noise at 1400/430 MHz, at GBT for PAR_FULL and at the
-    barycenter for PAR_BARY."""
+    1 us white noise at 1400/430 MHz, at `site`, by default GBT for
+    PAR_FULL and the barycenter for other pars."""
     from pint_tpu.models import get_model
     from pint_tpu.ops.dd import DD
     from pint_tpu.simulation import make_fake_toas_from_arrays
@@ -110,7 +112,7 @@ def simulate_reference(n: int, seed: int = 0, par: str = PAR_BARY):
     toas = make_fake_toas_from_arrays(
         DD(mjds, np.zeros(n)), model,
         freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
-        error_us=1.0, obs=SITES[par], add_noise=True,
+        error_us=1.0, obs=site or SITES.get(par, "@"), add_noise=True,
         seed=int(rng.integers(2 ** 31)), niter=2)
     return model, toas
 
@@ -208,3 +210,97 @@ def assert_text_close(a: str, b: str, rtol: float) -> None:
             (nu, du), (nv, dv) = _as_number(u), _as_number(v)
             assert nu is not None and nv is not None, (x, y)
             assert abs(nu - nv) <= rtol * max(abs(nu), abs(nv)) + 1.01 * max(du, dv), (x, y)
+
+
+def gbt_reference_table(n: int, seed: int = 0, mjd_range=(54000.0, 56000.0)):
+    """n GBT TOAs built (not simulated) by the reference at two receivers:
+    half at Rcvr_800 (730-910 MHz), half at Rcvr1_2 (1150-1650 MHz), the
+    receiver in each TOA's ``-fe`` flag."""
+    from pint_tpu.ops.dd import DD
+    from pint_tpu.toas import build_TOAs_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjd = np.sort(rng.uniform(*mjd_range, n))
+    low = rng.random(n) < 0.5
+    freq = np.where(low, rng.uniform(730.0, 910.0, n),
+                    rng.uniform(1150.0, 1650.0, n))
+    flags = tuple({"fe": "Rcvr_800" if lo else "Rcvr1_2"} for lo in low)
+    return build_TOAs_from_arrays(DD(mjd, np.zeros(n)), freq_mhz=freq,
+                                  error_us=np.ones(n), obs_names=("gbt",),
+                                  flags=flags, eph="DE421")
+
+
+def carried(par: str, ref_toas, device="cpu"):
+    """(reference model, port model, port table): both models built from
+    `par`, the port's table carrying the reference's columns."""
+    from pint_tpu.models import get_model as jget_model
+    from pint_tpu_torch.interop import state_from_numpy
+    from pint_tpu_torch.models import get_model
+
+    ref_model, model = jget_model(par), get_model(par)
+    toas = state_from_numpy(params_of(ref_model), columns_of(ref_toas),
+                            model=model, device=device)
+    return ref_model, model, toas
+
+
+def component_parity(ref_model, ref_toas, model, toas, name: str):
+    """The delay (or phase, or DM) of component `name` in both packages at
+    the same parameters, and its derivatives in the component's free
+    parameters: (reference value, port value, {param: (ref col, port
+    col)}). A delay component sees the delays of the components before it
+    (the reference's accumulated delay, given to both); the derivatives
+    are jacfwd's, the reference's run op by op (``jax.disable_jit``)."""
+    import jax
+    import jax.numpy as jnp
+
+    jp, p = ref_model.base_dd(), model.base_dd(toas.device)
+    jc, c = ref_model.get_component(name), model.get_component(name)
+    acc, aux = jnp.zeros(len(ref_toas)), {}
+    with jax.disable_jit():
+        # the delays before a delay component; all of them for a phase one
+        for other in ref_model.delay_components() if c.is_delay or c.is_phase else ():
+            if type(other).__name__ == name:
+                break
+            acc = acc + other.delay(jp, ref_toas, acc, aux)
+        tacc = torch.as_tensor(np.array(acc), device=toas.device)
+        taux = {k: torch.as_tensor(np.array(v), device=toas.device)
+                for k, v in aux.items()}
+
+        def ref_fn(d):
+            q = ref_model.resolve(jp, d)
+            if c.is_delay:
+                return jc.delay(q, ref_toas, acc, dict(aux))
+            if c.is_phase:
+                ph = jc.phase(q, ref_toas, acc, dict(aux))
+                return ph.int_part + (ph.frac.hi + ph.frac.lo)
+            return jc.dm_value(q, ref_toas)
+
+        def fn(d):
+            q = model.resolve(p, d)
+            if c.is_delay:
+                return c.delay(q, toas, tacc, dict(taux))
+            if c.is_phase:
+                ph = c.phase(q, toas, tacc, dict(taux))
+                return ph.int_part + (ph.frac.hi + ph.frac.lo)
+            return c.dm_value(q, toas)
+
+        names = [q.name for q in c.params if not q.frozen and q.fittable]
+        J_ref = jax.jacfwd(ref_fn)({k: jnp.zeros(()) for k in names}) if names else {}
+        ref_value = np.asarray(ref_fn({}))
+    J = torch.func.jacfwd(fn)(model.zero_deltas(names, toas.device)) if names else {}
+    cols = {k: (np.asarray(J_ref[k]), J[k].cpu().numpy()) for k in names}
+    return ref_value, fn({}).cpu().numpy(), cols
+
+
+def assert_columns_close(cols, rtol=1e-10, zero=()):
+    """Each column within `rtol` of its largest reference entry; the
+    columns named in `zero` are zero in both."""
+    for k, (a, b) in cols.items():
+        scale = np.max(np.abs(a))
+        if k in zero:
+            assert scale == 0.0 and not np.any(b), k
+            continue
+        assert scale > 0.0, f"{k}: the reference's column is zero"
+        gap = np.max(np.abs(a - b)) / scale
+        print(f"  d/d{k}: {gap:.3e} of max|column|")
+        assert gap <= rtol, k
