@@ -14,8 +14,8 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (q = 66: the bench par with RAJ/DECJ), at the
    barycentric path's (q = 64), at the binary path's (phase 7's q, six
-   64-wide tiles), at an odd row count that pads and at two column
-   tiles, and against float64 within 10x its error bound, with its time
+   64-wide tiles), at the noise path's (phase 11's q, eight 64-wide
+   tiles), at an odd row count that pads and at two column tiles, and against float64 within 10x its error bound, with its time
    (CUDA events around one call, and each pass's device time), the plain
    version's, its bound and a library call's;
 5. the data layer: the same 2,000-row GBT table (clock chain, TDB,
@@ -56,9 +56,13 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    reduce kernel per counted launch);
 8. each new component on the card against the CPU at 2,000 GBT TOAs at
    two receivers: the ten binary models, DMX (disjoint and overlapping
-   windows), the solar wind, FD, FDJUMP, JUMP, DelayJump, DMJUMP and
-   PHOFF, each one's delay (phase, DM) within 1e-12 s and its jacfwd
-   columns within 1e-10 of their largest entry;
+   windows), the solar wind, FD, FDJUMP, JUMP, DelayJump, DMJUMP, PHOFF,
+   the troposphere, Glitch (with and without decay), PiecewiseSpindown,
+   WAVE, WaveX, DMWaveX, ChromaticCM (a Taylor term, CMX windows),
+   CMWaveX and IFunc (SIFUNC 0 and 2), each one's delay (phase, DM)
+   within 1e-12 s and its jacfwd columns within 1e-10 of their largest
+   entry; the PLDMNoise and PLChromNoise bases and prior variances (as
+   the hybrid fitter and the GLS step build them) within 1e-12;
 9. the topocentric fit and the barycentric one (the earlier path, at this
    smaller depth) at 2,000 TOAs on the card (fused), on the CPU (plain
    versions) and on the card through the host loop must agree, the
@@ -80,7 +84,20 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    with an exact float64 Gram; ``WLSFitter``, ``GLSFitter`` (Woodbury
    and dense C), ``DownhillWLSFitter`` and ``DownhillGLSFitter`` on one
    2,000-TOA table on the card and on the CPU must agree;
-11. a ``{"kernels": [...]}`` line, then the last line
+11. the noise-model path, after the loop cache is cleared: an EPTA-DR2-like
+   MSP (PAR_J1713: J1713+0747's astrometry, spin and DD orbit, DM/DM1/
+   DM2, ChromaticCM's CM at a fixed TNCHROMIDX 4, FD1, a receiver JUMP,
+   the troposphere, EFAC/EQUAD/ECORR per receiver, red noise (30
+   harmonics), DM noise and scattering noise (100 each)), 100,000 GBT
+   TOAs at two receivers simulated on the card from that par, with
+   phase 7's gates (the fused fit with the Gram kernel counted per
+   replay and seen in the profiler trace, the host loop as its witness,
+   every fitted parameter within 5 sigma of the truth, chi2/dof in [0.8,
+   1.25], peak memory, wall and idle share); then ``Fitter.auto`` on a
+   Vela-like young pulsar (PAR_VELA: F0/F1/F2, one glitch with a decay,
+   a 5-pair WAVE absorber) at 5,000 Parkes TOAs from a kicked start,
+   every fitted parameter within 5 sigma of the truth;
+12. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -188,6 +205,104 @@ TNREDAMP -13.5
 TNREDGAM 3.5
 TNREDC 30
 """
+# Phase 11: an EPTA-DR2-like MSP with three noise processes. Spin,
+# astrometry and the DD orbit are J1713+0747's, rounded from the NANOGrav
+# 15-year data set (Agazie et al. 2023, ApJL 951, L9), epochs moved to
+# the data's middle; T0 is an epoch, which neither package fits. The
+# noise model has the shape of the EPTA DR2 custom models (Chalumeau et
+# al. 2022, MNRAS 509, 5538): achromatic red noise, DM noise and
+# scattering (chromatic index 4) noise, each a power-law Fourier basis.
+# TNCHROMIDX is held fixed: ChromaticCM could fit it, but the noise basis
+# PLChromNoise builds at the fitter's construction reads it.
+PAR_J1713 = """
+PSRJ           J1713+0747
+RAJ            17:13:49.5331497  1
+DECJ           07:47:37.48796  1
+PMRA           4.922  1
+PMDEC          -3.909  1
+PX             0.88  1
+F0             218.81184381090227  1
+F1             -4.0835D-16  1
+PEPOCH         54000
+POSEPOCH       54000
+DM             15.917  1
+DM1            -1.0e-4  1
+DM2            2.0e-6  1
+DMEPOCH        54000
+CM             2.0e-4  1
+TNCHROMIDX     4
+EPHEM          DE421
+UNITS          TDB
+TZRMJD         54000.1
+TZRFRQ         1400
+TZRSITE        1
+CORRECT_TROPOSPHERE Y
+BINARY         DD
+PB             67.8251299  1
+A1             32.3424217  1
+T0             54000.73
+ECC            7.4940e-5  1
+OM             176.2  1
+M2             0.29  1
+SINI           0.95  1
+FD1            -1.5e-5  1
+JUMP -fe Rcvr_800  -1.1e-6  1
+EFAC -fe Rcvr_800  1.05
+EFAC -fe Rcvr1_2  1.1
+EQUAD -fe Rcvr_800  0.05
+EQUAD -fe Rcvr1_2  0.03
+ECORR -fe Rcvr_800  0.3
+ECORR -fe Rcvr1_2  0.2
+TNREDAMP -14.2
+TNREDGAM 3.3
+TNREDC 30
+TNDMAMP -13.4
+TNDMGAM 2.5
+TNDMC 100
+TNCHROMAMP -14.0
+TNCHROMGAM 2.8
+TNCHROMC 100
+"""
+# Phase 11's second fit: a Vela-like young pulsar at Parkes with one
+# glitch (a step in phase, F0 and F1, and a decaying F0 term) and a
+# 5-pair WAVE absorber of its timing noise (held fixed). F0/F1 and the
+# position are Vela's, rounded (ATNF catalogue); the glitch's size is a
+# typical Vela glitch's (dF0/F0 ~ 2e-6).
+PAR_VELA = """
+PSRJ           J0835-4510
+RAJ            08:35:20.61149
+DECJ           -45:10:34.8751
+F0             11.1867  1
+F1             -1.5575D-11  1
+F2             1.2D-21  1
+PEPOCH         57000
+POSEPOCH       57000
+DM             67.97
+EPHEM          DE421
+UNITS          TDB
+TZRMJD         57000.1
+TZRFRQ         1400
+TZRSITE        parkes
+GLEP_1         57050.5
+GLPH_1         0.0  1
+GLF0_1         2.5D-5  1
+GLF1_1         -1.0D-13  1
+GLF0D_1        1.0D-7  1
+GLTD_1         5.0  1
+WAVEEPOCH      57000
+WAVE_OM        0.0057
+WAVE1          1.2e-3 -0.8e-3
+WAVE2          -0.5e-3 0.6e-3
+WAVE3          0.3e-3 0.2e-3
+WAVE4          -0.1e-3 -0.15e-3
+WAVE5          0.05e-3 0.08e-3
+"""
+N_VELA = 5_000
+# the Vela fit's start: the glitch and F0 kicked off the truth (~5-40
+# sigma at 5,000 TOAs of 5 us), so that the damped loop must recover
+# GLTD's nonlinear decay
+VELA_KICK = {"F0": 2e-12, "GLF0_1": 2e-11, "GLTD_1": 0.05, "GLF0D_1": 5e-10,
+             "GLPH_1": 1e-4}
 # DMX windows 30 days wide from MJD 50000 (267 tile MJD 50000-58010), a
 # 0.001-day gap between neighbours, values drawn from a seed
 N_DMX = 267
@@ -272,7 +387,47 @@ COMPONENT_CASES = [
      ("SolarWindDispersion", "DispersionDMX", "FD", "FDJump", "PhaseJump",
       "DispersionJump", "PhaseOffset")),
     ("overlapping DMX", CARD_BASE + OVERLAP_DMX, ("DispersionDMX",)),
-    ("DelayJump", CARD_BASE + DELAY_SET, ("DelayJump",))]
+    ("DelayJump", CARD_BASE + DELAY_SET, ("DelayJump",))] + [
+    (label, CARD_BASE + lines, (name,), free)
+    for label, name, lines, free in (
+        ("troposphere", "TroposphereDelay", "CORRECT_TROPOSPHERE Y\n", ()),
+        ("glitch with decay", "Glitch",
+         "GLEP_1 55100\nGLPH_1 0.1 1\nGLF0_1 1e-7 1\nGLF1_1 -1e-15 1\n"
+         "GLF2_1 1e-24 1\nGLF0D_1 5e-8 1\nGLTD_1 50 1\n", ()),
+        ("glitch without decay", "Glitch",
+         "GLEP_1 55100\nGLPH_1 0.1 1\nGLF0_1 1e-7 1\nGLF1_1 -1e-15 1\n", ()),
+        ("piecewise spindown", "PiecewiseSpindown",
+         "PWEP_1 55100\nPWSTART_1 54500\nPWSTOP_1 55500\nPWF0_1 2e-9 1\n"
+         "PWF1_1 1e-17 1\nPWF2_1 1e-25 1\n", ()),
+        ("WAVE", "Wave", "WAVEEPOCH 55000\nWAVE_OM 0.01\nWAVE1 1e-5 -2e-5\n"
+         "WAVE2 3e-6 1e-6\n", ("WAVE_OM", "WAVE1A", "WAVE1B", "WAVE2A", "WAVE2B")),
+        ("WaveX", "WaveX", "WXEPOCH 55000\nWXFREQ_0001 0.01\nWXSIN_0001 1e-6 1\n"
+         "WXCOS_0001 2e-6 1\nWXFREQ_0002 0.003\nWXSIN_0002 -1e-6 1\n"
+         "WXCOS_0002 3e-6 1\n", ()),
+        ("DMWaveX", "DMWaveX", "DMWXEPOCH 55000\nDMWXFREQ_0001 0.01\n"
+         "DMWXSIN_0001 1e-4 1\nDMWXCOS_0001 -2e-4 1\n", ()),
+        ("ChromaticCM (CM1, CMX)", "ChromaticCM",
+         "CM 0.5 1\nCM1 1e-3 1\nTNCHROMIDX 4 1\nCMX_0001 1e-3 1\n"
+         "CMXR1_0001 54000\nCMXR2_0001 54700\nCMX_0002 -2e-3 1\n"
+         "CMXR1_0002 54500\nCMXR2_0002 55500\n", ()),
+        ("CMWaveX", "CMWaveX", "CMWXEPOCH 55000\nTNCHROMIDX 3.5 1\n"
+         "CMWXFREQ_0001 0.01\nCMWXSIN_0001 1e-4 1\nCMWXCOS_0001 5e-5 1\n", ()),
+        ("IFunc SIFUNC 0", "IFunc", "SIFUNC 0\nIFUNC1 54300 1e-5\n"
+         "IFUNC2 55000 3e-5\nIFUNC3 55700 -1e-5\n", ("IFUNC1", "IFUNC2", "IFUNC3")),
+        ("IFunc SIFUNC 2", "IFunc", "SIFUNC 2\nIFUNC1 54300 1e-5\n"
+         "IFUNC2 55000 3e-5\nIFUNC3 55700 -1e-5\n", ("IFUNC1", "IFUNC2", "IFUNC3")))]
+# the chromatic noise bases (PLDMNoise, PLChromNoise) card against CPU:
+# each block and its prior variances within 1e-12 of their largest entry
+NOISE_CASE = CARD_BASE + """
+TNDMAMP -13.4
+TNDMGAM 2.5
+TNDMC 20
+TNCHROMAMP -14.0
+TNCHROMGAM 2.8
+TNCHROMC 20
+TNCHROMIDX 4
+"""
+BASIS_RTOL = 1e-12
 # card against CPU: delays (phases over F0) within 1 ps, each jacfwd
 # column within 1e-10 of its largest entry (the CPU tests' bars)
 COMPONENT_BAR_S = 1e-12
@@ -525,7 +680,7 @@ def same_loop(a, b, rtol=LOOP_RTOL):
     decisions, halvings and probes after each evaluation), and equal
     counters, steps and probes."""
     ta, tb = a["trace"], b["trace"]
-    return (len(ta["chi2"]) == len(tb["chi2"])
+    same = (len(ta["chi2"]) == len(tb["chi2"])
             and all(abs(x - y) <= rtol * abs(y)
                     for x, y in zip(ta["chi2"], tb["chi2"]))
             and abs(a["chi2"] - b["chi2"]) <= rtol * abs(b["chi2"])
@@ -533,6 +688,10 @@ def same_loop(a, b, rtol=LOOP_RTOL):
                     for f in ("lam", "accepted", "halvings", "probe_evals"))
             and (a["counters"], a["steps"], a["probes"])
             == (b["counters"], b["steps"], b["probes"]))
+    if not same:
+        for f in ("chi2", "lam", "accepted", "halvings", "probe_evals"):
+            print(f"  loops differ; {f}: {ta[f]} / {tb[f]}", flush=True)
+    return same
 
 
 def kicked(par):
@@ -838,13 +997,15 @@ def dense_fits(toas):
                  f"step and probe")
 
 
-def binary_path(dev, q_binary):
-    """Phase 7 (see the module docstring): the J1909-3744-like fit."""
+def hybrid_path(dev, par, q_want, label, shown):
+    """Phases 7 and 11 (see the module docstring): the hybrid fit of `par`
+    on N_TOAS GBT TOAs at two receivers simulated from it, fused and
+    through the host loop; `shown` are the parameters printed. Returns the
+    ds32_gram launches of its fits by name."""
     from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops import gram
 
-    par = j1909_par()
     model, truth = get_model(par), get_model(par)
     print("components: " + ", ".join(type(c).__name__ for c in model.components)
           + f"; {len(model.free_params)} free parameters", flush=True)
@@ -865,11 +1026,12 @@ def binary_path(dev, q_binary):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     q = fitter._n_params + fitter._F.shape[1]
+    blocks = " + ".join(f"{2 * s.nharm} {s.scale}" for s in fitter.pl_specs)
     print(f"q = {q} whitened columns: {fitter._n_params} timing (offset "
-          f"included) + {fitter._F.shape[1]} red-noise; "
+          f"included) + Fourier {blocks} (noise scale); "
           f"{fitter._ne} ECORR epochs; construction {build_s:.3f} s", flush=True)
-    if q != q_binary:
-        fail(f"the binary path's Gram has q = {q}, phase 4 timed {q_binary}")
+    if q != q_want:
+        fail(f"the {label}'s Gram has q = {q}, phase 4 timed {q_want}")
     start = free_values(model)
     cold = run_fit(fitter)
     launches = gram.ds32_gram.launches
@@ -877,68 +1039,107 @@ def binary_path(dev, q_binary):
     reserved_mb = torch.cuda.memory_reserved() / 2 ** 20
     st = cold["stats"]
     red = fitter.resids.reduced_chi2
-    describe_fit("binary fit (cold, fused loop, with capture)", cold)
+    describe_fit(f"{label} (cold, fused loop, with capture)", cold)
     print(f"  chi2/dof {cold['chi2'] / fitter.resids.dof:.6f}, post-fit residual "
           f"chi2/dof {red:.6f}; peak memory {peak_mb:.1f} MiB allocated (graph "
           f"pool included), {reserved_mb:.1f} MiB reserved", flush=True)
-    for k in ("PB", "A1", "EPS1", "EPS2", "M2", "SINI", "FD1", "FD2", "JUMP1",
-              "DMX_0001", "DMX_0134", "DMX_0267"):
+    for k in shown:
         print(f"  {k} = {model[k].format_value()} +- {model[k].format_uncertainty()}")
-    print(f"ds32_gram launches in the binary fit (counted per replay): "
+    print(f"ds32_gram launches in the {label} (counted per replay): "
           f"{launches}", flush=True)
     if not 0.8 <= red <= 1.25:
-        fail(f"binary fit: post-fit reduced chi2 {red} outside [0.8, 1.25]")
+        fail(f"{label}: post-fit reduced chi2 {red} outside [0.8, 1.25]")
     if launches == 0 or launches < 2 * cold["steps"]:
         fail(f"{launches} ds32_gram launches for {cold['steps']} full steps")
     if not (st["captures"] == 2 and st["full"] == cold["steps"]
             and st["replays"] == cold["steps"] + cold["probes"] - 1):
-        fail(f"the binary fit did not run as graph replays: {st}")
-    check_truth(fitter, truth, f"the binary fit at {N_TOAS} TOAs", kicks={})
+        fail(f"the {label} did not run as graph replays: {st}")
+    check_truth(fitter, truth, f"the {label} at {N_TOAS} TOAs", kicks={})
     warm = run_fit(fitter, start)
-    describe_fit("binary fit (warm, fused loop, the same start)", warm)
+    describe_fit(f"{label} (warm, fused loop, the same start)", warm)
     if not (warm["stats"]["captures"] == 0 and same_loop(cold, warm)):
-        fail("the warm binary fit is not the cold one replayed")
+        fail(f"the warm {label} is not the cold one replayed")
     hfitter = HybridGLSFitter(toas, get_model(par))
     hcold = run_fit(hfitter, loop="0")
     hwarm = run_fit(hfitter, start, loop="0")
-    describe_fit("binary fit (host loop, first)", hcold)
+    describe_fit(f"{label} (host loop, first)", hcold)
     gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
                                                    hcold["trace"]["chi2"]))
     print(f"  fused - host loop chi2: {cold['chi2'] - hcold['chi2']:+.3e}; "
           f"largest relative gap of a full evaluation's chi2 {gap:.3e} (bar "
           f"{LOOP_RTOL:g})", flush=True)
     if not (same_loop(cold, hcold) and same_loop(warm, hwarm)):
-        fail("the fused binary fit disagrees with the host loop")
+        fail(f"the fused {label} disagrees with the host loop")
     fused_ms = host_ms(lambda: run_fit(fitter, start), reps=3)
     host_loop_ms = host_ms(lambda: run_fit(hfitter, start, loop="0"), reps=3)
     resid_ms = host_ms(fitter._new_resids, reps=3)
-    print(f"one warm binary fit (fused loop): {fused_ms:.2f} ms wall; through "
+    print(f"one warm {label} (fused loop): {fused_ms:.2f} ms wall; through "
           f"the host loop: {host_loop_ms:.2f} ms (median of 3); of either, the "
           f"post-fit residuals (eager, after the loop) {resid_ms:.2f} ms",
           flush=True)
     n_rep, span_ms, wall_ms = replay_spans(fitter, start)
-    print(f"one warm fused binary fit: {n_rep} graph replays span "
+    print(f"one warm fused {label}: {n_rep} graph replays span "
           f"{span_ms:.2f} ms on the card (CUDA events around each replay) of "
           f"its {wall_ms:.2f} ms wall", flush=True)
     profiled = []
-    by_name = profile_step("one warm fused binary fit",
+    by_name = profile_step(f"one warm fused {label}",
                            lambda: profiled.append(run_fit(fitter, start)),
                            fused_ms)
     traced = {p: sum(c for name, (_, c) in by_name.items()
                      if f"ds32_gram_{p}" in name)
               for p in ("partials", "reduce")}
     counted = profiled[-1]["launches"]
-    print(f"  ds32_gram in the profiled binary fit: {counted} launches counted "
+    print(f"  ds32_gram in the profiled {label}: {counted} launches counted "
           f"per replay; the trace holds {traced['partials']} partials and "
           f"{traced['reduce']} reduce kernels", flush=True)
     if by_name and traced != {"partials": counted, "reduce": counted}:
-        fail(f"the trace of the binary fit holds {traced} ds32_gram kernels, "
+        fail(f"the trace of the {label} holds {traced} ds32_gram kernels, "
              f"not the {counted} launches counted per replay")
-    profile_step("one warm host-loop binary fit",
+    profile_step(f"one warm host-loop {label}",
                  lambda: run_fit(hfitter, start, loop="0"), host_loop_ms)
-    return {f"binary {N_TOAS} (fused, cold)": launches,
-            f"binary {N_TOAS} (fused, warm)": warm["launches"],
-            f"binary {N_TOAS} (host loop, warm)": hwarm["launches"]}
+    return {f"{label} {N_TOAS} (fused, cold)": launches,
+            f"{label} {N_TOAS} (fused, warm)": warm["launches"],
+            f"{label} {N_TOAS} (host loop, warm)": hwarm["launches"]}
+
+
+def glitch_fit(dev):
+    """Phase 11's second fit: ``Fitter.auto`` on PAR_VELA at N_VELA Parkes
+    TOAs, from VELA_KICK off the truth; no Gram kernel launch."""
+    from pint_tpu_torch.fitting import Fitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    truth = get_model(PAR_VELA)
+    rng = np.random.default_rng(835)
+    mjds = np.sort(rng.uniform(56500.0, 57600.0, N_VELA))
+    freq = np.where(rng.random(N_VELA) < 0.5, 1369.0, 3100.0)
+    toas = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(N_VELA)), truth, freq_mhz=freq, error_us=5.0,
+        obs="parkes", add_noise=True, seed=int(rng.integers(2 ** 31)), niter=2,
+        device=dev)
+    model = get_model(PAR_VELA)
+    for k, d in VELA_KICK.items():
+        model[k].add_delta(d)
+    before = gram.ds32_gram.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter = Fitter.auto(toas, model)
+    chi2 = fitter.fit_toas(maxiter=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"Fitter.auto on the Vela-like par at {N_VELA} Parkes TOAs picks "
+          f"{type(fitter).__name__}; fit from the kicked start {wall:.3f} s "
+          f"(cold, construction included); chi2 {chi2:.6f}, post-fit chi2/dof "
+          f"{fitter.resids.reduced_chi2:.6f}, converged {fitter.converged}",
+          flush=True)
+    for k in fitter.fit_params:
+        print(f"  {k} = {model[k].format_value()} +- {model[k].format_uncertainty()}")
+    check_truth(fitter, truth, f"the glitch fit at {N_VELA} TOAs", kicks=VELA_KICK)
+    if gram.ds32_gram.launches != before:
+        fail("the glitch fit launched ds32_gram")
+    return type(fitter).__name__
 
 
 def component_eval(model, name, toas):
@@ -964,7 +1165,8 @@ def component_eval(model, name, toas):
         return c.dm_value(q, toas)
 
     names = [q.name for q in c.params if not q.frozen and q.fittable]
-    J = torch.func.jacfwd(fn)(model.zero_deltas(names, toas.device))
+    J = torch.func.jacfwd(fn)(model.zero_deltas(names, toas.device)) \
+        if names else {}
     return fn({}).cpu(), {k: J[k].cpu() for k in names}
 
 
@@ -977,8 +1179,10 @@ def components_card_vs_cpu(dev):
                     receivers=True)
     card = cpu.to(dev)
     bad = []
-    for label, par, names in COMPONENT_CASES:
+    for label, par, names, *free in COMPONENT_CASES:
         model = get_model(par)
+        for k in free[0] if free else ():   # params no par line can free
+            model[k].frozen = False
         if label == "DelayJump":   # built programmatically, as the reference's
             jumps = [(model[k].selector, model[k].value_f64)
                      for k in ("JUMP1", "JUMP2")]
@@ -991,15 +1195,34 @@ def components_card_vs_cpu(dev):
             (vc, cc), (vg, cg) = (component_eval(model, name, t)
                                   for t in (cpu, card))
             gap = float(torch.max(torch.abs(vc - vg)))
-            col = max(float(torch.max(torch.abs(cc[k] - cg[k])))
-                      / float(torch.max(torch.abs(cc[k]))) for k in cc)
+            col = max((float(torch.max(torch.abs(cc[k] - cg[k])))
+                       / float(torch.max(torch.abs(cc[k]))) for k in cc),
+                      default=0.0)
             unit = "pc/cm^3" if name == "DispersionJump" else "s"
             print(f"  {label}: {name} max |card - cpu| {gap:.3e} {unit} (max "
                   f"|value| {float(torch.max(torch.abs(vc))):.3e}); {len(cc)} "
                   f"jacfwd columns, worst gap {col:.3e} of max|column|",
                   flush=True)
-            if not (gap <= COMPONENT_BAR_S and col <= COLUMN_RTOL):
+            if not (gap <= COMPONENT_BAR_S and col <= COLUMN_RTOL
+                    and float(torch.max(torch.abs(vc))) > 0.0):
                 bad.append(f"{label}: {name}")
+    # the chromatic noise bases, as the hybrid fitter and the GLS step
+    # build them, and their prior variances
+    from pint_tpu_torch.fitting.gls_step import build_noise_statics, pl_bases
+    from pint_tpu_torch.fitting.hybrid import pl_basis_arrays
+
+    model = get_model(NOISE_CASE)
+    for label, build in (("hybrid", pl_basis_arrays), ("GLS step", pl_bases)):
+        (Fc, pc), (Fg, pg) = (build(t, specs, noise.pl_params)
+                              for t in (cpu, card)
+                              for noise, specs in [build_noise_statics(model, t)])
+        gaps = [float(torch.max(torch.abs(a - b.cpu()))) / float(torch.max(torch.abs(a)))
+                for a, b in ((Fc, Fg), (pc, pg))]
+        print(f"  PLDMNoise + PLChromNoise bases ({label}: {Fc.shape[1]} columns):"
+              f" max |card - cpu| {gaps[0]:.3e} of max|F|, prior variances "
+              f"{gaps[1]:.3e} of their largest", flush=True)
+        if not max(gaps) <= BASIS_RTOL:
+            bad.append(f"noise bases ({label})")
     if bad:
         fail(f"components differ between card and CPU: {bad}")
 
@@ -1081,7 +1304,8 @@ def fmt_ms(ms):
 # x (offset, RAJ, DECJ, DM, F0, F1, 60 Fourier columns) on the main path
 # ("main"), q = 64 without RAJ/DECJ on the barycentric one; the ECORR
 # Schur term has one row per 4-TOA epoch. Phase 7's binary path
-# ("binary") adds its q (check_gram's q_binary: 6 tiles of 64). 2,000
+# ("binary": 6 tiles of 64) and phase 11's noise path ("noise": 8 tiles)
+# add their q (check_gram's path_q). 2,000
 # and 500 rows are phase 9's fits; 137 rows pad the block and its last
 # 32-row chunk; 3,001 x 100 takes the off-diagonal tile path and an odd
 # row count.
@@ -1099,10 +1323,10 @@ GRAM_SHAPES = (
 )
 
 
-def check_gram(gram, dev, q_binary):
+def check_gram(gram, dev, path_q):
     """ds32_gram against its plain version and f64 at every shape of
-    GRAM_SHAPES and at the binary path's (G_BB and Schur at `q_binary`
-    columns); the timed ones are returned with their times.
+    GRAM_SHAPES and at each path's of `path_q` ({path: q}: G_BB and Schur
+    at q columns); the timed ones are returned with their times.
 
     Times: `ms`, `library_ms` and `plain_ms` are CUDA events around one
     call on an idle card, so they include the launches' host latency;
@@ -1110,9 +1334,10 @@ def check_gram(gram, dev, q_binary):
     device time per call (torch.profiler, every kernel the call
     launches)."""
     shapes = []
-    for label, n, q, timed, path in GRAM_SHAPES + (
-            ("G_BB binary", N_TOAS, q_binary, True, "binary"),
-            ("Schur binary", N_TOAS // 4, q_binary, True, "binary")):
+    for label, n, q, timed, path in GRAM_SHAPES + tuple(
+            (f"{g} {path}", rows, q, True, path)
+            for path, q in path_q.items()
+            for g, rows in (("G_BB", N_TOAS), ("Schur", N_TOAS // 4))):
         A = whitened(n, q, seed=n, device=dev)
         bn, nb = gram._block_rows(n)
         before = gram.ds32_gram.launches
@@ -1220,11 +1445,13 @@ def main() -> None:
 
     phase("4 ds32_gram against its plain version")
     # the binary path's q: its fitted parameters, the offset and 2 x 30
-    # red-noise harmonics
-    q_binary = len(get_model(j1909_par()).free_params) + 1 + 60
-    shapes = check_gram(gram, dev, q_binary)
+    # red-noise harmonics; the noise path's: its fitted parameters, the offset
+    # and 2 x (30 red + 100 DM + 100 chromatic) harmonics
+    path_q = {"binary": len(get_model(j1909_par()).free_params) + 1 + 60,
+              "noise": len(get_model(PAR_J1713).free_params) + 1 + 460}
+    shapes = check_gram(gram, dev, path_q)
     per_path = {path: [s for s in shapes if s["path"] == path]
-                for path in ("main", "binary")}
+                for path in ("main", "binary", "noise")}
     main_shapes = per_path["main"]
     for path, ss in per_path.items():
         print(f"bound per GLS step at the {path} path's shapes: "
@@ -1437,7 +1664,10 @@ def main() -> None:
     phase(f"7 slice 7's path: a J1909-3744-like binary MSP (ELL1, {N_DMX} DMX "
           f"windows, FD, JUMP, the solar wind), {N_TOAS} GBT TOAs, damped GLS "
           f"fit")
-    launches_binary = binary_path(dev, q_binary)
+    launches_binary = hybrid_path(
+        dev, j1909_par(), path_q["binary"], "binary fit",
+        ("PB", "A1", "EPS1", "EPS2", "M2", "SINI", "FD1", "FD2", "JUMP1",
+         "DMX_0001", "DMX_0134", "DMX_0267"))
     device_loop.clear_cache()
 
     phase(f"8 each new component on the card against the CPU at {N_SMALL} "
@@ -1494,7 +1724,18 @@ def main() -> None:
           f"captured loops", flush=True)
     fitter_api(dev, toas)
 
-    phase("11 result")
+    phase(f"11 the noise-model path: an EPTA-DR2-like MSP (DD, ChromaticCM, the "
+          f"troposphere; red, DM and scattering noise), {N_TOAS} GBT TOAs, "
+          f"damped GLS fit; a Vela-like glitch fit at {N_VELA} TOAs")
+    device_loop.clear_cache()
+    launches_by_path.update(hybrid_path(
+        dev, PAR_J1713, path_q["noise"], "noise-model fit",
+        ("RAJ", "PX", "DM", "DM1", "DM2", "CM", "PB", "A1", "ECC", "OM",
+         "M2", "SINI", "FD1", "JUMP1")))
+    device_loop.clear_cache()
+    glitch_fit(dev)
+
+    phase("12 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)
@@ -1516,6 +1757,7 @@ def main() -> None:
                   "one call, device_ms and library_device_ms device time "
                   "(torch.profiler)",
         "binary_path_per_step": per_step(per_path["binary"]),
+        "noise_path_per_step": per_step(per_path["noise"]),
         "launches_by_path": launches_by_path,
         "shapes": shapes,
     }]

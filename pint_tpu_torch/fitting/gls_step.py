@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.constants import SECS_PER_DAY
-from pint_tpu_torch.models.noise import FYR_HZ
+from pint_tpu_torch.models.noise import DM_FREF_MHZ, FYR_HZ
 from pint_tpu_torch.models.parameter import toa_mask
 from pint_tpu_torch.ops.gram import ds32_gram
 
@@ -48,18 +48,58 @@ class PLSpec(NamedTuple):
     alpha: float = 2.0
 
 
+class EpochSlots(NamedTuple):
+    """The ECORR epochs' member rows by layer: ``rows[l, e]`` is epoch e's
+    l-th TOA in row order, where ``mask[l, e]`` is 1 (0: the epoch has
+    fewer than l + 1 TOAs; the row is then 0 and contributes 0).
+    :func:`segment_sum` over them adds each epoch's rows in row order,
+    as ``index_add_`` does on the CPU, on every device: no atomics, so a
+    CUDA step gives the same bits at every call and replay."""
+
+    rows: torch.Tensor  # (K, ne) int64
+    mask: torch.Tensor  # (K, ne) float64
+
+
 class NoiseStatics(NamedTuple):
     """Per-dataset noise data, on the TOA table's device.
 
     ``sigma`` optionally carries the EFAC/EQUAD-scaled per-TOA
     uncertainties [s] (:func:`scaled_sigma_np`); the GLS step and probe
-    then read it instead of ``model.scaled_toa_uncertainty``.
+    then read it instead of ``model.scaled_toa_uncertainty``. ``slots``
+    are the epochs' rows (:class:`EpochSlots`) that :func:`segment_sum`
+    takes in place of ``epoch_idx`` (:attr:`epochs`).
     """
 
     epoch_idx: torch.Tensor  # (n,) int64 in [0, ne]; ne = "no epoch" dummy
     ecorr_phi: torch.Tensor  # (ne,) prior variances [s^2]
     pl_params: torch.Tensor  # (n_pl, 2) [log10_amp, gamma] per PLSpec entry
     sigma: torch.Tensor | None = None  # (n,) scaled uncertainties [s]
+    slots: EpochSlots | None = None
+
+    @property
+    def epochs(self):
+        """The epochs as :func:`segment_sum` takes them: the slots where
+        they were built, else the per-TOA indices."""
+        return self.epoch_idx if self.slots is None else self.slots
+
+
+def epoch_slots(epoch_idx: np.ndarray, ne: int, device=None) -> EpochSlots:
+    """:class:`EpochSlots` of a per-TOA epoch assignment (``ne``: in no
+    epoch), built on the host and put on `device`."""
+    idx = np.asarray(epoch_idx, dtype=np.int64)
+    rows = np.nonzero(idx < ne)[0]          # ascending: row order
+    ep = idx[rows]
+    order = np.argsort(ep, kind="stable")
+    rows, ep = rows[order], ep[order]
+    count = np.bincount(ep, minlength=ne)
+    rank = np.arange(rows.shape[0]) - (np.cumsum(count) - count)[ep]
+    k = int(count.max(initial=0))
+    slot_rows = np.zeros((k, ne), dtype=np.int64)
+    mask = np.zeros((k, ne))
+    slot_rows[rank, ep] = rows
+    mask[rank, ep] = 1.0
+    return EpochSlots(torch.as_tensor(slot_rows, device=device),
+                      torch.as_tensor(mask, device=device))
 
 
 def scaled_sigma_np(model, toas, n_target: int | None = None) -> np.ndarray:
@@ -134,6 +174,8 @@ def build_noise_statics(model, toas, *, as_numpy: bool = False
                 raise ValueError("multiple ECORR components in one model")
             epoch_idx, phi_e = c.epoch_indices(toas)
         elif hasattr(c, "pl_spec"):
+            if hasattr(c, "refresh_from_model"):
+                c.refresh_from_model(model)
             scale, log10_amp, gamma, nharm, alpha = c.pl_spec()
             specs.append(PLSpec(scale, nharm, alpha))
             pl_params.append((log10_amp, gamma))
@@ -150,7 +192,8 @@ def build_noise_statics(model, toas, *, as_numpy: bool = False
         torch.as_tensor(np.asarray(epoch_idx, dtype=np.int64), device=dev),
         torch.as_tensor(np.asarray(phi_e, dtype=np.float64), device=dev),
         torch.as_tensor(np.asarray(pl_params, dtype=np.float64),
-                        device=dev).reshape(len(specs), 2)),
+                        device=dev).reshape(len(specs), 2),
+        slots=epoch_slots(epoch_idx, len(phi_e), dev)),
         tuple(specs))
 
 
@@ -213,20 +256,30 @@ def pl_bases(toas, specs: tuple[PLSpec, ...], pl_params: torch.Tensor
     t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
     blocks, phis = [], []
     for i, spec in enumerate(specs):
-        if spec.scale != "none":
-            # chromatic bases come with PLDMNoise/PLChromNoise
-            raise NotImplementedError(
-                f"chromatic noise basis {spec.scale!r}: PLDMNoise and "
-                "PLChromNoise are not ported to pint_tpu_torch yet")
         F, f, df = fourier_design(t_s, spec.nharm)
+        if spec.scale != "none":
+            # PLDMNoise/PLChromNoise: (1400 MHz / f)^alpha per TOA
+            ratio = (DM_FREF_MHZ / toas.freq_mhz)[:, None]
+            F = F * (torch.square(ratio) if spec.alpha == 2.0
+                     else ratio ** spec.alpha)
         blocks.append(F)
         phis.append(torch.repeat_interleave(
             powerlaw_phi(f, pl_params[i, 0], pl_params[i, 1], df), 2))
     return torch.cat(blocks, dim=1), torch.cat(phis)
 
 
-def segment_sum(x: torch.Tensor, idx: torch.Tensor, ne: int) -> torch.Tensor:
-    """Sums of the rows of `x` per segment 0..ne-1 (``idx == ne`` is dropped)."""
+def segment_sum(x: torch.Tensor, idx, ne: int) -> torch.Tensor:
+    """Sums of the rows of `x` per segment 0..ne-1. `idx` is the per-row
+    segment (``idx == ne`` is dropped; ``index_add_``, whose CUDA atomics
+    add in a varying order) or the segments' :class:`EpochSlots` (each
+    segment's rows added in row order, on every device)."""
+    if isinstance(idx, EpochSlots):
+        out = torch.zeros((ne,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for rows, mask in zip(idx.rows, idx.mask):
+            g = x[rows]
+            out = out + g * mask.reshape((ne,) + (1,) * (x.dim() - 1))
+        return out
     out = torch.zeros((ne + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, idx, x)[:ne]
@@ -466,7 +519,7 @@ def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
 
         F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
         parts = gls_gram_seg(M, r, err, F, phi_F,
-                             noise.epoch_idx, noise.ecorr_phi)
+                             noise.epochs, noise.ecorr_phi)
         sol = gls_finalize_seg(parts, M.shape[1])
         new_deltas = {k: deltas[k] + sol["x"][i + off]
                       for i, k in enumerate(names)}
@@ -524,7 +577,7 @@ def make_gls_probe(model, tzr=None, *, abs_phase: bool = True,
         F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
         M0 = torch.zeros((r.shape[0], 0), dtype=r.dtype, device=r.device)
         parts = gls_gram_seg(M0, r, err, F, phi_F,
-                             noise.epoch_idx, noise.ecorr_phi)
+                             noise.epochs, noise.ecorr_phi)
         return noise_marginal_chi2(parts, 0)
 
     return probe

@@ -39,12 +39,14 @@ from pint_tpu_torch import resolve_device
 from pint_tpu_torch.fitting import device_loop, gls_step
 from pint_tpu_torch.fitting.damped import downhill_iterate
 from pint_tpu_torch.fitting.fitter import Fitter
+from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
-                                             gls_finalize_seg,
+                                             fourier_design, gls_finalize_seg,
                                              gls_gram_whitened,
-                                             noise_marginal_chi2, pl_bases,
+                                             noise_marginal_chi2, powerlaw_phi,
                                              segment_sum)
 from pint_tpu_torch.fitting.step import make_resid_fn
+from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
 
 
@@ -102,6 +104,33 @@ def make_resid_stage1(model, tzr=None, device=None):
     return stage1r
 
 
+def pl_basis_arrays(toas, specs, pl_params
+                    ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The hybrid fitter's noise block: the stacked Fourier bases (n, k_F)
+    with their chromatic scaling, and their prior variances (k_F,).
+
+    Counterpart of the reference hybrid's ``_accel_pl_basis_arrays`` and
+    ``_accel_pl_phi``, which scale a chromatic basis by
+    ``inv_f2 ** (alpha / 2)`` with ``inv_f2 = (1400 MHz / f)^2`` (not by
+    ``ratio ** alpha``, as ``gls_step.pl_bases`` does), and take each bin
+    width from the first harmonic.
+    """
+    if not specs:
+        return None, None
+    t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
+    inv_f2 = torch.square(DM_FREF_MHZ / toas.freq_mhz)
+    blocks, phis = [], []
+    for i, spec in enumerate(specs):
+        F, f, _df = fourier_design(t_s, spec.nharm)
+        if spec.scale != "none":
+            sc = inv_f2[:, None]
+            F = F * (sc if spec.alpha == 2.0 else sc ** (spec.alpha / 2.0))
+        blocks.append(F)
+        phis.append(torch.repeat_interleave(
+            powerlaw_phi(f, pl_params[i, 0], pl_params[i, 1], f[0]), 2))
+    return torch.cat(blocks, dim=1), torch.cat(phis)
+
+
 class HybridGLSFitter(Fitter):
     """Damped GLS fit of one pulsar; both stages on ``device``.
 
@@ -133,8 +162,8 @@ class HybridGLSFitter(Fitter):
         # the scaled uncertainties (the EFAC/EQUAD masks are host arrays),
         # the Fourier block and its priors, the probe's noise factor
         self._sigma = model.scaled_toa_uncertainty(toas)
-        self._F, self._phi_F = pl_bases(toas, self.pl_specs,
-                                        self.noise.pl_params)
+        self._F, self._phi_F = pl_basis_arrays(toas, self.pl_specs,
+                                               self.noise.pl_params)
         self._chi2_probe = self._build_chi2_probe()
         # the last fit's loop events and (fused) captures/replays/fetches
         self.counters: dict = {}
@@ -145,7 +174,7 @@ class HybridGLSFitter(Fitter):
         A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas,
                                            self._sigma)
         parts = gls_gram_whitened(A_M, rw, sw, norm_M, self._F, self._phi_F,
-                                  self.noise.epoch_idx, self.noise.ecorr_phi)
+                                  self.noise.epochs, self.noise.ecorr_phi)
         info = gls_finalize_seg(parts, self._n_params)
         info["chi2_at_input"] = noise_marginal_chi2(parts, self._n_params)
         new_deltas = {k: deltas[k] + info["x"][i + self._off]
@@ -163,7 +192,7 @@ class HybridGLSFitter(Fitter):
         """
         sw = 1.0 / self._sigma
         ne = self._ne
-        epoch_idx, ecorr_phi = self.noise.epoch_idx, self.noise.ecorr_phi
+        epoch_idx, ecorr_phi = self.noise.epochs, self.noise.ecorr_phi
         f64 = dict(dtype=torch.float64, device=self.device)
         if self.pl_specs:
             Fw = self._F * sw[:, None]
@@ -195,7 +224,7 @@ class HybridGLSFitter(Fitter):
         ne, k = self._ne, A_F.shape[1]
         chi2 = torch.sum(rw * rw)
         if ne > 0:
-            c_e = segment_sum(rw * sw, self.noise.epoch_idx, ne)
+            c_e = segment_sum(rw * sw, self.noise.epochs, ne)
         if k > 0:
             c_F = A_F.T @ rw
             rhs = c_F - C.T @ (c_e / d) if ne > 0 else c_F

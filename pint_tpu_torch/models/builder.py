@@ -5,11 +5,12 @@ Counterpart of ``pint_tpu.models.builder``. Component classes advertise
 component (the first applicable class of a category wins), hands each
 the parsed par file, and validates the assembled model.
 
-The binary models, DMX, the solar wind, FD, FDJUMP, JUMP, DMJUMP and
-PHOFF are carried beside the topocentric GLS components. A par file that
-selects any other component of the reference raises
+Every narrowband component of the reference is carried. A par file that
+selects ``ScaleDmError`` (DMEFAC/DMEQUAD, which scale wideband DM
+uncertainties: the port's tables carry no wideband DMs yet) raises
 ``NotImplementedError`` naming it, rather than building a model that
-silently lacks a term.
+silently lacks a term. ``allow_tcb=True`` converts a ``UNITS TCB`` par
+file to TDB, as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,21 +22,27 @@ from pint_tpu_torch.io.parfile import ParFile, parse_parfile
 from pint_tpu_torch.models.absolute_phase import AbsPhase
 from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
 from pint_tpu_torch.models.binary import ALL_BINARY_MODELS
-from pint_tpu_torch.models.component import has_series_term
+from pint_tpu_torch.models.chromatic import ChromaticCM, CMWaveX
 from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
 from pint_tpu_torch.models.fdjump import FDJump
 from pint_tpu_torch.models.frequency_dependent import FD
+from pint_tpu_torch.models.glitch import Glitch
+from pint_tpu_torch.models.ifunc import IFunc
 from pint_tpu_torch.models.jump import DispersionJump, PhaseJump
-from pint_tpu_torch.models.noise import EcorrNoise, PLRedNoise, ScaleToaError
+from pint_tpu_torch.models.noise import (EcorrNoise, PLChromNoise, PLDMNoise,
+                                         PLRedNoise, ScaleToaError)
 from pint_tpu_torch.models.phase_offset import PhaseOffset
+from pint_tpu_torch.models.piecewise import PiecewiseSpindown
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
 from pint_tpu_torch.models.solar_wind import SolarWindDispersion
 from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.timing_model import TimingModel
+from pint_tpu_torch.models.troposphere import TroposphereDelay
+from pint_tpu_torch.models.wave import DMWaveX, Wave, WaveX
 
 log = logging.getLogger(__name__)
 
-# Build-priority list (the reference's order, ported classes only).
+# Build-priority list (the reference's order, ScaleDmError aside).
 # Within a category the first applicable class wins (ecliptic astrometry
 # shadows equatorial when ELONG is present).
 COMPONENT_BUILD_ORDER: list[type] = [
@@ -46,7 +53,16 @@ COMPONENT_BUILD_ORDER: list[type] = [
     DispersionDM,
     DispersionDMX,
     SolarWindDispersion,
+    TroposphereDelay,
     *ALL_BINARY_MODELS,
+    Glitch,
+    PiecewiseSpindown,
+    Wave,
+    WaveX,
+    DMWaveX,
+    ChromaticCM,
+    CMWaveX,
+    IFunc,
     FD,
     FDJump,
     PhaseJump,
@@ -55,14 +71,10 @@ COMPONENT_BUILD_ORDER: list[type] = [
     ScaleToaError,
     EcorrNoise,
     PLRedNoise,
+    PLDMNoise,
+    PLChromNoise,
     AbsPhase,
 ]
-
-
-def _yes(pf, key) -> bool:
-    line = pf.get(key)
-    return line is not None and str(line.value).strip().upper() in (
-        "Y", "YES", "1", "TRUE", "T", "")
 
 
 def _any_line(pf, pattern: str) -> bool:
@@ -73,19 +85,7 @@ def _any_line(pf, pattern: str) -> bool:
 # The reference's components this package does not carry yet, each with
 # the par-file test its applicable() makes.
 UNPORTED_COMPONENTS = {
-    "TroposphereDelay": lambda pf: _yes(pf, "CORRECT_TROPOSPHERE"),
-    "Glitch": lambda pf: bool(pf.get_all("GLEP_")),
-    "PiecewiseSpindown": lambda pf: bool(pf.get_all("PWEP_")),
-    "Wave": lambda pf: "WAVE_OM" in pf or has_series_term(pf, "WAVE"),
-    "WaveX": lambda pf: bool(pf.get_all("WXFREQ_")),
-    "DMWaveX": lambda pf: bool(pf.get_all("DMWXFREQ_")),
-    "ChromaticCM": lambda pf: ("CM" in pf or bool(pf.get_all("CMX_"))
-                               or has_series_term(pf, "CM")),
-    "CMWaveX": lambda pf: bool(pf.get_all("CMWXFREQ_")),
-    "IFunc": lambda pf: bool(pf.get_all("IFUNC1")),
     "ScaleDmError": lambda pf: _any_line(pf, r"^(DMEFAC|DMEQUAD)\d*$"),
-    "PLDMNoise": lambda pf: "TNDMAMP" in pf or "TNDMAmp" in pf,
-    "PLChromNoise": lambda pf: "TNCHROMAMP" in pf or "TNChromAmp" in pf,
 }
 
 _HEADER_KEYS = ["PSR", "PSRJ", "PSRB", "BINARY", "EPHEM", "CLK", "CLOCK", "UNITS",
@@ -94,8 +94,13 @@ _HEADER_KEYS = ["PSR", "PSRJ", "PSRB", "BINARY", "EPHEM", "CLK", "CLOCK", "UNITS
                 "EPHVER"]
 
 
-def get_model(parfile: str | ParFile) -> TimingModel:
-    """Build a TimingModel from a par file path, text block, or ParFile."""
+def get_model(parfile: str | ParFile, *, allow_tcb: bool = False) -> TimingModel:
+    """Build a TimingModel from a par file path, text block, or ParFile.
+
+    ``allow_tcb=True`` converts a ``UNITS TCB`` par file to TDB with the
+    scaling conversion (:mod:`pint_tpu_torch.models.tcb_conversion`); by
+    default such a file is refused, as by the reference.
+    """
     pf = parse_parfile(parfile) if isinstance(parfile, str) else parfile
 
     unported = [name for name, selects in UNPORTED_COMPONENTS.items()
@@ -105,8 +110,19 @@ def get_model(parfile: str | ParFile) -> TimingModel:
             f"par file selects {', '.join(unported)}, not ported to "
             "pint_tpu_torch yet")
     units = (pf.get_value("UNITS") or "TDB").upper()
-    if units not in ("TDB", ""):
-        raise NotImplementedError(f"UNITS {units} not supported (only TDB)")
+    if units == "TCB":
+        if not allow_tcb:
+            raise ValueError(
+                "par file UNITS is TCB; pass allow_tcb=True to auto-convert "
+                "to TDB (approximate scaling conversion), or convert the "
+                "file explicitly with tcb2tdb")
+        from pint_tpu_torch.models.tcb_conversion import convert_tcb_tdb
+
+        pf = convert_tcb_tdb(pf)
+        log.warning("converted TCB par file to TDB (scaling conversion; "
+                    "best to re-fit the converted model)")
+    elif units not in ("TDB", ""):
+        raise NotImplementedError(f"UNITS {units} not supported (only TDB/TCB)")
 
     taken_categories: set[str] = set()
     components = []

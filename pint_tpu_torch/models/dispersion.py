@@ -123,33 +123,51 @@ class DispersionDMX(Component):
         """The (m, n) int64 window slots of `toas` on its device: slot k
         (the number of windows) is a zero. Built once per table and set
         of bounds."""
-        cache = toas.__dict__.setdefault("_device_masks", {})
-        key = ("dmx",) + self.trace_facts()
-        layers = cache.get(key)
-        if layers is None:
-            mjds = toas.get_mjds()
-            k, n = len(self.indices), mjds.shape[0]
-            lo = np.asarray([self.ranges[i][0] for i in self.indices])
-            hi = np.asarray([self.ranges[i][1] for i in self.indices])
-            member = (mjds[:, None] >= lo) & (mjds[:, None] <= hi)  # (n, k)
-            toa, win = np.nonzero(member)   # by TOA, then window order
-            count = member.sum(axis=1)
-            rank = np.arange(toa.shape[0]) - (np.cumsum(count) - count)[toa]
-            slots = np.full((int(count.max(initial=0)), n), k, dtype=np.int64)
-            slots[rank, toa] = win
-            layers = cache[key] = torch.as_tensor(slots, device=toas.device)
-        return layers
+        return window_slots(toas, ("dmx",) + self.trace_facts(),
+                            [self.ranges[i] for i in self.indices])
 
     def dm_value(self, p: dict[str, DD], toas) -> torch.Tensor:
-        layers = self.materialize(toas)
-        names = [f"DMX_{i:04d}" for i in self.indices]
-        zero = torch.zeros(1, dtype=torch.float64, device=toas.device)
-        v = torch.cat([torch.stack([p[k].hi for k in names])
-                       + torch.stack([p[k].lo for k in names]), zero])
-        total = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
-        for slots in layers:
-            total = total + v[slots]
-        return total
+        return window_sum(p, [f"DMX_{i:04d}" for i in self.indices],
+                          self.materialize(toas), toas)
 
     def delay(self, p: dict[str, DD], toas, acc_delay, aux: dict) -> torch.Tensor:
         return DM_CONST * self.dm_value(p, toas) / (toas.freq_mhz * toas.freq_mhz)
+
+
+def window_slots(toas, key, bounds) -> torch.Tensor:
+    """The windows ``bounds = [(lo, hi), ...]`` (MJD, inclusive) that each
+    TOA of `toas` lies in, as an (m, n) int64 tensor on the table's
+    device: ``slots[l]`` holds each TOA's l-th window, in window order, or
+    ``len(bounds)`` (a zero slot) where it has fewer than l + 1. Built on
+    the host once per table and `key`, and kept on the table."""
+    cache = toas.__dict__.setdefault("_device_masks", {})
+    layers = cache.get(key)
+    if layers is None:
+        mjds = toas.get_mjds()
+        k, n = len(bounds), mjds.shape[0]
+        lo = np.asarray([b[0] for b in bounds], dtype=np.float64)
+        hi = np.asarray([b[1] for b in bounds], dtype=np.float64)
+        member = (mjds[:, None] >= lo) & (mjds[:, None] <= hi)  # (n, k)
+        toa, win = np.nonzero(member)   # by TOA, then window order
+        count = member.sum(axis=1)
+        rank = np.arange(toa.shape[0]) - (np.cumsum(count) - count)[toa]
+        slots = np.full((int(count.max(initial=0)), n), k, dtype=np.int64)
+        slots[rank, toa] = win
+        layers = cache[key] = torch.as_tensor(slots, device=toas.device)
+    return layers
+
+
+def window_sum(p: dict[str, DD], names: list[str], layers: torch.Tensor,
+               toas, total: torch.Tensor | None = None) -> torch.Tensor:
+    """`total` (zeros by default) plus, over each TOA's windows
+    (:func:`window_slots`), the window values ``p[names[j]]``: the
+    reference's running sum of mask * value over the windows, in window
+    order (a window a TOA is not in adds an exact zero there)."""
+    zero = torch.zeros(1, dtype=torch.float64, device=toas.device)
+    v = torch.cat([torch.stack([p[k].hi for k in names])
+                   + torch.stack([p[k].lo for k in names]), zero])
+    if total is None:
+        total = torch.zeros(len(toas), dtype=torch.float64, device=toas.device)
+    for slots in layers:
+        total = total + v[slots]
+    return total

@@ -1,7 +1,9 @@
 """Noise models: white-noise scaling and correlated-noise bases for GLS.
 
 Counterpart of ``pint_tpu.models.noise`` for ``ScaleToaError``,
-``EcorrNoise`` and ``PLRedNoise``. Noise components are neither delay
+``EcorrNoise``, ``PLRedNoise``, ``PLDMNoise`` and ``PLChromNoise``
+(``ScaleDmError`` acts on wideband DM measurements, which the port's
+tables do not carry yet). Noise components are neither delay
 nor phase terms; they contribute
 
 * a rescaling of the per-TOA uncertainties (EFAC/EQUAD),
@@ -18,6 +20,8 @@ Conventions (matching the reference):
 * PLRedNoise: Fourier basis at f_j = j / T_span, j = 1..nharm; weight
   phi_j = A^2/(12 pi^2) fyr^-3 (f_j/fyr)^-gamma df  [s^2], with the
   tempo RNAMP convention A = RNAMP / (86400*365.24*1e6 / (2 pi sqrt(3))).
+* PLDMNoise/PLChromNoise: the same basis scaled per TOA by
+  (1400 MHz / f)^alpha, alpha = 2 (DM) or the model's TNCHROMIDX.
 """
 
 from __future__ import annotations
@@ -28,10 +32,13 @@ import torch
 from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.models.component import Component
 from pint_tpu_torch.models.parameter import Param, float_param, toa_mask
+from pint_tpu_torch.toas import host_array
 
 FYR_HZ = 1.0 / (365.25 * SECS_PER_DAY)
 # tempo RNAMP -> GWB-convention amplitude (reference noise_model.py)
 RNAMP_FAC = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
+# reference frequency of the chromatic noise bases [MHz]
+DM_FREF_MHZ = 1400.0
 
 
 class NoiseComponent(Component):
@@ -221,14 +228,19 @@ class _PLNoiseBase(NoiseComponent):
     is_noise_basis = True
     _c_name = ""
     default_nharm = 30
-    # how the Fourier basis scales per TOA ("none": achromatic)
+    # how the Fourier basis scales per TOA: "none" (achromatic), "dm"
+    # ((1400 MHz / f)^2) or "chrom" ((1400 MHz / f)^alpha)
     basis_scale = "none"
 
     def pl_spec(self) -> tuple[str, float, float, int, float]:
         """(basis_scale, log10_amp, gamma, nharm, alpha) for the GLS step."""
         log10_amp, gamma = self.log10_amp_gamma()
         return (self.basis_scale, float(log10_amp), float(gamma),
-                self.nharm(), 2.0)
+                self.nharm(), self.basis_alpha())
+
+    def basis_alpha(self) -> float:
+        """Chromatic index of the per-TOA basis scaling (nu^-alpha)."""
+        return 2.0
 
     def nharm(self) -> int:
         v = self.param(self._c_name).value_f64
@@ -301,3 +313,114 @@ class PLRedNoise(_PLNoiseBase):
             return np.log10(rnamp / RNAMP_FAC), -self.param("RNIDX").value_f64
         return (self.param("TNREDAMP").value_f64,
                 self.param("TNREDGAM").value_f64)
+
+
+class PLDMNoise(_PLNoiseBase):
+    """Power-law stochastic DM noise (reference: PLDMNoise). The Fourier
+    basis is scaled per TOA by (1400 MHz / f)^2, so that the amplitude is
+    the delay's at 1400 MHz."""
+
+    category = "pl_dm_noise"
+    _c_name = "TNDMC"
+    basis_scale = "dm"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(float_param("TNDMAMP", units="log10",
+                                   desc="log10 DM-noise amplitude",
+                                   default=float("nan"), aliases=("TNDMAmp",)))
+        self.add_param(float_param("TNDMGAM", units="",
+                                   desc="DM-noise spectral index gamma",
+                                   default=float("nan"), aliases=("TNDMGam",)))
+        self.add_param(float_param("TNDMC", units="",
+                                   desc="Number of DM-noise harmonics",
+                                   default=0.0, aliases=("TNDMC",)))
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(k in pf for k in ("TNDMAMP", "TNDMAmp"))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "PLDMNoise":
+        self = cls()
+        self.setup_from_parfile(pf)
+        for p in self.params:
+            p.frozen = True
+        return self
+
+    def log10_amp_gamma(self) -> tuple[float, float]:
+        return (self.param("TNDMAMP").value_f64,
+                self.param("TNDMGAM").value_f64)
+
+    def _scale_basis(self, F: np.ndarray, toas) -> np.ndarray:
+        scale = (DM_FREF_MHZ / host_array(toas.freq_mhz)) ** 2
+        return F * scale[:, None]
+
+
+class PLChromNoise(_PLNoiseBase):
+    """Power-law chromatic noise (reference: PLChromNoise): PLDMNoise's
+    basis scaled per TOA by (1400 MHz / f)^alpha, alpha = TNCHROMIDX (the
+    model's chromatic index, owned by ChromaticCM or CMWaveX when
+    present; 4 by default)."""
+
+    category = "pl_chrom_noise"
+    _c_name = "TNCHROMC"
+    basis_scale = "chrom"
+    extra_par_names = ("TNCHROMIDX",)
+
+    def __init__(self, alpha: float = 4.0):
+        super().__init__()
+        self._alpha = float(alpha)
+        self.add_param(float_param("TNCHROMAMP", units="log10",
+                                   desc="log10 chromatic-noise amplitude",
+                                   default=float("nan"),
+                                   aliases=("TNChromAmp",)))
+        self.add_param(float_param("TNCHROMGAM", units="",
+                                   desc="Chromatic-noise spectral index gamma",
+                                   default=float("nan"),
+                                   aliases=("TNChromGam",)))
+        self.add_param(float_param("TNCHROMC", units="",
+                                   desc="Number of chromatic-noise harmonics",
+                                   default=0.0, aliases=("TNChromC",)))
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(k in pf for k in ("TNCHROMAMP", "TNChromAmp"))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "PLChromNoise":
+        idx = pf.get_value("TNCHROMIDX")
+        self = cls(alpha=float(idx) if idx else 4.0)
+        self.setup_from_parfile(pf)
+        for p in self.params:
+            p.frozen = True
+        return self
+
+    def basis_alpha(self) -> float:
+        return self._alpha
+
+    def extra_par_lines(self) -> list[str]:
+        # TNCHROMIDX is read here but owned (as a param) by ChromaticCM/
+        # CMWaveX when present; a model without them still writes it
+        return [f"{'TNCHROMIDX':<15} {float(self._alpha)!r}"]
+
+    def trace_facts(self) -> tuple:
+        # alpha is baked into the basis every GLS step closes over
+        return super().trace_facts() + (("chrom_alpha", float(self._alpha)),)
+
+    def refresh_from_model(self, model) -> None:
+        """Track the model's live TNCHROMIDX (ChromaticCM's or CMWaveX's
+        parameter, when present), so that the noise basis and the
+        chromatic delay share one index. The consumers of the basis call
+        it before every build, and ``TimingModel.structure_key`` before
+        every key."""
+        if "TNCHROMIDX" in model:
+            self._alpha = model["TNCHROMIDX"].value_f64
+
+    def log10_amp_gamma(self) -> tuple[float, float]:
+        return (self.param("TNCHROMAMP").value_f64,
+                self.param("TNCHROMGAM").value_f64)
+
+    def _scale_basis(self, F: np.ndarray, toas) -> np.ndarray:
+        scale = (DM_FREF_MHZ / host_array(toas.freq_mhz)) ** self._alpha
+        return F * scale[:, None]

@@ -100,9 +100,17 @@ class TimingModel:
         parameter values: the components in order, their parameters and
         their :meth:`~Component.trace_facts`. Part of every
         :meth:`cached_fn` key, so that a step memoized (and captured) for
-        one structure is never run for another."""
+        one structure is never run for another. Components that track a
+        model value in their facts (PLChromNoise's TNCHROMIDX) refresh
+        first."""
+        self._refresh_noise()
         return tuple((type(c).__name__, tuple(p.name for p in c.params),
                       c.trace_facts()) for c in self.components)
+
+    def _refresh_noise(self) -> None:
+        for c in self.components:
+            if hasattr(c, "refresh_from_model"):
+                c.refresh_from_model(self)
 
     def validate(self) -> None:
         for c in self.components:
@@ -266,12 +274,14 @@ class TimingModel:
         key is the table's content (TDB, frequencies, flags), not its id.
         """
         comps = [c for c in self.components if getattr(c, "is_noise_basis", False)]
+        self._refresh_noise()   # PLChromNoise tracks the live TNCHROMIDX
         tdb = toas.get_mjds()
         freq = toas.freq_mhz.cpu().numpy()
         flags = tuple(tuple(sorted(d.items())) for d in toas.flags)
         key = (len(toas), hash(tdb.tobytes()), hash(freq.tobytes()),
                hash(flags),
-               tuple((p.name, p.value) for c in comps for p in c.params))
+               tuple((p.name, p.value) for c in comps for p in c.params),
+               tuple(getattr(c, "_alpha", None) for c in comps))
         if getattr(self, "_noise_basis_key", None) != key:
             self._noise_basis_val = [(type(c).__name__, *c.basis_weight(toas))
                                      for c in comps]
@@ -325,6 +335,28 @@ class TimingModel:
         -dphase/dparam / F0)."""
         M, _ = self.designmatrix(toas, [param], incoffset=False)
         return -self.f0_f64 * M[:, 0]
+
+    def d_phase_d_param_num(self, toas, param: str,
+                            step: float | None = None) -> torch.Tensor:
+        """Central-difference check of :meth:`d_phase_d_param` [cycles
+        per parameter unit]: the integer and fractional phase parts are
+        differenced apart, since a ~1e9-cycle phase collapsed to one
+        float64 first would bury the O(step) signal in its rounding."""
+        if step is None:
+            p = self.params.get(param)
+            scale = abs(p.value_f64) if p is not None and p.is_numeric else 0.0
+            step = max(scale, 1.0) * 1e-7
+        base = self.base_dd(toas.device)
+        fn = self.phase_fn_toas(device=toas.device)
+
+        def ph_at(d: float) -> phase_mod.Phase:
+            return fn(base, {param: torch.tensor(d, dtype=torch.float64,
+                                                 device=toas.device)}, toas)
+
+        p1, p2 = ph_at(step), ph_at(-step)
+        diff = ((p1.int_part - p2.int_part) + (p1.frac.hi - p2.frac.hi)
+                + (p1.frac.lo - p2.frac.lo))
+        return diff / (2.0 * step)
 
     def designmatrix(self, toas, params: list[str] | None = None,
                      incoffset: bool = True) -> tuple[torch.Tensor, list[str]]:

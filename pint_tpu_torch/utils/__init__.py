@@ -1,1 +1,1 @@
-"""Host-side utilities (sexagesimal angles, DMX reports)."""
+"""Host-side utilities (sexagesimal angles, DMX reports, WaveX setup)."""

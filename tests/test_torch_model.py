@@ -187,10 +187,9 @@ def test_topocentric_tzr_table_matches(topo):
 
 
 def test_unported_component_raises_naming_it():
-    # binaries and DMX are carried since slice 7 (test_torch_binaries.py,
-    # test_torch_components.py); glitches and DMEFAC are not yet
-    with pytest.raises(NotImplementedError, match="Glitch"):
-        get_model(PAR_FULL + "GLEP_1 55000\nGLPH_1 0.1\n")
+    # every narrowband component is carried (test_torch_components_extra.py
+    # holds glitches and the rest); DMEFAC (wideband) is not yet
+    assert get_model(PAR_FULL + "GLEP_1 55000\nGLPH_1 0.1\n").has_component("Glitch")
     with pytest.raises(NotImplementedError, match="ScaleDmError"):
         get_model(PAR_BARY + "DMEFAC -f fake 1.1\n")
 
