@@ -97,7 +97,44 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    Vela-like young pulsar (PAR_VELA: F0/F1/F2, one glitch with a decay,
    a 5-pair WAVE absorber) at 5,000 Parkes TOAs from a kicked start,
    every fitted parameter within 5 sigma of the truth;
-12. a ``{"kernels": [...]}`` line, then the last line
+12. the wideband path, after the loop cache is cleared: PAR_J1909_WB
+   (phase 7's par as a wideband par: no ECORR, a fitted DMJUMP, DMEFAC
+   and DMEQUAD per receiver), 100,000 GBT TOAs at two receivers each
+   with a ``-pp_dm`` (the model DM plus noise at the scaled sigma) and
+   ``-pp_dme`` (1e-4), simulated on the card; ``Fitter.auto`` must pick
+   ``WidebandDownhillFitter`` and fit every parameter (DMJUMP too) within
+   5 sigma of the truth at stacked chi2/dof in [0.8, 1.25];
+   ``device_loop.dense_wideband_fit`` cold (capture) and warm, with the
+   host loop over the same step/probe as its witness (phase 6's gates),
+   and from a kicked start; peak memory, walls, idle shares, the table
+   build time; the same fits at 2,000 TOAs card against CPU; zero
+   ds32_gram launches (the wideband solves are float64);
+13. the SPK ephemeris: a type-2 kernel fitted to the analytic ephemeris
+   (Earth/EMB, EMB, the Sun and the planets, MJD 49990-58010; its fit
+   error measured on the CPU first) written as ``de421.bsp``, found by
+   ``get_ephemeris("DE421")`` under ``PINT_TORCH_EPHEM_DIR`` with
+   ``PINT_TORCH_STRICT_EPHEM=1``; phase 6's 100,000-row table built
+   through it and timed, a 2,000-row build card against CPU at phase 5's
+   bars, the card's build against the analytic one within the fit's
+   error, one warm fused fit of bench.py's par through it; a missing
+   kernel raises FileNotFoundError, a time outside coverage ValueError
+   before any kernel runs on the card;
+14. photon events: a NICER-like file (1,000,000 events, TIMESYS TT /
+   TIMEREF LOCAL with a LEO orbit file, MJDREFI/MJDREFF, PI) and a
+   Fermi-like barycentered one (1,000,000 events, MJDREF, WEIGHT), each
+   drawn from a two-peak template folded with an isolated MSP and
+   barycentered through phase 13's kernel (strict switch on);
+   ``load_event_TOAs``, ``photon_phases``, ``h_test`` and
+   ``fit_template`` on the card, timed; on a 20,000-event subset card
+   and CPU phases within F0 x 1e-13 s in turns and H within 1e-9
+   relative; the NICER-like subset again through the analytic ephemeris
+   (no kernel, no strict switch: what ``EPHEM DE421`` gives a user
+   without a ``.bsp``), card against CPU, its observatory positions
+   within phase 5's bar and its phases within F0 x (1e-13 s + their
+   measured position gap); the fitted templates recover the injected
+   peaks; a load's spans (the FITS read, the event MJDs in DD on the
+   card against the CPU, equal bit for bit);
+15. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -106,6 +143,7 @@ missing or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -113,6 +151,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -502,6 +541,61 @@ def two_receivers(n, rng):
     sub = np.tile(np.arange(4), n_ep)[:n]
     freq = np.asarray([RCVR_BANDS[r][k] for r, k in zip(rcvr, sub)])
     return freq, [{"fe": str(r)} for r in rcvr]
+
+
+# Phase 12: PAR_J1909 as a wideband par, as NANOGrav's wideband par
+# files carry it: no ECORR (one TOA per observation and receiver), a
+# fitted DMJUMP on one receiver, DMEFAC and DMEQUAD per receiver
+WB_NOISE = """DMJUMP -fe Rcvr_800 -3.0e-4 1
+DMEFAC -fe Rcvr_800 1.1
+DMEFAC -fe Rcvr1_2 1.05
+DMEQUAD -fe Rcvr_800 2e-5
+DMEQUAD -fe Rcvr1_2 1e-5
+"""
+PAR_J1909_WB = "\n".join(
+    line for line in j1909_par().splitlines()
+    if not line.startswith("ECORR")) + "\n" + WB_NOISE
+SIGMA_DM = 1e-4   # -pp_dme [pc/cm^3], tests/test_wideband.py's scale
+# the kicked start of the dense wideband fit: a few sigma of each
+WB_KICK = {"F0": 2e-13, "DMJUMP1": 3e-6, "DMX_0100": 5e-5, "FD1": 3e-7}
+# Phase 13: the synthetic kernel's span and the record lengths (days)
+SPK_MJD = (49990.0, 58010.0)
+SPK_BODIES = (("emb", 3, 0, 16.0), ("earth", 399, 3, 4.0), ("sun", 10, 0, 16.0),
+              ("venus", 2, 0, 16.0), ("jupiter", 5, 0, 32.0),
+              ("saturn", 6, 0, 32.0), ("uranus", 7, 0, 32.0),
+              ("neptune", 8, 0, 32.0))
+SPK_NCOEF = 12
+# the analytic provider's batched path takes velocities at TT, the
+# protocol path (an SPK kernel's) at TDB: |TDB - TT| <= 1.7 ms times the
+# geocenter's 6e-3 m/s^2 is 3.4e-14 of c between the two builds
+PATH_VEL_C = 4e-14
+# Phase 14: an isolated MSP (bench.py's spin and astrometry, F1 = 0) and
+# a two-peak template
+PAR_PHOTON = """
+PSRJ           J1748-2021E
+RAJ             17:48:52.75
+DECJ           -20:21:29.0
+F0             61.485476554
+F1             0.0
+PEPOCH        53750.000000
+POSEPOCH      53750.000000
+DM              223.9
+EPHEM          DE421
+UNITS          TDB
+"""
+PHOTON_F0 = 61.485476554
+N_EVENTS = 1_000_000
+N_EVENT_SUBSET = 20_000
+PEAKS = {"locs": [0.25, 0.62], "widths": [0.03, 0.06], "norms": [0.45, 0.3]}
+PEAKS_START = {"locs": [0.27, 0.6], "widths": [0.04, 0.08], "norms": [0.4, 0.3]}
+PHOTON_TIME_BAR_S = 1e-13
+PHOTON_PHASE_BAR = PHOTON_F0 * PHOTON_TIME_BAR_S   # turns
+H_RTOL = 1e-9
+PEAK_LOC_BAR = 2e-3        # turns
+# the drawn phases against the model's at the written METs: half an ulp
+# of a NICER MET near 1.2e8 s (7.5e-9 s) is 4.6e-7 turns
+GEN_PHASE_BAR = 1e-6
+PEAK_WIDTH_RTOL = 0.03
 
 
 def fail(msg: str) -> None:
@@ -1399,6 +1493,675 @@ def check_gram(gram, dev, path_q):
     return shapes
 
 
+def with_dm_data(toas, truth, seed):
+    """`toas` with each TOA's wideband DM measurement: ``-pp_dm`` the
+    model DM of `truth` plus Gaussian noise at the DMEFAC/DMEQUAD-scaled
+    sigma, ``-pp_dme`` SIGMA_DM. The DM is evaluated on the table's
+    device."""
+    import dataclasses
+
+    from pint_tpu_torch.toas import Flags
+
+    rng = np.random.default_rng(seed)
+    base = dataclasses.replace(toas, flags=Flags(
+        dict(f, pp_dme=repr(SIGMA_DM)) for f in toas.flags))
+    dm = truth.total_dm(base).cpu().numpy()
+    scaled = truth.scaled_dm_uncertainty(base).cpu().numpy()
+    meas = dm + rng.normal(0.0, 1.0, len(dm)) * scaled
+    return dataclasses.replace(toas, flags=Flags(
+        dict(f, pp_dm=repr(float(m)), pp_dme=repr(SIGMA_DM))
+        for f, m in zip(toas.flags, meas)))
+
+
+def wb_table(n, seed, device, ephem):
+    """A wideband GBT table at two receivers built (not simulated) on
+    `device`, its DM flags parsed (what a user's load of a wideband tim
+    file does)."""
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjds = epoch_mjds(n, rng)
+    freq, flags = two_receivers(n, rng)
+    dms = rng.normal(10.39, 1e-3, n)
+    flags = [dict(f, pp_dm=repr(float(m)), pp_dme=repr(SIGMA_DM))
+             for f, m in zip(flags, dms)]
+    t = build_TOAs_from_arrays(
+        DD(mjds, np.zeros(n)), freq_mhz=freq, error_us=1.0, flags=flags,
+        obs_names=("gbt",), eph=ephem, device=device)
+    t.get_dm_values(), t.get_dm_errors()
+    return t
+
+
+def simulate_wideband(n, seed, device, grid=False):
+    """Phase 12's traffic: n GBT TOAs at two receivers simulated from
+    PAR_J1909_WB (simulate_binary's, or on an even grid of epochs that
+    puts TOAs in every DMX window) with wideband DM measurements."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    if not grid:
+        toas = simulate_binary(PAR_J1909_WB, n, seed, device)
+    else:
+        rng = np.random.default_rng(seed)
+        n_ep = n // 4
+        centers = np.linspace(50005.0, 58005.0, n_ep) + rng.uniform(0, 1, n_ep)
+        mjds = (centers[:, None]
+                + rng.uniform(0, 0.5 / 86400.0, (n_ep, 4))).ravel()
+        freq, flags = two_receivers(n, rng)
+        toas = make_fake_toas_from_arrays(
+            DD(mjds, np.zeros(n)), get_model(PAR_J1909_WB), freq_mhz=freq,
+            error_us=1.0, obs="gbt", flags=flags, add_noise=True,
+            seed=int(rng.integers(2 ** 31)), niter=2, device=device)
+    return with_dm_data(toas, get_model(PAR_J1909_WB), seed + 1)
+
+
+def wb_host_loop(model, toas, maxiter=10):
+    """``downhill_iterate`` over the cached wideband step/probe pair that
+    ``dense_wideband_fit`` runs, on the same bucketed table and statics:
+    the fused loop's witness. Returns a run_fit-like record."""
+    from pint_tpu_torch.fitting import damped, device_loop, wideband
+    from pint_tpu_torch.telemetry import recorder
+
+    dev = toas.device
+    toas_b, noise, dm, specs = device_loop.dense_wb_operands(model, toas)
+    s = wideband.cached_wb_step(model, pl_specs=specs, device=dev)
+    p = wideband.cached_wb_probe(model, pl_specs=specs, device=dev)
+    base = model.base_dd(dev)
+    counters = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deltas, _, chi2, conv = damped.downhill_iterate(
+        lambda d: s(base, d, toas_b, noise, dm), model.zero_deltas(device=dev),
+        maxiter=maxiter, chi2_at=lambda d: p(base, d, toas_b, noise, dm),
+        counters=counters)
+    torch.cuda.synchronize()
+    trace = recorder.last_trace()
+    return {"chi2": chi2, "wall": time.perf_counter() - t0, "steps": trace["n"],
+            "probes": counters["probe_evals"], "trace": trace,
+            "counters": {k: counters[k] for k in LOOP_COUNTERS}, "stats": {},
+            "launches": 0, "converged": conv,
+            "deltas": {k: float(v) for k, v in deltas.items()}}
+
+
+def wb_fused(model, toas, maxiter=10):
+    """One ``dense_wideband_fit`` of `model` on `toas`, as a record."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.telemetry import recorder
+
+    stats = {}
+    before = gram.ds32_gram.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deltas, _, chi2, conv, counters = device_loop.dense_wideband_fit(
+        toas, model, maxiter=maxiter, stats=stats)
+    torch.cuda.synchronize()
+    trace = recorder.last_trace()
+    return {"chi2": chi2, "wall": time.perf_counter() - t0, "steps": trace["n"],
+            "probes": counters["probe_evals"], "trace": trace,
+            "counters": {k: counters[k] for k in LOOP_COUNTERS}, "stats": stats,
+            "launches": gram.ds32_gram.launches - before, "converged": conv,
+            "deltas": {k: float(v) for k, v in deltas.items()}}
+
+
+def wideband_path(dev):
+    """Phase 12 (see the module docstring). Returns its ds32_gram launches
+    by fit."""
+    from pint_tpu_torch.fitting import Fitter, device_loop
+    from pint_tpu_torch.fitting.wideband import WidebandDownhillFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+
+    gram.ds32_gram.launches = 0
+    truth = get_model(PAR_J1909_WB)
+    print("components: " + ", ".join(type(c).__name__ for c in truth.components)
+          + f"; {len(truth.free_params)} free parameters", flush=True)
+    t0 = time.perf_counter()
+    toas = simulate_wideband(N_TOAS, seed=12, device=dev)
+    torch.cuda.synchronize()
+    print(f"simulated {len(toas)} wideband GBT TOAs at Rcvr_800 and Rcvr1_2 on "
+          f"the card (DM measurements included) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    build_ms = host_ms(lambda: wb_table(N_TOAS, 12, dev, truth.ephem), reps=3)
+    print(f"one {N_TOAS}-row wideband GBT table build at two receivers on the "
+          f"card, -pp_dm/-pp_dme parsed (warm): {build_ms:.2f} ms wall",
+          flush=True)
+
+    # the user's route: Fitter.auto picks the wideband Downhill fitter;
+    # the warm fit is the same fitter again from the truth
+    def restart():
+        for k in truth.free_params:
+            fitter.model[k].value = truth[k].value
+
+    fitter = None
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fitter is None:
+            fitter = Fitter.auto(toas, get_model(PAR_J1909_WB))
+        else:
+            restart()
+        trials = record_trials(fitter)
+        chi2 = fitter.fit_toas(maxiter=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        del fitter._chi2_now   # the class method again
+        red = fitter.resids.reduced_chi2
+        print(f"Fitter.auto ({run}): {type(fitter).__name__}; {wall:.3f} s wall"
+              f"{' (construction + fit_toas)' if run == 'cold' else ''}; "
+              f"{len(trials)} trials; stacked chi2 {chi2:.6f}, chi2/dof "
+              f"{red:.6f} (dof {fitter.resids.dof}); converged "
+              f"{fitter.converged}; peak memory {peak_mb:.1f} MiB", flush=True)
+        if type(fitter) is not WidebandDownhillFitter:
+            fail(f"Fitter.auto picked {type(fitter).__name__} for wideband TOAs")
+        if not 0.8 <= red <= 1.25:
+            fail(f"wideband fit: stacked chi2/dof {red} outside [0.8, 1.25]")
+    for k in ("F0", "PB", "A1", "FD1", "JUMP1", "DMJUMP1", "DMX_0001",
+              "DMX_0134", "DMX_0267"):
+        print(f"  {k} = {fitter.model[k].format_value()} +- "
+              f"{fitter.model[k].format_uncertainty()}")
+    check_truth(fitter, truth, f"the wideband fit at {N_TOAS} TOAs", kicks={})
+    print(fitter.get_summary().splitlines()[-1], flush=True)
+
+    def warm_fit():
+        restart()
+        fitter.fit_toas(maxiter=10)
+
+    profile_step("one warm WidebandDownhillFitter fit", warm_fit, wall * 1e3)
+
+    # the fused dense fit, cold and warm, the host loop its witness
+    device_loop.clear_cache()
+    model = get_model(PAR_J1909_WB)
+    torch.cuda.reset_peak_memory_stats()
+    cold = wb_fused(model, toas)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    warm = wb_fused(model, toas)
+    host = wb_host_loop(model, toas)
+    describe_fit(f"dense_wideband_fit at {N_TOAS} TOAs (cold, with capture)", cold)
+    describe_fit(f"dense_wideband_fit at {N_TOAS} TOAs (warm)", warm)
+    describe_fit(f"dense_wideband_fit's step/probe through the host loop", host)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
+                                                   host["trace"]["chi2"]))
+    print(f"  peak memory {peak_mb:.1f} MiB (graph pool included); fused - "
+          f"host loop chi2 {cold['chi2'] - host['chi2']:+.3e}, largest relative "
+          f"gap of a full evaluation's chi2 {gap:.3e} (bar {LOOP_RTOL:g})",
+          flush=True)
+    st = cold["stats"]
+    if not (st["captures"] == 2 and warm["stats"]["captures"] == 0
+            and cold["converged"] and math.isfinite(cold["chi2"])
+            and st["replays"] == cold["steps"] + cold["probes"] - 1
+            and same_loop(cold, warm) and same_loop(cold, host)
+            and all(cold["deltas"][k] == host["deltas"][k] for k in host["deltas"])):
+        fail("dense_wideband_fit is not its host loop")
+    fused_ms = host_ms(lambda: wb_fused(model, toas), reps=3)
+    host_loop_ms = host_ms(lambda: wb_host_loop(model, toas), reps=3)
+    print(f"one warm dense_wideband_fit: {fused_ms:.2f} ms wall; its step/probe "
+          f"through the host loop: {host_loop_ms:.2f} ms (median of 3)",
+          flush=True)
+    profile_step("one warm dense_wideband_fit", lambda: wb_fused(model, toas),
+                 fused_ms)
+    profile_step("one warm host-loop wideband fit",
+                 lambda: wb_host_loop(model, toas), host_loop_ms)
+    # a kicked start: the captured loop from there is the host loop's
+    for k, d in WB_KICK.items():
+        model[k].add_delta(d)
+    moved, hmoved = wb_fused(model, toas), wb_host_loop(model, toas)
+    describe_fit("dense_wideband_fit from a kicked start (replayed)", moved)
+    describe_fit("the host loop from the kicked start", hmoved)
+    if not (moved["stats"]["captures"] == 0 and same_loop(moved, hmoved)
+            and all(moved["deltas"][k] == hmoved["deltas"][k]
+                    for k in hmoved["deltas"])):
+        fail("the captured wideband fit from a kicked start is not the host loop's")
+    launches = {f"wideband {N_TOAS} (Fitter.auto, fused dense fits, host loop)":
+                gram.ds32_gram.launches}
+    device_loop.clear_cache()
+
+    # card against CPU at N_SMALL TOAs (every DMX window holds TOAs)
+    small = simulate_wideband(N_SMALL, seed=13, device="cpu", grid=True)
+    runs = []
+    for table in (small, small.to(dev)):
+        f = WidebandDownhillFitter(table, get_model(PAR_J1909_WB))
+        tr = record_trials(f)
+        runs.append((f, f.fit_toas(maxiter=10), tr,
+                     wb_fused(get_model(PAR_J1909_WB), table)))
+    (fc, cc, tc, dc), (fg, cg, tg, dg) = runs
+    worst = max(abs(fc.model[k].value_f64 - fg.model[k].value_f64)
+                / fc.model[k].uncertainty for k in fc.fit_params)
+    print(f"WidebandDownhillFitter at {N_SMALL} TOAs: chi2 cpu {cc:.9f} card "
+          f"{cg:.9f}; worst parameter gap {worst:.3e} sigma; trials cpu "
+          f"{len(tc)} card {len(tg)}; converged {fc.converged}/{fg.converged}\n"
+          f"  trials cpu {tc}\n  trials card {tg}", flush=True)
+    if not (same_trials(tc, tg) and abs(cg - cc) <= CARD_CHI2_RTOL * abs(cc)
+            and worst <= CARD_VALUE_SIGMA and fc.converged == fg.converged):
+        fail("the wideband fit on the card disagrees with the CPU's")
+    dworst = max(abs(dc["deltas"][k] - dg["deltas"][k]) / fc.model[k].uncertainty
+                 for k in dc["deltas"])
+    print(f"dense_wideband_fit at {N_SMALL} TOAs: chi2 cpu {dc['chi2']:.9f} card "
+          f"{dg['chi2']:.9f}; worst delta gap {dworst:.3e} sigma; steps "
+          f"{dc['steps']}/{dg['steps']}, probes {dc['probes']}/{dg['probes']}; "
+          f"converged {dc['converged']}/{dg['converged']}", flush=True)
+    if not (dc["converged"] == dg["converged"] and dworst < 0.05
+            and abs(dg["chi2"] - dc["chi2"]) <= 1e-6 * abs(dc["chi2"])):
+        fail("dense_wideband_fit on the card disagrees with the CPU's")
+    if gram.ds32_gram.launches:
+        fail(f"the wideband path launched ds32_gram {gram.ds32_gram.launches} "
+             "times; its solves are float64")
+    return launches
+
+
+def analytic_posfn_km(eph, body):
+    """km positions of `body` wrt the SSB (or the Earth wrt the EMB) from
+    the analytic ephemeris on the CPU, as a function of ET seconds."""
+    from pint_tpu_torch.io import bsp
+
+    def at(name, et):
+        t = torch.as_tensor(bsp.ET_J2000_MJD + np.asarray(et) / 86400.0)
+        return eph.planet_posvel_ssb(name, t)[0].numpy() * bsp.C_KM_S
+
+    if body == "earth":
+        return lambda et: at("earth", et) - at("emb", et)
+    return lambda et: at(body, et)
+
+
+def write_spk(path):
+    """The synthetic DE-layout kernel of SPK_BODIES, fitted to the
+    analytic ephemeris over SPK_MJD by the port's own writer."""
+    from pint_tpu_torch.ephemeris import AnalyticEphemeris
+    from pint_tpu_torch.io import bsp
+
+    eph = AnalyticEphemeris()
+    et0, et1 = ((m - bsp.ET_J2000_MJD) * 86400.0 for m in SPK_MJD)
+    segs = [bsp.chebyshev_fit_segment(analytic_posfn_km(eph, body), et0, et1,
+                                      days * 86400.0, SPK_NCOEF, target, center)
+            for body, target, center, days in SPK_BODIES]
+    bsp.write_spk_type2(str(path), segs)
+
+
+@contextlib.contextmanager
+def analytic_fallback():
+    """Neither ``PINT_TORCH_EPHEM_DIR`` nor ``PINT_TORCH_STRICT_EPHEM``
+    inside the block (restored after it): a DE name with no kernel in the
+    working directory resolves to the analytic ephemeris, as it does for
+    a user who has no ``.bsp``."""
+    import os
+
+    names = ("PINT_TORCH_EPHEM_DIR", "PINT_TORCH_STRICT_EPHEM")
+    saved = {k: os.environ.pop(k) for k in names if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def strict_kernels(directory):
+    """``PINT_TORCH_EPHEM_DIR`` = `directory` and
+    ``PINT_TORCH_STRICT_EPHEM=1`` inside the block: a DE name resolves to
+    the kernel there or raises, never to the analytic fallback."""
+    import os
+
+    os.environ["PINT_TORCH_EPHEM_DIR"] = str(directory)
+    os.environ["PINT_TORCH_STRICT_EPHEM"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PINT_TORCH_EPHEM_DIR", None)
+        os.environ.pop("PINT_TORCH_STRICT_EPHEM", None)
+
+
+def spk_path(dev, work):
+    """Phase 13 (see the module docstring): the kernel is written to
+    `work` as de421.bsp (phase 14 reads it too). Returns ds32_gram
+    launches by run."""
+    import os
+
+    from pint_tpu_torch import ephemeris
+    from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
+    from pint_tpu_torch.io import bsp
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    t0 = time.perf_counter()
+    write_spk(work / "de421.bsp")
+    print(f"wrote a type-2 SPK kernel ({len(SPK_BODIES)} segments, MJD "
+          f"{SPK_MJD[0]:.0f}-{SPK_MJD[1]:.0f}, {SPK_NCOEF} coefficients) in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{(work / 'de421.bsp').stat().st_size / 2 ** 20:.1f} MiB", flush=True)
+    # the Chebyshev fit's own error, measured on the CPU first: the bar
+    # of the card's SPK build against its analytic build
+    spk = bsp.SPKEphemeris(str(work / "de421.bsp"), name="DE421")
+    ana = ephemeris.AnalyticEphemeris()
+    t = torch.as_tensor(np.random.default_rng(13).uniform(
+        SPK_MJD[0] + 1.0, SPK_MJD[1] - 1.0, 20_000))
+    fit_err = {}
+    for body in ("earth", "sun", "jupiter", "venus"):
+        (ps, vs), (pa, va) = (e.planet_posvel_ssb(body, t) for e in (spk, ana))
+        fit_err[body] = (float((ps - pa).abs().max()), float((vs - va).abs().max()))
+    pos_err = max(p for p, _ in fit_err.values())
+    vel_err = max(v for _, v in fit_err.values())
+    print("the kernel against its source on the CPU (20,000 times): "
+          + ", ".join(f"{b} {p:.3e} lt-s, {v:.3e} c" for b, (p, v) in fit_err.items()),
+          flush=True)
+    launches = {}
+    with strict_kernels(work):
+        eph = ephemeris.get_ephemeris("DE421")
+        print(f'get_ephemeris("DE421") -> {type(eph).__name__} {eph.name}',
+              flush=True)
+        if type(eph) is not bsp.SPKEphemeris or \
+                ephemeris.get_ephemeris("DE421") is not eph:
+            fail("get_ephemeris did not return one interned SPKEphemeris")
+        before = gram.ds32_gram.launches
+        card = gbt_table(N_TOAS, 0, dev, eph)
+        build_ms = host_ms(lambda: gbt_table(N_TOAS, 0, dev, eph), reps=3)
+        print(f"one {N_TOAS}-row GBT table built through the SPK kernel on the "
+              f"card (warm): {build_ms:.2f} ms wall", flush=True)
+        profile_step("one table build through the SPK kernel",
+                     lambda: gbt_table(N_TOAS, 0, dev, eph), build_ms)
+        ana_card = gbt_table(N_TOAS, 0, dev, ana)
+        gaps = {"obs_pos_ls": float((card.obs_pos_ls - ana_card.obs_pos_ls).abs().max()),
+                "obs_vel_c": float((card.obs_vel_c - ana_card.obs_vel_c).abs().max()),
+                "sun": float((card.planet_pos_ls["sun"]
+                              - ana_card.planet_pos_ls["sun"]).abs().max()),
+                "tdb_s": float(((card.tdb.hi - ana_card.tdb.hi) * 86400.0
+                                + (card.tdb.lo - ana_card.tdb.lo) * 86400.0).abs().max())}
+        vel_bar = 2 * vel_err + PATH_VEL_C
+        print(f"  SPK build - analytic build on the card: {gaps} (bars: "
+              f"positions 2 x {pos_err:.3e} lt-s, velocities 2 x {vel_err:.3e} + "
+              f"{PATH_VEL_C:g} = {vel_bar:.3e}, TDB {TDB_BAR_S:g} s)", flush=True)
+        if not (gaps["obs_pos_ls"] <= 2 * pos_err and gaps["sun"] <= 2 * pos_err
+                and gaps["obs_vel_c"] <= vel_bar and gaps["tdb_s"] <= TDB_BAR_S):
+            fail("the SPK build is not the analytic build within the fit's error")
+        small_card = gbt_table(N_SMALL, 2, dev, eph)
+        small_cpu = gbt_table(N_SMALL, 2, "cpu", eph)
+        cols = {"tdb_s": (float(((small_card.tdb.hi.cpu() - small_cpu.tdb.hi) * 86400.0
+                                 + (small_card.tdb.lo.cpu() - small_cpu.tdb.lo)
+                                 * 86400.0).abs().max()), TDB_BAR_S),
+                "obs_pos_ls": (float((small_card.obs_pos_ls.cpu()
+                                      - small_cpu.obs_pos_ls).abs().max()), POS_BAR_LS),
+                "obs_vel_c": (float((small_card.obs_vel_c.cpu()
+                                     - small_cpu.obs_vel_c).abs().max()), VEL_BAR),
+                **{f"planet_pos_ls[{k}]": (float((small_card.planet_pos_ls[k].cpu()
+                                                  - v).abs().max()), POS_BAR_LS)
+                   for k, v in small_cpu.planet_pos_ls.items()}}
+        print(f"  {N_SMALL} rows through the kernel, card - CPU: "
+              + ", ".join(f"{k} {g:.3e} (bar {b:g})" for k, (g, b) in cols.items()),
+              flush=True)
+        if any(g > b for g, b in cols.values()):
+            fail("the card's SPK build differs from the CPU's")
+        launches["SPK table builds"] = gram.ds32_gram.launches - before
+        # bench.py's par through the kernel: its TZR row and its TOAs
+        model = get_model(PAR_FULL)
+        toas = simulate(PAR_FULL, N_TOAS, seed=0, device=dev)
+        if toas.ephem_name != "DE421":
+            fail(f"the main path's table used {toas.ephem_name}")
+        fitter = HybridGLSFitter(toas, model, device=dev)
+        start = free_values(model)
+        cold = run_fit(fitter)
+        warm = run_fit(fitter, start)
+        describe_fit("bench.py's fit through the SPK kernel (cold, fused)", cold)
+        describe_fit("bench.py's fit through the SPK kernel (warm, fused)", warm)
+        red = fitter.resids.reduced_chi2
+        print(f"  post-fit chi2/dof {red:.6f}", flush=True)
+        if not (cold["converged"] and 0.8 <= red <= 1.25 and same_loop(cold, warm)):
+            fail("the fit through the SPK kernel failed")
+        check_truth(fitter, get_model(PAR_FULL),
+                    f"the fit through the SPK kernel at {N_TOAS} TOAs", kicks={})
+        launches[f"SPK: bench.py's fit {N_TOAS} (fused, warm)"] = warm["launches"]
+        # refusals: a missing kernel under the strict switch, and a time
+        # outside coverage before anything runs on the card
+        os.environ["PINT_TORCH_EPHEM_DIR"] = str(work / "missing")
+        try:
+            ephemeris.get_ephemeris("DE440")
+        except FileNotFoundError as exc:
+            print(f"  strict switch, no de440.bsp: FileNotFoundError ({exc})")
+        else:
+            fail("a missing kernel under PINT_TORCH_STRICT_EPHEM=1 did not raise")
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            try:
+                build_TOAs_from_arrays(DD(np.asarray([59000.0, 59001.0]), np.zeros(2)),
+                                       freq_mhz=1400.0, error_us=1.0,
+                                       obs_names=("gbt",), eph=eph, device=dev)
+            except ValueError as exc:
+                refused = str(exc)
+            else:
+                refused = None
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        print(f"  MJD 59000 outside coverage: ValueError ({refused}); kernels on "
+              f"the card before it: {kernels}", flush=True)
+        if refused is None or "coverage" not in refused or kernels:
+            fail("a time outside the kernel's coverage was not refused before "
+                 "any launch")
+    return launches
+
+
+def draw_phases(n, rng, weights=None):
+    """Photon phases from the two-peak template PEAKS by composition; a
+    photon with weight w is the pulsar's with probability w (the rest
+    are uniform background)."""
+    pulsar = np.ones(n, bool) if weights is None else rng.random(n) < weights
+    u = rng.random(n)
+    c1 = PEAKS["norms"][0]
+    c2 = c1 + PEAKS["norms"][1]
+    phases = rng.random(n)
+    for k, (lo, hi) in enumerate(((0.0, c1), (c1, c2))):
+        sel = pulsar & (u >= lo) & (u < hi)
+        phases[sel] = (PEAKS["locs"][k] + PEAKS["widths"][k]
+                       * rng.standard_normal(int(sel.sum()))) % 1.0
+    return phases
+
+
+def write_photons(path, mission, met0, span_s, seed, dev, header, orbit=None,
+                  weights=False):
+    """N_EVENTS photons whose model phases (PAR_PHOTON) follow PEAKS: MET
+    drawn uniformly over the span, then moved twice onto the drawn
+    phases through the port's own load and phase on the card (the
+    simulation's fixed-point inversion). Returns the drawn phases."""
+    from pint_tpu_torch import event_toas, templates
+    from pint_tpu_torch.io.fits import write_event_fits
+    from pint_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(seed)
+    model = get_model(PAR_PHOTON)
+    w = np.clip(rng.random(N_EVENTS), 0.05, 1.0) if weights else None
+    target = draw_phases(N_EVENTS, rng, w)
+    met = np.sort(rng.uniform(met0, met0 + span_s, N_EVENTS))
+    cols = {"TIME": met}
+    if mission == "nicer":
+        cols["PI"] = rng.integers(30, 1000, N_EVENTS).astype(np.int32)
+    if w is not None:
+        cols["WEIGHT"] = w
+    for _ in range(3):
+        write_event_fits(str(path), cols, header=header)
+        toas = event_toas.load_event_TOAs(str(path), mission, orbfile=orbit,
+                                          ephem=model.ephem, device=dev)
+        phi = templates.photon_phases(model, toas).cpu().numpy()
+        cols["TIME"] = cols["TIME"] + ((target - phi + 0.5) % 1.0 - 0.5) / PHOTON_F0
+    write_event_fits(str(path), cols, header=header)
+    return target, cols
+
+
+def photon_path(dev, kernels):
+    """Phase 14 (see the module docstring), through phase 13's kernel in
+    `kernels` (PAR_PHOTON's EPHEM DE421) under the strict switch: photon
+    timing barycenters with a JPL ephemeris."""
+    with strict_kernels(kernels):
+        return photon_events(dev)
+
+
+def photon_events(dev):
+    from pint_tpu_torch import event_toas, templates
+    from pint_tpu_torch.io.fits import write_event_fits
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+
+    before = gram.ds32_gram.launches
+    work = pathlib.Path(tempfile.mkdtemp(prefix="events_"))
+    # a LEO orbit (ISS-like: r 6,790 km, 92.6 min, inclined 51.6 deg),
+    # sampled every 2 s in km
+    mjdrefi, mjdreff = 56658, 7.775925925925930e-4   # NICER's epoch
+    met0 = (58000.0 - mjdrefi - mjdreff) * 86400.0
+    span = 86400.0
+    t_orb = np.arange(met0 - 60.0, met0 + span + 60.0, 2.0)
+    w_orb, inc = 2 * np.pi / 5556.0, np.radians(51.6)
+    r_orb = 6.79e6 * np.stack([np.cos(w_orb * t_orb),
+                               np.sin(w_orb * t_orb) * np.cos(inc),
+                               np.sin(w_orb * t_orb) * np.sin(inc)], axis=1)
+    orbit = str(work / "orbit.fits")
+    write_event_fits(orbit, {"TIME": t_orb, "POSITION": r_orb / 1e3},
+                     header={"MJDREFI": mjdrefi, "MJDREFF": mjdreff,
+                             "TUNIT2": "km"}, extname="ORBIT")
+    files = {
+        "NICER-like (TT, LOCAL, orbit file)": dict(
+            mission="nicer", met0=met0, span_s=span, seed=14, orbit=orbit,
+            header={"MJDREFI": mjdrefi, "MJDREFF": mjdreff, "TIMEZERO": 0.0,
+                    "TIMESYS": "TT", "TIMEREF": "LOCAL", "TELESCOP": "NICER"}),
+        "Fermi-like (TDB, barycentered, WEIGHT)": dict(
+            mission="fermi", met0=0.0, span_s=30 * 86400.0, seed=15,
+            weights=True,
+            header={"MJDREF": 53750.0, "TIMESYS": "TDB",
+                    "TIMEREF": "SOLARSYSTEM", "TELESCOP": "GLAST"}),
+    }
+    model = get_model(PAR_PHOTON)
+    for label, spec in files.items():
+        path = work / f"{spec['mission']}.fits"
+        t0 = time.perf_counter()
+        target, cols = write_photons(path, dev=dev, **spec)
+        print(f"{label}: drew {N_EVENTS} photons and moved them onto their "
+              f"phases (3 loads on the card) in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        kw = dict(orbfile=spec.get("orbit"), ephem=model.ephem,
+                  weight_column="WEIGHT" if spec.get("weights") else None)
+        load_ms = host_ms(lambda: event_toas.load_event_TOAs(
+            str(path), spec["mission"], device=dev, **kw), reps=3)
+        toas = event_toas.load_event_TOAs(str(path), spec["mission"], device=dev, **kw)
+        w = toas.aux_columns.get("photon_weight")
+        phase_ms = host_ms(lambda: templates.photon_phases(model, toas), reps=3)
+        phases = templates.photon_phases(model, toas)
+        h_ms = host_ms(lambda: templates.h_test(phases, w), reps=3)
+        h, prob = templates.h_test(phases, w)
+        gap = float(np.max(np.abs((phases.cpu().numpy() - target + 0.5) % 1.0 - 0.5)))
+        start = templates.LCTemplate(**PEAKS_START)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted, lnl = templates.fit_template(phases, start, weights=w)
+        fit_s = time.perf_counter() - t0
+        if toas.ephem_name != "DE421":
+            fail(f"{label}: barycentered with {toas.ephem_name}, not the kernel")
+        print(f"  load_event_TOAs {load_ms:.2f} ms (ephemeris {toas.ephem_name}), "
+              f"photon_phases {phase_ms:.2f} "
+              f"ms, h_test {h_ms:.2f} ms (warm, median of 3); fit_template "
+              f"(1000 Adam steps) {fit_s:.3f} s; H = {h:.1f} (P {prob:.3g}); "
+              f"model phases - drawn phases: max {gap:.3e} turns", flush=True)
+        print(f"  fitted peaks: locs {fitted.locs}, widths {fitted.widths}, norms "
+              f"{fitted.norms} (injected {PEAKS}); log-likelihood {lnl:.3f}",
+              flush=True)
+        load_spans(path, dev)
+        if not (len(toas) == N_EVENTS and h > 1000.0 and gap < GEN_PHASE_BAR
+                and np.all(np.abs(fitted.locs - PEAKS["locs"]) < PEAK_LOC_BAR)
+                and np.all(np.abs(fitted.widths / PEAKS["widths"] - 1)
+                           < PEAK_WIDTH_RTOL)):
+            fail(f"{label}: the photon path did not recover the injected template")
+        # card against CPU on a subset
+        sub = work / f"{spec['mission']}_subset.fits"
+        write_event_fits(str(sub), {k: v[:N_EVENT_SUBSET] for k, v in cols.items()},
+                         header=spec["header"])
+        out = []
+        for d in ("cpu", dev):
+            t = event_toas.load_event_TOAs(str(sub), spec["mission"], device=d, **kw)
+            ph = templates.photon_phases(model, t)
+            out.append((ph.cpu().numpy(),
+                        templates.h_test(ph, t.aux_columns.get("photon_weight"))[0]))
+        (pc, hc), (pg, hg) = out
+        dphi = float(np.max(np.abs((pg - pc + 0.5) % 1.0 - 0.5)))
+        print(f"  {N_EVENT_SUBSET} events card - CPU: phases {dphi:.3e} turns "
+              f"(bar {PHOTON_PHASE_BAR:.3e}), H {hg:.6f} / {hc:.6f} "
+              f"({abs(hg / hc - 1):.3e}, bar {H_RTOL:g})", flush=True)
+        if not (dphi <= PHOTON_PHASE_BAR and abs(hg / hc - 1) <= H_RTOL):
+            fail(f"{label}: the card's photon phases differ from the CPU's")
+        if spec.get("orbit"):
+            analytic_subset(label, sub, spec["mission"], kw, model, dev)
+    shutil.rmtree(work)
+    if gram.ds32_gram.launches != before:
+        fail("the photon path launched ds32_gram")
+    return {"photon events (loads, phases, H-test, template fits)":
+            gram.ds32_gram.launches - before}
+
+
+def load_spans(path, dev):
+    """Where a load's host time goes: the FITS read, and the event MJDs
+    in DD (with the TT -> UTC inversion for TT events) on the card,
+    fetched to the host as the table builder fetches them, against the
+    same arithmetic on the CPU. Medians of 3."""
+    from pint_tpu_torch import event_toas
+    from pint_tpu_torch.io.fits import read_fits
+
+    read_ms = host_ms(lambda: read_fits(str(path)), reps=3)
+    f = read_fits(str(path))
+    tab = f.table("EVENTS")
+    met = np.asarray(tab["TIME"], dtype=np.float64)
+    refi, reff = event_toas._mjdref_days(tab.header, f.primary_header)
+    tt = str(tab.header.get("TIMESYS", f.primary_header.get("TIMESYS", ""))
+             ).strip().upper() == "TT"
+
+    def mjds(d):
+        m = event_toas._event_mjd(met, refi, reff, d)
+        m = event_toas._tt_to_utc(m) if tt else m
+        return m.hi.cpu(), m.lo.cpu()
+
+    card_ms = host_ms(lambda: mjds(dev), reps=3)
+    cpu_ms = host_ms(lambda: mjds("cpu"), reps=3)
+    (hg, lg), (hc, lc) = mjds(dev), mjds("cpu")
+    if not (torch.equal(hg, hc) and torch.equal(lg, lc)):
+        fail(f"{path.name}: the card's event MJDs differ from the CPU's")
+    print(f"  load spans: FITS read {read_ms:.2f} ms; event MJDs in DD"
+          f"{' and TT -> UTC' if tt else ''}: on the card {card_ms:.2f} ms "
+          f"(fetched), on the CPU {cpu_ms:.2f} ms; equal bit for bit",
+          flush=True)
+
+
+def analytic_subset(label, sub, mission, kw, model, dev):
+    """The subset `sub` through the analytic ephemeris, card against CPU.
+
+    The analytic series' sin/cos/atan2 part the card's positions from the
+    CPU's by ~1.7e-13 lt-s (phase 5, within its POS_BAR_LS). A position
+    gap dr moves the Roemer delay, r . n_psr, by at most |dr|; the rest
+    of the path is held to PHOTON_TIME_BAR_S through the kernel above.
+    So the positions are held to phase 5's bar and the phases to F0 x
+    (PHOTON_TIME_BAR_S + the measured max |dr|) in turns. The TZR anchor
+    is each device's cached row from the kernel's run above."""
+    from pint_tpu_torch import event_toas, templates
+
+    with analytic_fallback():
+        out = []
+        for d in ("cpu", dev):
+            t = event_toas.load_event_TOAs(str(sub), mission, device=d, **kw)
+            out.append((t, templates.photon_phases(model, t).cpu().numpy()))
+    (tc, pc), (tg, pg) = out
+    if tg.ephem_name == "DE421" or tc.ephem_name == "DE421":
+        fail(f"{label}: the analytic subset was built through a kernel")
+    pos_gap = float((tg.obs_pos_ls.cpu() - tc.obs_pos_ls).norm(dim=-1).max())
+    dphi = float(np.max(np.abs((pg - pc + 0.5) % 1.0 - 0.5)))
+    bar = PHOTON_F0 * (PHOTON_TIME_BAR_S + pos_gap)
+    print(f"  {len(tg)} events, analytic ephemeris ({tg.ephem_name}), "
+          f"card - CPU: positions {pos_gap:.3e} lt-s (bar {POS_BAR_LS:g}), "
+          f"phases {dphi:.3e} turns (bar F0 x ({PHOTON_TIME_BAR_S:g} s + "
+          f"{pos_gap:.3e} lt-s) = {bar:.3e})", flush=True)
+    if not (pos_gap <= POS_BAR_LS and dphi <= bar):
+        fail(f"{label}: through the analytic ephemeris the card's photon "
+             "phases differ from the CPU's by more than their positions do")
+
+
 def main() -> None:
     if not (ROOT / "pint_tpu_torch" / "ops" / "gram.py").is_file():
         fail("pint_tpu_torch/ is not beside this script: run it from a checkout")
@@ -1735,7 +2498,25 @@ def main() -> None:
     device_loop.clear_cache()
     glitch_fit(dev)
 
-    phase("12 result")
+    phase(f"12 the wideband path: PAR_J1909_WB at {N_TOAS} GBT TOAs with "
+          f"-pp_dm/-pp_dme, Fitter.auto and dense_wideband_fit; card against "
+          f"CPU at {N_SMALL}")
+    device_loop.clear_cache()
+    launches_by_path.update(wideband_path(dev))
+
+    phase("13 the SPK ephemeris: a synthetic de421.bsp under "
+          "PINT_TORCH_EPHEM_DIR with PINT_TORCH_STRICT_EPHEM=1")
+    device_loop.clear_cache()
+    kernels = pathlib.Path(tempfile.mkdtemp(prefix="spk_"))
+    launches_by_path.update(spk_path(dev, kernels))
+    device_loop.clear_cache()
+
+    phase(f"14 photon events: {N_EVENTS} NICER-like and {N_EVENTS} Fermi-like "
+          f"events on the card, through phase 13's kernel")
+    launches_by_path.update(photon_path(dev, kernels))
+    shutil.rmtree(kernels)
+
+    phase("15 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)

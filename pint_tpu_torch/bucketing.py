@@ -61,8 +61,8 @@ def bucket_size(n: int, *, multiple: int = 1) -> int:
 def pad_toas(toas, n_target: int):
     """Extend a TOA table to ``n_target`` rows with zero-weight padding.
 
-    Padding rows replicate the last TOA (its columns, site, JUMP block
-    and flags) but carry ``PAD_ERROR_US`` uncertainty.
+    Padding rows replicate the last TOA (its columns, site, JUMP block,
+    flags and aux columns) but carry ``PAD_ERROR_US`` uncertainty.
     """
     n = len(toas)
     if n_target < n:
@@ -83,7 +83,9 @@ def pad_toas(toas, n_target: int):
         utc=type(toas.utc)(pad(toas.utc.hi), pad(toas.utc.lo)),
         error_us=err,
         planet_pos_ls={name: pad(v) for name, v in toas.planet_pos_ls.items()},
-        flags=tuple(toas.flags) + tuple(dict(toas.flags[-1]) for _ in range(k)),
+        flags=type(toas.flags)(tuple(toas.flags)
+                               + tuple(dict(toas.flags[-1]) for _ in range(k))),
+        aux_columns={name: pad(v) for name, v in toas.aux_columns.items()},
         **{name: pad(getattr(toas, name)) for name in (
             "freq_mhz", "obs_pos_ls", "obs_vel_c", "phase_offset",
             "pulse_number", "obs_index", "jump_group")})

@@ -15,6 +15,10 @@ implementations.
     Cubic-Hermite interpolation over injected (t, pos, vel) samples, the
     hook through which precomputed JPL DE evaluations enter.
 
+JPL DE kernels (``.bsp``) themselves are read by
+:mod:`pint_tpu_torch.io.bsp`, which :func:`get_ephemeris` returns when it
+finds one.
+
 Units: positions in light-seconds, velocities in light-seconds/second
 (dimensionless v/c), times TDB MJD (float64). Every function is tensor
 code on the device of its time argument. Velocities are the exact
@@ -338,18 +342,49 @@ def _analytic(**kwargs) -> AnalyticEphemeris:
     return inst
 
 
-def get_ephemeris(name: str = "builtin_analytic", **kwargs) -> Ephemeris:
-    """Ephemeris factory. DE names fall back to the analytic model.
+_SPK_INSTANCES: dict = {}
 
-    'DE421'/'DE440' name JPL kernels; this package has no ``.bsp`` reader
-    yet, so they log the reference's warning and return the analytic
-    model, and par files naming an ephemeris still load.
+
+def get_ephemeris(name: str = "builtin_analytic", **kwargs) -> Ephemeris:
+    """Ephemeris factory: 'DE421'/'DE440' name JPL kernels.
+
+    A DE name looks for ``<name>.bsp`` (lower case) in
+    ``$PINT_TORCH_EPHEM_DIR``, then in the working directory, and
+    returns one :class:`~pint_tpu_torch.io.bsp.SPKEphemeris` per resolved
+    path. Without a kernel it logs the reference's warning and returns
+    the analytic model, so par files naming an ephemeris still load;
+    ``PINT_TORCH_STRICT_EPHEM=1`` makes that a ``FileNotFoundError``.
+    Both variables are read at each call.
     """
     if name.lower() in ("builtin_analytic", "analytic", ""):
         return _analytic(**kwargs)
     if name.lower().startswith("de"):
+        import os
+
+        from pint_tpu_torch import env_on
+
+        for d in (os.environ.get("PINT_TORCH_EPHEM_DIR", ""), "."):
+            if not d:
+                continue
+            path = os.path.join(d, f"{name.lower()}.bsp")
+            if os.path.isfile(path):
+                from pint_tpu_torch.io.bsp import SPKEphemeris
+
+                key = os.path.abspath(path)
+                inst = _SPK_INSTANCES.get(key)
+                if inst is None:
+                    inst = _SPK_INSTANCES[key] = SPKEphemeris(
+                        path, name=name.upper())
+                return inst
+        if env_on("PINT_TORCH_STRICT_EPHEM", False):
+            raise FileNotFoundError(
+                f"JPL ephemeris {name} requested but no {name.lower()}.bsp "
+                "found (PINT_TORCH_EPHEM_DIR) and PINT_TORCH_STRICT_EPHEM is "
+                "set; refusing the arcsecond-level analytic fallback")
         log.warning(
             "JPL ephemeris %s not available offline; using builtin analytic "
-            "ephemeris", name)
+            "ephemeris (set PINT_TORCH_EPHEM_DIR to provide %s.bsp, or "
+            "PINT_TORCH_STRICT_EPHEM=1 to make this an error)",
+            name, name.lower())
         return _analytic(**kwargs)
     raise ValueError(f"unknown ephemeris {name!r}")

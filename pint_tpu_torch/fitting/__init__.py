@@ -9,3 +9,5 @@ from pint_tpu_torch.fitting.gls import (  # noqa: F401
 from pint_tpu_torch.fitting.gls_step import (  # noqa: F401
     NoiseStatics, build_noise_statics, gls_solve_seg, make_gls_step)
 from pint_tpu_torch.fitting.hybrid import HybridGLSFitter  # noqa: F401
+from pint_tpu_torch.fitting.wideband import (  # noqa: F401
+    WidebandDownhillFitter, WidebandTOAFitter)

@@ -2,7 +2,7 @@
 
 Counterpart of ``pint_tpu.fitting.device_loop`` (``build_damped_loop``,
 ``InFlightFit``, ``dispatch_damped``, ``run_damped``, ``dense_wls_fit``,
-``dense_gls_fit``). The host loop
+``dense_gls_fit``, ``dense_wideband_fit``). The host loop
 (:func:`pint_tpu_torch.fitting.damped.downhill_iterate`) fetches one
 chi2 per step and per halving trial, and each of its steps is some two
 thousand eager kernel launches. Here the loop's state lives on the
@@ -626,4 +626,51 @@ def dense_gls_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
         key=("dense_gls", id(step), id(probe), id(toas_b)),
         maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_gls",
+        stats=stats)
+
+
+def dense_wb_operands(model, toas):
+    """What a dense wideband fit of `toas` runs over, built on the host
+    before capture: ``(toas_b, noise, dm, pl_specs)``, the bucketed
+    table, the noise statics padded to it with the scaled TOA and DM
+    uncertainties as ``sigma``/``dm_sigma`` (where one scaling component
+    makes them one vector), the wideband DM block padded with inert rows
+    (:func:`~pint_tpu_torch.fitting.wideband.build_wb_data`) and the
+    power-law bases' specs."""
+    from pint_tpu_torch.fitting.gls_step import (dm_sigma_traceable,
+                                                 scaled_dm_sigma_np)
+    from pint_tpu_torch.fitting.wideband import build_wb_data
+
+    toas_b, noise, pl_specs = dense_gls_operands(model, toas)
+    n_target = len(toas_b)
+    if dm_sigma_traceable(model):
+        noise = noise._replace(dm_sigma=torch.as_tensor(
+            scaled_dm_sigma_np(model, toas, n_target), device=toas.device))
+    return toas_b, noise, build_wb_data(toas, n_target), pl_specs
+
+
+def dense_wideband_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
+                       max_step_halvings=8, stats: dict | None = None):
+    """Fused dense wideband fit: the joint TOA+DM damped loop over the
+    bucketed table, on the table's device, with or without
+    correlated-noise bases.
+
+    The cached wideband step/probe pair (:func:`~pint_tpu_torch.fitting
+    .wideband.cached_wb_step`) over :func:`dense_wb_operands`; the DM
+    rows join no ECORR epoch. Returns ``(deltas, info, chi2, converged,
+    counters)``.
+    """
+    from pint_tpu_torch.fitting.wideband import cached_wb_probe, cached_wb_step
+
+    dev = toas.device
+    toas_b, noise, dm, pl_specs = dense_wb_operands(model, toas)
+    step = cached_wb_step(model, pl_specs=pl_specs, device=dev)
+    probe = cached_wb_probe(model, pl_specs=pl_specs, device=dev)
+    return run_damped(
+        lambda d, ops: step(ops[0], d, toas_b, ops[1], ops[2]),
+        model.zero_deltas(device=dev), (model.base_dd(dev), noise, dm),
+        probe=lambda d, ops: probe(ops[0], d, toas_b, ops[1], ops[2]),
+        key=("dense_wb", id(step), id(probe), id(toas_b)),
+        maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
+        max_step_halvings=max_step_halvings, kind="device_loop_wb",
         stats=stats)

@@ -77,6 +77,8 @@ def wls_solve_gram(M: torch.Tensor, r: torch.Tensor, werr: torch.Tensor) -> dict
 class Fitter:
     """Base fitter: holds (toas, model), exposes fit_toas / summaries."""
 
+    resid_cls = Residuals
+
     def __init__(self, toas, model, residuals: Residuals | None = None,
                  track_mode: str | None = None):
         self.toas = toas
@@ -92,21 +94,22 @@ class Fitter:
         self.diverged = False
         self.diverged_reason: str | None = None
 
-    def _new_resids(self) -> Residuals:
-        return Residuals(self.toas, self.model, track_mode=self.track_mode)
+    def _new_resids(self):
+        return self.resid_cls(self.toas, self.model, track_mode=self.track_mode)
 
     @staticmethod
     def auto(toas, model, downhill: bool = True):
         """Pick the fitter class for the model (reference: Fitter.auto
-        chooses WLS/GLS/Wideband x Downhill by model content)."""
+        chooses WLS/GLS/Wideband x Downhill by model content): wideband
+        tables (every TOA carries ``-pp_dm``) take the joint TOA+DM
+        fitters."""
         from pint_tpu_torch.fitting import gls as _gls
 
-        dm = [f.get("pp_dm") for f in toas.flags]
-        if dm and all(v is not None for v in dm):
-            raise NotImplementedError(
-                "wideband TOAs (every TOA carries -pp_dm): the wideband "
-                "fitters (pint_tpu/fitting/wideband.py) are not ported to "
-                "pint_tpu_torch yet")
+        if toas.is_wideband():
+            from pint_tpu_torch.fitting import wideband as _wb
+
+            return (_wb.WidebandDownhillFitter(toas, model) if downhill
+                    else _wb.WidebandTOAFitter(toas, model))
         if model.has_correlated_errors:
             return (_gls.DownhillGLSFitter(toas, model) if downhill
                     else _gls.GLSFitter(toas, model))

@@ -67,7 +67,11 @@ class NoiseStatics(NamedTuple):
     uncertainties [s] (:func:`scaled_sigma_np`); the GLS step and probe
     then read it instead of ``model.scaled_toa_uncertainty``. ``slots``
     are the epochs' rows (:class:`EpochSlots`) that :func:`segment_sum`
-    takes in place of ``epoch_idx`` (:attr:`epochs`).
+    takes in place of ``epoch_idx`` (:attr:`epochs`). ``dm_sigma``
+    optionally carries the DMEFAC/DMEQUAD-scaled wideband DM
+    uncertainties [pc/cm^3] (:func:`scaled_dm_sigma_np`), which the
+    wideband step and probe then read instead of scaling ``dm["errs"]``;
+    narrowband steps never read it.
     """
 
     epoch_idx: torch.Tensor  # (n,) int64 in [0, ne]; ne = "no epoch" dummy
@@ -75,6 +79,7 @@ class NoiseStatics(NamedTuple):
     pl_params: torch.Tensor  # (n_pl, 2) [log10_amp, gamma] per PLSpec entry
     sigma: torch.Tensor | None = None  # (n,) scaled uncertainties [s]
     slots: EpochSlots | None = None
+    dm_sigma: torch.Tensor | None = None  # (n,) scaled DM sigmas [pc/cm^3]
 
     @property
     def epochs(self):
@@ -155,6 +160,53 @@ def sigma_traceable(model) -> bool:
                if getattr(c, "is_noise_scale", False)) == 1
 
 
+def scaled_dm_sigma_np(model, toas, n_target: int | None = None
+                       ) -> np.ndarray:
+    """Numpy mirror of ``model.scaled_dm_uncertainty`` (+ padding).
+
+    The DMEFAC/DMEQUAD analogue of :func:`scaled_sigma_np`: the scaled
+    ``-pp_dme`` errors as one (n,) vector, a static that a captured fit
+    reads. ``n_target`` extends it the way ``wideband.build_wb_data``
+    pads: appended rows carry ``DM_PAD_ERROR`` with the LAST row's
+    selector masks.
+    """
+    from pint_tpu_torch.fitting.wideband import DM_PAD_ERROR
+
+    sigma = np.asarray(toas.get_dm_errors(), dtype=np.float64)
+    k = 0 if n_target is None else n_target - len(sigma)
+    if k < 0:
+        raise ValueError(f"n_target {n_target} < ntoas {len(sigma)}")
+    if k:
+        sigma = np.concatenate([sigma, np.full(k, DM_PAD_ERROR)])
+
+    def mask_of(selector):
+        m = np.asarray(toa_mask(selector, toas), dtype=np.float64)
+        if k:
+            m = np.concatenate([m, np.full(k, m[-1])])
+        return m
+
+    var = np.square(sigma)
+    scale = np.ones_like(sigma)
+    for c in model.components:
+        if not hasattr(c, "scale_dm_sigma"):
+            continue
+        for name in c.dmequad_names:
+            p = c.param(name)
+            var = var + mask_of(p.selector) * p.value_f64 ** 2
+        for name in c.dmefac_names:
+            p = c.param(name)
+            scale = np.where(mask_of(p.selector) != 0.0, p.value_f64, scale)
+    return scale * np.sqrt(var)
+
+
+def dm_sigma_traceable(model) -> bool:
+    """Can :func:`scaled_dm_sigma_np` stand in for the model's DM-error
+    scaling? Exactly one ``ScaleDmError``-shaped component (the
+    :func:`sigma_traceable` rule); zero needs no stand-in."""
+    return sum(1 for c in model.components
+               if hasattr(c, "scale_dm_sigma")) == 1
+
+
 def build_noise_statics(model, toas, *, as_numpy: bool = False
                         ) -> tuple[NoiseStatics, tuple[PLSpec, ...]]:
     """Host-side scan of the model's noise components.
@@ -201,11 +253,13 @@ def pad_noise_statics(noise: NoiseStatics, n_target: int) -> NoiseStatics:
     """Extend the statics to ``n_target`` rows (a bucketed table's).
 
     Padding rows point at the dummy ECORR segment (``ne``), so they join
-    no epoch; a per-row ``sigma`` gets ``PAD_ERROR_US`` rows (zero
-    weight). The reference's ``ne_target`` (the batched fits' epoch
-    bucket) and its numpy statics are not ported yet.
+    no epoch; a per-row ``sigma`` gets ``PAD_ERROR_US`` rows and a
+    per-row ``dm_sigma`` ``DM_PAD_ERROR`` rows (zero weight). The
+    reference's ``ne_target`` (the batched fits' epoch bucket) and its
+    numpy statics are not ported yet.
     """
     from pint_tpu_torch.bucketing import PAD_ERROR_US
+    from pint_tpu_torch.fitting.wideband import DM_PAD_ERROR
 
     n = int(noise.epoch_idx.shape[0])
     if n_target < n:
@@ -221,7 +275,12 @@ def pad_noise_statics(noise: NoiseStatics, n_target: int) -> NoiseStatics:
         sigma = torch.cat([sigma, torch.full((k,), PAD_ERROR_US * 1e-6,
                                              dtype=sigma.dtype,
                                              device=sigma.device)])
-    return noise._replace(epoch_idx=epoch_idx, sigma=sigma)
+    dm_sigma = noise.dm_sigma
+    if dm_sigma is not None and dm_sigma.shape[0] == n:
+        dm_sigma = torch.cat([dm_sigma, torch.full((k,), DM_PAD_ERROR,
+                                                   dtype=dm_sigma.dtype,
+                                                   device=dm_sigma.device)])
+    return noise._replace(epoch_idx=epoch_idx, sigma=sigma, dm_sigma=dm_sigma)
 
 
 def fourier_design(t_s: torch.Tensor, nharm: int

@@ -13,7 +13,7 @@ import torch
 
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.ops.dd import DD
-from pint_tpu_torch.toas import TOAs
+from pint_tpu_torch.toas import Flags, TOAs
 
 
 def state_from_numpy(params: dict, toa_columns: dict, *, model,
@@ -27,9 +27,14 @@ def state_from_numpy(params: dict, toa_columns: dict, *, model,
     ``"obs_pos_ls"`` and ``"obs_vel_c"`` (n, 3), ``"planet_pos_ls"``
     (name -> (n, 3)), and optionally ``"flags"`` (per-TOA dicts),
     ``"phase_offset"``, ``"pulse_number"``, ``"obs_names"``/``"obs_index"``,
-    ``"jump_group"``, ``"ephem_name"`` and ``"clock_applied"``. The
-    columns are taken as they are: nothing is recomputed.
-    ``device=None`` means the CUDA card.
+    ``"jump_group"``, ``"ephem_name"`` and ``"clock_applied"``; the
+    wideband DM columns ``"dm_values"``/``"dm_errors"`` (written into
+    each TOA's ``-pp_dm``/``-pp_dme`` flag as the shortest exact
+    decimal) and ``"aux_columns"`` (name -> (n,) array, e.g. the photon
+    weights ``"photon_weight"``). The columns are taken as they are:
+    nothing is recomputed. Mask parameters (DMEFAC, DMEQUAD, DMJUMP)
+    travel in ``params`` like any other; their selectors are the par
+    file's. ``device=None`` means the CUDA card.
     """
     for name, (hi, lo) in params.items():
         model[name].value = (float(np.float64(hi)), float(np.float64(lo)))
@@ -40,7 +45,12 @@ def state_from_numpy(params: dict, toa_columns: dict, *, model,
                                device=dev)
 
     n = int(np.shape(toa_columns["tdb.hi"])[0])
-    flags = tuple(toa_columns.get("flags") or ({} for _ in range(n)))
+    flags = [dict(f) for f in (toa_columns.get("flags") or ({} for _ in range(n)))]
+    for key, flag in (("dm_values", "pp_dm"), ("dm_errors", "pp_dme")):
+        if toa_columns.get(key) is not None:
+            for f, v in zip(flags, np.asarray(toa_columns[key], np.float64)):
+                f[flag] = repr(float(v))
+    flags = Flags(flags)
     pulse_number = toa_columns.get("pulse_number")
     if pulse_number is None:
         pulse_number = [float(f.get("pn", "nan")) for f in flags]
@@ -64,4 +74,6 @@ def state_from_numpy(params: dict, toa_columns: dict, *, model,
         flags=flags,
         ephem_name=str(toa_columns.get("ephem_name", "builtin_analytic")),
         clock_applied=bool(toa_columns.get("clock_applied", True)),
+        aux_columns={k: torch.as_tensor(np.array(v, np.float64), device=dev)
+                     for k, v in (toa_columns.get("aux_columns") or {}).items()},
     )

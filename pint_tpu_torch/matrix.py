@@ -1,7 +1,8 @@
 """Labeled design / covariance / correlation matrices.
 
 Counterpart of ``pint_tpu.matrix`` (reference: ``pint.pint_matrix`` ::
-DesignMatrix, CovarianceMatrix, CorrelationMatrix). Labels are
+DesignMatrix, CovarianceMatrix, CorrelationMatrix and the wideband
+``combine_design_matrices_by_quantity``/``_by_param``). Labels are
 ``(param name, unit string)`` pairs on plain float64 host arrays: the
 host-side reporting layer on top of the fitters' tensors.
 """
@@ -43,15 +44,16 @@ class DesignMatrix:
     @classmethod
     def from_model(cls, model, toas, params: list[str] | None = None,
                    quantity: str = "toa") -> "DesignMatrix":
-        if quantity == "dm":
-            raise NotImplementedError(
-                "the wideband DM design matrix (pint_tpu/fitting/wideband.py) "
-                "is not ported to pint_tpu_torch yet")
-        if quantity != "toa":
+        if quantity == "toa":
+            M, names = model.designmatrix(toas, params)
+            qunit = "s"
+        elif quantity == "dm":
+            M, names = model.dm_designmatrix(toas, params)
+            qunit = "pc cm^-3"
+        else:
             raise ValueError(f"unknown design-matrix quantity {quantity!r}")
-        M, names = model.designmatrix(toas, params)
         return cls(M.cpu().numpy(), list(names),
-                   _param_units(model, list(names)), quantity, "s")
+                   _param_units(model, list(names)), quantity, qunit)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -65,6 +67,60 @@ class DesignMatrix:
 
     def labels(self) -> list[tuple[str, str]]:
         return list(zip(self.params, self.units))
+
+
+def combine_design_matrices_by_quantity(matrices: list[DesignMatrix]
+                                        ) -> DesignMatrix:
+    """Stack row blocks of different quantities over one parameter set.
+
+    The wideband joint fit stacks the TOA block on top of the DM block;
+    all blocks must share the same parameter columns (order included).
+    Reference: pint.pint_matrix.combine_design_matrices_by_quantity.
+    """
+    if not matrices:
+        raise ValueError("no design matrices given")
+    first = matrices[0]
+    for m in matrices[1:]:
+        if m.params != first.params:
+            raise ValueError(
+                f"parameter columns differ: {m.params} vs {first.params}")
+    return DesignMatrix(
+        np.concatenate([m.matrix for m in matrices], axis=0),
+        list(first.params), list(first.units),
+        quantity="+".join(m.quantity for m in matrices),
+        quantity_unit="+".join(m.quantity_unit for m in matrices))
+
+
+def combine_design_matrices_by_param(matrices: list[DesignMatrix]
+                                     ) -> DesignMatrix:
+    """Concatenate parameter-column blocks over one quantity/row axis.
+
+    Shared columns must be bitwise identical (they come from the same
+    model and table); new columns append. Reference:
+    pint.pint_matrix.combine_design_matrices_by_param.
+    """
+    if not matrices:
+        raise ValueError("no design matrices given")
+    out = matrices[0]
+    for m in matrices[1:]:
+        if m.matrix.shape[0] != out.matrix.shape[0]:
+            raise ValueError("row (quantity) axes differ")
+        new_cols, new_params, new_units = [], [], []
+        for j, p in enumerate(m.params):
+            if p in out.params:
+                if not np.array_equal(m.matrix[:, j],
+                                      out.matrix[:, out.params.index(p)]):
+                    raise ValueError(f"conflicting columns for {p}")
+                continue
+            new_cols.append(m.matrix[:, j])
+            new_params.append(p)
+            new_units.append(m.units[j])
+        if new_cols:
+            out = DesignMatrix(
+                np.concatenate([out.matrix, np.stack(new_cols, 1)], axis=1),
+                out.params + new_params, out.units + new_units,
+                out.quantity, out.quantity_unit)
+    return out
 
 
 @dataclasses.dataclass

@@ -5,18 +5,14 @@ Counterpart of ``pint_tpu.models.builder``. Component classes advertise
 component (the first applicable class of a category wins), hands each
 the parsed par file, and validates the assembled model.
 
-Every narrowband component of the reference is carried. A par file that
-selects ``ScaleDmError`` (DMEFAC/DMEQUAD, which scale wideband DM
-uncertainties: the port's tables carry no wideband DMs yet) raises
-``NotImplementedError`` naming it, rather than building a model that
-silently lacks a term. ``allow_tcb=True`` converts a ``UNITS TCB`` par
-file to TDB, as the reference's does.
+Every component of the reference is carried, in its build order.
+``allow_tcb=True`` converts a ``UNITS TCB`` par file to TDB, as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import logging
-import re
 
 from pint_tpu_torch.io.parfile import ParFile, parse_parfile
 from pint_tpu_torch.models.absolute_phase import AbsPhase
@@ -30,7 +26,7 @@ from pint_tpu_torch.models.glitch import Glitch
 from pint_tpu_torch.models.ifunc import IFunc
 from pint_tpu_torch.models.jump import DispersionJump, PhaseJump
 from pint_tpu_torch.models.noise import (EcorrNoise, PLChromNoise, PLDMNoise,
-                                         PLRedNoise, ScaleToaError)
+                                         PLRedNoise, ScaleDmError, ScaleToaError)
 from pint_tpu_torch.models.phase_offset import PhaseOffset
 from pint_tpu_torch.models.piecewise import PiecewiseSpindown
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
@@ -42,7 +38,7 @@ from pint_tpu_torch.models.wave import DMWaveX, Wave, WaveX
 
 log = logging.getLogger(__name__)
 
-# Build-priority list (the reference's order, ScaleDmError aside).
+# Build-priority list (the reference's order).
 # Within a category the first applicable class wins (ecliptic astrometry
 # shadows equatorial when ELONG is present).
 COMPONENT_BUILD_ORDER: list[type] = [
@@ -69,6 +65,7 @@ COMPONENT_BUILD_ORDER: list[type] = [
     DispersionJump,
     PhaseOffset,
     ScaleToaError,
+    ScaleDmError,
     EcorrNoise,
     PLRedNoise,
     PLDMNoise,
@@ -76,17 +73,6 @@ COMPONENT_BUILD_ORDER: list[type] = [
     AbsPhase,
 ]
 
-
-def _any_line(pf, pattern: str) -> bool:
-    pat = re.compile(pattern)
-    return any(pat.match(l.name) for l in pf.lines)
-
-
-# The reference's components this package does not carry yet, each with
-# the par-file test its applicable() makes.
-UNPORTED_COMPONENTS = {
-    "ScaleDmError": lambda pf: _any_line(pf, r"^(DMEFAC|DMEQUAD)\d*$"),
-}
 
 _HEADER_KEYS = ["PSR", "PSRJ", "PSRB", "BINARY", "EPHEM", "CLK", "CLOCK", "UNITS",
                 "TIMEEPH", "T2CMETHOD", "DILATEFREQ", "DMDATA", "NTOA",
@@ -102,13 +88,6 @@ def get_model(parfile: str | ParFile, *, allow_tcb: bool = False) -> TimingModel
     default such a file is refused, as by the reference.
     """
     pf = parse_parfile(parfile) if isinstance(parfile, str) else parfile
-
-    unported = [name for name, selects in UNPORTED_COMPONENTS.items()
-                if selects(pf)]
-    if unported:
-        raise NotImplementedError(
-            f"par file selects {', '.join(unported)}, not ported to "
-            "pint_tpu_torch yet")
     units = (pf.get_value("UNITS") or "TDB").upper()
     if units == "TCB":
         if not allow_tcb:

@@ -1,12 +1,12 @@
 """Noise models: white-noise scaling and correlated-noise bases for GLS.
 
-Counterpart of ``pint_tpu.models.noise`` for ``ScaleToaError``,
-``EcorrNoise``, ``PLRedNoise``, ``PLDMNoise`` and ``PLChromNoise``
-(``ScaleDmError`` acts on wideband DM measurements, which the port's
-tables do not carry yet). Noise components are neither delay
-nor phase terms; they contribute
+Counterpart of ``pint_tpu.models.noise`` (``ScaleToaError``,
+``ScaleDmError``, ``EcorrNoise``, ``PLRedNoise``, ``PLDMNoise`` and
+``PLChromNoise``). Noise components are neither delay nor phase terms;
+they contribute
 
-* a rescaling of the per-TOA uncertainties (EFAC/EQUAD),
+* a rescaling of the per-TOA uncertainties (EFAC/EQUAD) or of the
+  wideband DM uncertainties (DMEFAC/DMEQUAD),
 * a basis/weight pair (U, phi) for the correlated-noise covariance
   C = N + U diag(phi) U^T: dense host numpy arrays for the dense GLS
   fitters (``basis_weight``), or ECORR epochs (indices + prior
@@ -31,7 +31,8 @@ import torch
 
 from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.models.component import Component
-from pint_tpu_torch.models.parameter import Param, float_param, toa_mask
+from pint_tpu_torch.models.parameter import (Param, device_mask, float_param,
+                                             toa_mask)
 from pint_tpu_torch.toas import host_array
 
 FYR_HZ = 1.0 / (365.25 * SECS_PER_DAY)
@@ -120,6 +121,60 @@ class ScaleToaError(NoiseComponent):
         for name in self.efac_names:
             p = self.param(name)
             scale = torch.where(mask(p), p.value_f64, scale)
+        return scale * torch.sqrt(var)
+
+
+class ScaleDmError(NoiseComponent):
+    """DMEFAC/DMEQUAD scaling of wideband DM uncertainties (reference:
+    ScaleDmError): scaled sigma = DMEFAC * sqrt(sigma^2 + DMEQUAD^2)."""
+
+    category = "scale_dm_error"
+    is_noise_scale = False  # scales DM errors, not TOA errors
+    extra_par_names = ("DMEFAC", "DMEQUAD")
+
+    def __init__(self):
+        super().__init__()
+        self.dmefac_names: list[str] = []
+        self.dmequad_names: list[str] = []
+
+    def _add(self, kind: str, selector: tuple[str, ...], value: float) -> Param:
+        names = self.dmefac_names if kind == "DMEFAC" else self.dmequad_names
+        idx = len(names) + 1
+        name = f"{kind}{idx}"
+        p = float_param(name, units="" if kind == "DMEFAC" else "pc/cm3",
+                        desc=f"{kind} for {selector}", index=idx)
+        p.selector = tuple(str(s) for s in selector)
+        p.value = (float(value), 0.0)
+        names.append(name)
+        return self.add_param(p)
+
+    @classmethod
+    def applicable(cls, pf) -> bool:
+        return any(True for _ in _mask_lines(pf, ("DMEFAC", "DMEQUAD")))
+
+    @classmethod
+    def from_parfile(cls, pf) -> "ScaleDmError":
+        self = cls()
+        for line in _mask_lines(pf, ("DMEFAC",)):
+            p = self._add("DMEFAC", tuple(line.rest), 1.0)
+            p.set_from_par(line.value)
+        for line in _mask_lines(pf, ("DMEQUAD",)):
+            p = self._add("DMEQUAD", tuple(line.rest), 0.0)
+            p.set_from_par(line.value)
+        return self
+
+    def scale_dm_sigma(self, sigma: torch.Tensor, toas) -> torch.Tensor:
+        """The scaled DM uncertainties of `toas`; the selector masks are
+        the table's device tensors (no host copy)."""
+        var = sigma * sigma
+        for name in self.dmequad_names:
+            p = self.param(name)
+            var = var + device_mask(p.selector, toas) * (p.value_f64 * p.value_f64)
+        scale = torch.ones_like(sigma)
+        for name in self.dmefac_names:
+            p = self.param(name)
+            scale = torch.where(device_mask(p.selector, toas) != 0.0,
+                                p.value_f64, scale)
         return scale * torch.sqrt(var)
 
 

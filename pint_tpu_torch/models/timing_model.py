@@ -266,6 +266,15 @@ class TimingModel:
                 sigma = c.scale_sigma(sigma, toas)
         return sigma
 
+    def scaled_dm_uncertainty(self, toas) -> torch.Tensor:
+        """Per-TOA wideband-DM sigma [pc/cm^3] after DMEFAC/DMEQUAD, on
+        the table's device."""
+        sigma = torch.as_tensor(toas.get_dm_errors(), device=toas.device)
+        for c in self.components:
+            if hasattr(c, "scale_dm_sigma"):
+                sigma = c.scale_dm_sigma(sigma, toas)
+        return sigma
+
     def _noise_basis_pairs(self, toas) -> list[tuple[str, np.ndarray, np.ndarray]]:
         """[(component name, U, phi)] — built once per (toas, noise params).
 

@@ -182,3 +182,173 @@ PHOFF 0.01 1
     gap = torch.max(torch.abs((ph_c.frac.hi - ph_g.frac.hi.cpu())
                               + (ph_c.frac.lo - ph_g.frac.lo.cpu())))
     assert float(gap) / model.f0_f64 <= 1e-12
+
+
+WB_PAR = """
+PSRJ J1713+0747
+RAJ 17:13:49.53 1
+DECJ 07:47:37.5 1
+F0 218.81 1
+F1 -4.08e-16 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 15.97 1
+DM1 1e-4 1
+DMEPOCH 55000
+EPHEM DE421
+TZRMJD 55000.1
+TZRFRQ 1400
+TZRSITE 1
+EFAC -fe Rcvr_800 1.1
+DMEFAC -fe Rcvr_800 1.2
+DMEQUAD -fe Rcvr1_2 2e-5
+DMJUMP -fe Rcvr_800 1e-3 1
+TNREDAMP -13.5
+TNREDGAM 3.5
+TNREDC 10
+"""
+
+
+def test_wideband_step_on_the_card_equals_the_cpus(cuda_device):
+    """One wideband step (2,000 GBT TOAs at two receivers, DMEFAC/DMEQUAD,
+    a DMJUMP, red noise) on the card and on the CPU: chi2 within 1e-9
+    relative, the new deltas within 1e-6 sigma."""
+    from pint_tpu_torch.fitting import gls_step, wideband
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    rng = np.random.default_rng(6)
+    n = 2000
+    low = rng.random(n) < 0.5
+    flags = [{"fe": "Rcvr_800" if lo else "Rcvr1_2",
+              "pp_dm": repr(15.97 + rng.normal(0.0, 1e-4)), "pp_dme": "0.0001"}
+             for lo in low]
+    cpu = build_TOAs_from_arrays(
+        DD(np.sort(rng.uniform(54000.0, 56000.0, n)), np.zeros(n)),
+        freq_mhz=np.where(low, 800.0, 1400.0), error_us=1.0,
+        obs_names=("gbt",), eph="DE421", flags=flags, device="cpu")
+    out = []
+    for t in (cpu, cpu.to(cuda_device)):
+        model = get_model(WB_PAR)
+        noise, specs = gls_step.build_noise_statics(model, t)
+        step = wideband.make_wb_step(model, pl_specs=specs, device=t.device)
+        out.append(step(model.base_dd(t.device),
+                        model.zero_deltas(device=t.device), t, noise,
+                        wideband.build_wb_data(t)))
+    (nc, ic), (ng, ig) = out
+    assert abs(float(ig["chi2"]) / float(ic["chi2"]) - 1) <= 1e-9
+    for k, v in nc.items():
+        assert abs(float(ng[k]) - float(v)) <= 1e-6 * float(ic["errors"][k]), k
+
+
+def test_spk_build_on_the_card_equals_the_cpus(cuda_device, tmp_path):
+    """A GBT table built through a synthetic SPK kernel (fitted to the
+    analytic ephemeris by the port's own writer) on the card and on the
+    CPU: TDB within 1 ps, positions within 1e-11 lt-s."""
+    from pint_tpu_torch.ephemeris import AnalyticEphemeris
+    from pint_tpu_torch.io import bsp
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.toas import build_TOAs_from_arrays
+
+    eph = AnalyticEphemeris()
+    day = 86400.0
+    et0, et1 = ((m - bsp.ET_J2000_MJD) * day for m in (54990.0, 55410.0))
+
+    def km(fn):
+        return lambda et: (fn(torch.as_tensor(bsp.ET_J2000_MJD + et / day))[0]
+                           * (299792458.0 / 1000.0)).numpy()
+
+    emb = km(lambda t: eph.planet_posvel_ssb("emb", t))
+    earth = km(eph.earth_posvel_ssb)
+    path = str(tmp_path / "de999.bsp")
+    bsp.write_spk_type2(path, [
+        bsp.chebyshev_fit_segment(emb, et0, et1, 16 * day, 12, 3, 0),
+        bsp.chebyshev_fit_segment(lambda et: earth(et) - emb(et), et0, et1,
+                                  4 * day, 12, 399, 3),
+        bsp.chebyshev_fit_segment(km(eph.sun_posvel_ssb), et0, et1, 16 * day,
+                                  12, 10, 0)])
+    spk = bsp.SPKEphemeris(path)
+    rng = np.random.default_rng(7)
+    n = 2000
+    mjd = DD(np.sort(rng.uniform(55000.0, 55400.0, n)), np.zeros(n))
+    kw = dict(freq_mhz=1400.0, error_us=1.0, obs_names=("gbt",), eph=spk,
+              planets=False)
+    cpu = build_TOAs_from_arrays(mjd, device="cpu", **kw)
+    card = build_TOAs_from_arrays(mjd, device=cuda_device, **kw)
+    tdb = ((card.tdb.hi.cpu() - cpu.tdb.hi) * day
+           + (card.tdb.lo.cpu() - cpu.tdb.lo) * day).abs().max()
+    assert float(tdb) <= 1e-12
+    assert float((card.obs_pos_ls.cpu() - cpu.obs_pos_ls).abs().max()) <= 1e-11
+    assert float((card.planet_pos_ls["sun"].cpu()
+                  - cpu.planet_pos_ls["sun"]).abs().max()) <= 1e-11
+
+
+def test_photon_phases_on_the_card_equal_the_cpus(cuda_device, tmp_path):
+    """20,000 barycentered photons loaded on the card and on the CPU:
+    phases within F0 x 1e-13 s (in turns), the H statistic within 1e-9
+    relative."""
+    from pint_tpu_torch import event_toas, templates
+    from pint_tpu_torch.io.fits import write_event_fits
+    from pint_tpu_torch.models import get_model
+
+    f0 = 61.485476554
+    par = (f"PSRJ J1748-2021E\nRAJ 17:48:52.75\nDECJ -20:21:29.0\nF0 {f0}\n"
+           "F1 0.0\nPEPOCH 53750\nPOSEPOCH 53750\nDM 223.9\nEPHEM DE421\n")
+    rng = np.random.default_rng(8)
+    n = 20_000
+    phases = np.where(rng.random(n) < 0.6,
+                      (0.3 + 0.04 * rng.standard_normal(n)) % 1.0, rng.random(n))
+    turns = np.sort(rng.integers(0, int(3 * 86400 * f0), size=n))
+    path = str(tmp_path / "ev.fits")
+    write_event_fits(path, {"TIME": (turns + phases) / f0}, header={
+        "MJDREFI": 53750, "MJDREFF": 0.0, "TIMESYS": "TDB",
+        "TIMEREF": "SOLARSYSTEM"})
+    out = []
+    for dev in ("cpu", cuda_device):
+        toas = event_toas.load_event_TOAs(path, "generic", device=dev)
+        ph = templates.photon_phases(get_model(par), toas)
+        out.append((ph.cpu().numpy(), templates.h_test(ph)[0]))
+    (pc, hc), (pg, hg) = out
+    assert np.max(np.abs((pg - pc + 0.5) % 1.0 - 0.5)) <= f0 * 1e-13
+    assert abs(hg / hc - 1) <= 1e-9
+
+
+def test_spacecraft_photons_through_the_analytic_ephemeris(cuda_device, tmp_path):
+    """2,000 TT/LOCAL photons with a LEO orbit file, barycentered through
+    the analytic ephemeris on the card and on the CPU: observatory
+    positions within 1e-11 lt-s; phases within F0 x (1e-13 s + the
+    measured position gap) in turns, since a position gap moves the
+    Roemer delay by at most its length."""
+    from pint_tpu_torch import event_toas, templates
+    from pint_tpu_torch.io.fits import write_event_fits
+    from pint_tpu_torch.models import get_model
+
+    f0 = 61.485476554
+    par = (f"PSRJ J1748-2021E\nRAJ 17:48:52.75\nDECJ -20:21:29.0\nF0 {f0}\n"
+           "F1 0.0\nPEPOCH 53750\nPOSEPOCH 53750\nDM 223.9\n")
+    mjdrefi, mjdreff = 56658, 7.775925925925930e-4
+    met0 = (58000.0 - mjdrefi - mjdreff) * 86400.0
+    t_orb = np.arange(met0 - 60.0, met0 + 7200.0, 2.0)
+    w, inc = 2 * np.pi / 5556.0, np.radians(51.6)
+    r_km = 6790.0 * np.stack([np.cos(w * t_orb), np.sin(w * t_orb) * np.cos(inc),
+                              np.sin(w * t_orb) * np.sin(inc)], axis=1)
+    orbit = str(tmp_path / "orbit.fits")
+    write_event_fits(orbit, {"TIME": t_orb, "POSITION": r_km},
+                     header={"MJDREFI": mjdrefi, "MJDREFF": mjdreff,
+                             "TUNIT2": "km"}, extname="ORBIT")
+    path = str(tmp_path / "ev.fits")
+    met = np.sort(np.random.default_rng(9).uniform(met0, met0 + 7000.0, 2000))
+    write_event_fits(path, {"TIME": met}, header={
+        "MJDREFI": mjdrefi, "MJDREFF": mjdreff, "TIMESYS": "TT",
+        "TIMEREF": "LOCAL"})
+    out = []
+    for dev in ("cpu", cuda_device):
+        toas = event_toas.load_event_TOAs(path, "nicer", orbfile=orbit,
+                                          device=dev)
+        out.append((toas.obs_pos_ls.cpu(),
+                    templates.photon_phases(get_model(par), toas).cpu().numpy()))
+    (xc, pc), (xg, pg) = out
+    pos_gap = float((xg - xc).norm(dim=-1).max())
+    assert pos_gap <= 1e-11
+    assert np.max(np.abs((pg - pc + 0.5) % 1.0 - 0.5)) <= f0 * (1e-13 + pos_gap)

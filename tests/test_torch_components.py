@@ -25,7 +25,7 @@ from pint_tpu.utils.dmx import dmxparse as jdmxparse
 from pint_tpu_torch.fitting import WLSFitter, device_loop, step
 from pint_tpu_torch.interop import state_from_numpy
 from pint_tpu_torch.models import get_model
-from pint_tpu_torch.models.builder import UNPORTED_COMPONENTS
+from pint_tpu_torch.models import builder
 from pint_tpu_torch.models.jump import DelayJump
 from pint_tpu_torch.models.parameter import device_mask, materialize_selector_masks
 from pint_tpu_torch.ops.dd import DD
@@ -308,23 +308,23 @@ UNPORTED_LINES = {
 
 
 def test_unported_lines_cover_the_unported_components():
-    assert set(UNPORTED_COMPONENTS) == {"ScaleDmError"}
-    assert set(UNPORTED_COMPONENTS) <= set(UNPORTED_LINES)
+    """No component is left unported: `models/builder.py` keeps no
+    refusal list, and its build order names every class these lines
+    select."""
+    assert not hasattr(builder, "UNPORTED_COMPONENTS")
+    built = {cls.__name__ for cls in builder.COMPONENT_BUILD_ORDER}
+    assert set(UNPORTED_LINES) <= built
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_LINES))
 def test_unported_component_raises(name):
-    """The twelve components this file once held unported: the one
-    still unported (ScaleDmError, wideband) raises naming itself; the
-    others build as the reference's."""
+    """The twelve components this file once held unported (the last,
+    ScaleDmError, came with the wideband fitters): each builds as the
+    reference's."""
     par = BASE + UNPORTED_LINES[name]
     assert jget_model(par).has_component(name)  # the reference builds it
-    if name in UNPORTED_COMPONENTS:
-        with pytest.raises(NotImplementedError, match=name):
-            get_model(par)
-    else:
-        assert [type(c).__name__ for c in get_model(par).components] \
-            == [type(c).__name__ for c in jget_model(par).components]
+    assert [type(c).__name__ for c in get_model(par).components] \
+        == [type(c).__name__ for c in jget_model(par).components]
 
 
 def test_add_remove_and_contains(table):

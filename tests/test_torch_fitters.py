@@ -440,8 +440,11 @@ def test_delay_and_phase_derivative_match_reference(tables):
                                    err_msg=name)
     dm = DesignMatrix.from_model(model, toas)
     assert dm.params == ["Offset"] + model.free_params and dm.get_unit("Offset") == "s"
-    with pytest.raises(NotImplementedError, match="wideband"):
-        DesignMatrix.from_model(model, toas, quantity="dm")
+    # the wideband DM design matrix: d(DM)/d(param), zero for F0/RAJ
+    ddm = DesignMatrix.from_model(model, toas, quantity="dm")
+    assert ddm.params == dm.params and ddm.quantity_unit == "pc cm^-3"
+    np.testing.assert_array_equal(ddm.matrix[:, ddm.params.index("DM")], 1.0)
+    assert not np.any(ddm.matrix[:, ddm.params.index("F0")])
 
 
 # ----------------------------------------------------------------- guards
@@ -472,9 +475,18 @@ def test_guards_flag_divergence_as_the_reference(tables, fault, route):
 
 
 def test_auto_refuses_wideband_tables(tables):
+    """Wideband tables (-pp_dm on every TOA) take the wideband fitters,
+    as the reference's Fitter.auto picks them; a -pp_dm without its
+    -pp_dme is refused by name (tests/test_torch_wideband.py holds the
+    fits)."""
+    ref = with_flag(with_flag(tables["wls"], "pp_dm", "223.9"), "pp_dme", "1e-4")
+    model, toas = port_state(jget_model(PAR_WLS), ref, par=PAR_WLS)
+    assert type(fitting.Fitter.auto(toas, model)).__name__ == type(
+        JFitter.auto(ref, jget_model(PAR_WLS))).__name__ \
+        == "WidebandDownhillFitter"
     model, toas = port_state(jget_model(PAR_WLS),
                              with_flag(tables["wls"], "pp_dm", "223.9"), par=PAR_WLS)
-    with pytest.raises(NotImplementedError, match="fitting/wideband.py"):
+    with pytest.raises(ValueError, match="pp_dme"):
         fitting.Fitter.auto(toas, model)
 
 

@@ -187,11 +187,11 @@ def test_topocentric_tzr_table_matches(topo):
 
 
 def test_unported_component_raises_naming_it():
-    # every narrowband component is carried (test_torch_components_extra.py
-    # holds glitches and the rest); DMEFAC (wideband) is not yet
+    # every component is carried (test_torch_components_extra.py holds
+    # glitches and the rest; test_torch_wideband.py DMEFAC/DMEQUAD)
     assert get_model(PAR_FULL + "GLEP_1 55000\nGLPH_1 0.1\n").has_component("Glitch")
-    with pytest.raises(NotImplementedError, match="ScaleDmError"):
-        get_model(PAR_BARY + "DMEFAC -f fake 1.1\n")
+    m = get_model(PAR_BARY + "DMEFAC -f fake 1.1\n")
+    assert m.has_component("ScaleDmError") and m["DMEFAC1"].value_f64 == 1.1
 
 
 def test_topocentric_site_raises():
