@@ -134,7 +134,25 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    measured position gap); the fitted templates recover the injected
    peaks; a load's spans (the FITS read, the event MJDs in DD on the
    card against the CPU, equal bit for bit);
-15. a ``{"kernels": [...]}`` line, then the last line
+15. analysis and the command line, on the card: ``pintempo --fitter
+   hybrid`` (in-process) on phase 6's 100,000 TOAs written as a tim file,
+   the Gram kernel's launch count set to 0 before and read after, the
+   tim parse and the fit timed, every post-fit value within 1e-3 sigma of
+   phase 6's fit; ``grid_chisq`` over 32 x 32 (F0, F1) nodes of +-3 sigma
+   at those TOAs (RAJ, DECJ, DM re-solved at each node, vmapped in
+   chunks) and ``gls=True`` over 16 x 16 on phase 10's 20,000 TOAs (the
+   dense ECORR and red-noise basis), each with its minimum at its damped
+   fit's node and chi2 there the fit's within 1e-6; ``MCMCFitter`` at
+   10,000 TOAs of bench.py's par without ECORR (default walkers, 500
+   steps, no host sync in the step loop) within 0.5 sigma and 30% of the
+   GLS fit; ``event_optimize`` on 100,000 of phase 14's Fermi-like
+   events (F0 back within 5 sigma of the truth) and ``photonphase`` on
+   its NICER-like file; one day of GBT polycos against the exact phase
+   (1e-7 cycles) and evaluated at 1,000,000 MJDs;
+   ``calculate_random_models`` (100 draws over 100,000 TOAs; card
+   against CPU within 1e-9 cycles at 2,000); ``zima`` writing 100,000
+   TOAs;
+16. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -153,6 +171,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -910,7 +929,10 @@ def check_truth(fitter, truth, label, kicks=KICK):
 
 
 def fitter_api(dev, toas):
-    """Phase 10 (see the module docstring). `toas` is phase 6's table."""
+    """Phase 10 (see the module docstring). `toas` is phase 6's table.
+    Returns phase 15's inputs: the 20,000-TOA table, and the
+    DownhillWLSFitter (phase 6's table) and DownhillGLSFitter (the
+    20,000 TOAs) fits as fit_state()s."""
     from pint_tpu_torch.fitting import (DownhillGLSFitter, DownhillWLSFitter,
                                         Fitter, GLSFitter, WLSFitter, gls_step,
                                         step)
@@ -940,6 +962,7 @@ def fitter_api(dev, toas):
         if type(f) is not DownhillGLSFitter:
             fail(f"Fitter.auto picked {type(f).__name__} for the bench par")
         check_truth(f, truth, f"DownhillGLSFitter at {N_DENSE} TOAs ({run})")
+    gls_state = fit_state(f, chi2)
     step_ms = host_ms(lambda: f._step(), reps=3)
     print(f"one warm DownhillGLSFitter._step: {step_ms:.2f} ms wall", flush=True)
     profile_step("one warm DownhillGLSFitter._step", lambda: f._step(), step_ms)
@@ -957,6 +980,7 @@ def fitter_api(dev, toas):
           f"{chi2:.6f}, reduced {f.resids.reduced_chi2:.6f}; converged "
           f"{f.converged}; peak memory {peak_mb:.1f} MiB", flush=True)
     check_truth(f, truth, f"DownhillWLSFitter at {len(toas)} TOAs")
+    wls_state = fit_state(f, chi2)
 
     model = kicked(PAR_FULL)
     base, d0 = model.base_dd(dev), model.zero_deltas(device=dev)
@@ -1018,6 +1042,7 @@ def fitter_api(dev, toas):
     if gram.ds32_gram.launches:
         fail(f"the fitter API launched ds32_gram {gram.ds32_gram.launches} "
              "times; its solves are float64")
+    return dense, wls_state, gls_state
 
 
 def dense_host_loop(kind, model, toas):
@@ -1991,22 +2016,22 @@ def write_photons(path, mission, met0, span_s, seed, dev, header, orbit=None,
     return target, cols
 
 
-def photon_path(dev, kernels):
+def photon_path(dev, kernels, work):
     """Phase 14 (see the module docstring), through phase 13's kernel in
     `kernels` (PAR_PHOTON's EPHEM DE421) under the strict switch: photon
-    timing barycenters with a JPL ephemeris."""
+    timing barycenters with a JPL ephemeris. The event files stay in
+    `work` for phase 15."""
     with strict_kernels(kernels):
-        return photon_events(dev)
+        return photon_events(dev, work)
 
 
-def photon_events(dev):
+def photon_events(dev, work):
     from pint_tpu_torch import event_toas, templates
     from pint_tpu_torch.io.fits import write_event_fits
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops import gram
 
     before = gram.ds32_gram.launches
-    work = pathlib.Path(tempfile.mkdtemp(prefix="events_"))
     # a LEO orbit (ISS-like: r 6,790 km, 92.6 min, inclined 51.6 deg),
     # sampled every 2 s in km
     mjdrefi, mjdreff = 56658, 7.775925925925930e-4   # NICER's epoch
@@ -2091,7 +2116,6 @@ def photon_events(dev):
             fail(f"{label}: the card's photon phases differ from the CPU's")
         if spec.get("orbit"):
             analytic_subset(label, sub, spec["mission"], kw, model, dev)
-    shutil.rmtree(work)
     if gram.ds32_gram.launches != before:
         fail("the photon path launched ds32_gram")
     return {"photon events (loads, phases, H-test, template fits)":
@@ -2160,6 +2184,370 @@ def analytic_subset(label, sub, mission, kw, model, dev):
     if not (pos_gap <= POS_BAR_LS and dphi <= bar):
         fail(f"{label}: through the analytic ephemeris the card's photon "
              "phases differ from the CPU's by more than their positions do")
+
+
+# Phase 15: analysis and the command line. The grids span +-GRID_SIGMA of
+# their fit's F0/F1 uncertainties; the minimum must be the fit's node
+# (the centre, within one grid step) and chi2 there the fit's within
+# GRID_CHI2_RTOL (the DownhillWLS/GLS fitters return chi2 at their values;
+# GLSFitter's return is its last solve's linearized prediction, 5e-6
+# below that at 2,000 TOAs on the CPU, so the grids are held to the
+# damped fitters)
+GRID_WHITE = 32
+GRID_GLS = 16
+GRID_SIGMA = 3.0
+GRID_CHI2_RTOL = 1e-6
+# pintempo's post-fit values against phase 6's fit of the same table
+PINTEMPO_SIGMA = 1e-3
+# MCMCFitter at N_MCMC TOAs (bench.py's par without ECORR): the posterior
+# against the damped GLS fit of the same table
+PAR_MCMC = PAR_FULL.replace("ECORR 1.2\n", "")
+N_MCMC = 10_000
+MCMC_STEPS = 500
+MCMC_MEAN_SIGMA = 0.5
+MCMC_STD_RTOL = 0.3
+# event_optimize: the Fermi-like file's first N_OPT events; the par's F0
+# is kicked by OPT_KICK Hz with uncertainty OPT_UNC (its default prior is
+# +-10 x that), and the best sample must lie within OPT_SIGMA posterior
+# sigma of the truth
+N_OPT = 100_000
+OPT_STEPS = 250
+OPT_KICK = 1.5e-9
+OPT_UNC = 1e-9
+OPT_SIGMA = 5.0
+# polycos: one day at GBT, the reference test's bar against the model
+POLYCO_MJD = 55000.0
+POLYCO_BAR = 1e-7
+N_POLYCO_EVAL = 1_000_000
+# calculate_random_models: draws over phase 6's table; a 2,000-row
+# subset card against CPU
+N_RANDOM = 100
+RANDOM_BAR = 1e-9
+
+
+def fit_state(fitter, chi2):
+    """A fit's values (exact (hi, lo) pairs), uncertainties, chi2 and
+    covariance, kept after the fitter is freed."""
+    m = fitter.model
+    return {"values": {k: m[k].value for k in fitter.fit_params},
+            "unc": {k: m[k].uncertainty for k in fitter.fit_params},
+            "chi2": float(chi2), "fit_params": list(fitter.fit_params),
+            "cov": fitter.parameter_covariance_matrix}
+
+
+def model_at(par, state):
+    """get_model(par) carrying a fit_state's values and uncertainties."""
+    from pint_tpu_torch.models import get_model
+
+    m = get_model(par)
+    for k, v in state["values"].items():
+        m[k].value = v
+        m[k].uncertainty = state["unc"][k]
+    return m
+
+
+def run_tool(main, argv):
+    """A console tool's main(argv) in-process, its stdout captured and
+    echoed indented; returns (stdout, wall s)."""
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"{main.__module__} {argv} returned {rc}")
+    return out, wall
+
+
+def grid_check(label, toas, par, state, n, gls):
+    """grid_chisq over n x n (F0, F1) offsets of +-GRID_SIGMA about a
+    fit, every other free parameter re-solved at each node."""
+    from pint_tpu_torch import gridutils
+
+    model = model_at(par, state)
+    # node n // 2 is the fit; the steps are 2 GRID_SIGMA / n of its sigma
+    grids = [(np.arange(n) - n // 2) * (2.0 * GRID_SIGMA / n) * state["unc"][k]
+             for k in ("F0", "F1")]
+    rest = [k for k in model.free_params if k not in ("F0", "F1")]
+    chunk = gridutils.default_chunk_size(len(toas), len(rest))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chi2 = gridutils.grid_chisq(toas, model, ("F0", "F1"), grids, gls=gls)
+    wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    i, j = np.unravel_index(np.argmin(chi2), chi2.shape)
+    centre = n // 2
+    at_fit = float(chi2[centre, centre])
+    rel = abs(at_fit / state["chi2"] - 1)
+    print(f"grid_chisq ({label}): {n} x {n} (F0, F1) nodes over +-{GRID_SIGMA:g} "
+          f"sigma, {rest} re-solved at each node, {len(toas)} TOAs: "
+          f"{wall:.3f} s wall, chunk {chunk} nodes, peak memory {peak_mb:.1f} "
+          f"MiB; minimum at node ({i}, {j}) (the fit: {centre}, {centre}); "
+          f"chi2 at the fit's node {at_fit:.6f} against the fit's "
+          f"{state['chi2']:.6f} ({rel:.3e}, bar {GRID_CHI2_RTOL:g}); grid "
+          f"range {chi2.min():.3f}..{chi2.max():.3f}", flush=True)
+    if not (np.all(np.isfinite(chi2)) and abs(i - centre) <= 1
+            and abs(j - centre) <= 1 and rel <= GRID_CHI2_RTOL):
+        fail(f"grid_chisq ({label}) does not have its minimum at the fit")
+    return wall
+
+
+def simulate_mcmc(n, seed, device):
+    """n TOAs of bench.py's traffic from its par without ECORR."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjds = epoch_mjds(n, rng)
+    return make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(n)), get_model(PAR_MCMC),
+        freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
+        error_us=1.0, obs="gbt", add_noise=True,
+        seed=int(rng.integers(2 ** 31)), niter=2, device=device)
+
+
+def mcmc_check(dev):
+    """MCMCFitter on N_MCMC TOAs against the damped GLS fit there, with no
+    host sync inside the sampler's step loop."""
+    from pint_tpu_torch import bayesian, sampler
+    from pint_tpu_torch.fitting import DownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+
+    toas = simulate_mcmc(N_MCMC, seed=7, device=dev)
+    gls = DownhillGLSFitter(toas, get_model(PAR_MCMC))
+    gls.fit_toas(maxiter=10)
+    state = fit_state(gls, gls.resids.chi2)
+    model = model_at(PAR_MCMC, state)
+    run_steps = sampler._run_steps
+
+    def no_sync_steps(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_steps(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    sampler._run_steps = no_sync_steps
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = bayesian.MCMCFitter(toas, model, nsteps=MCMC_STEPS, burn_frac=0.25)
+        best = f.fit_toas()
+        wall = time.perf_counter() - t0
+    finally:
+        sampler._run_steps = run_steps
+    pulls = {k: (model[k].value_f64 - gls.model[k].value_f64) / state["unc"][k]
+             for k in f.bt.fit_params}
+    ratios = {k: model[k].uncertainty / state["unc"][k] for k in f.bt.fit_params}
+    print(f"MCMCFitter: {len(toas)} GBT TOAs (bench.py's par without ECORR, the "
+          f"{model.noise_model_dimensions(toas)} red-noise basis marginalized), "
+          f"{f.nwalkers} walkers x {MCMC_STEPS} steps (burn 0.25): {wall:.3f} s "
+          f"wall, no host sync in the step loop; acceptance "
+          f"{f.acceptance.mean():.3f}; best log posterior {best:.3f}; posterior "
+          f"mean - GLS (sigma) " + ", ".join(f"{k} {v:+.3f}" for k, v in pulls.items())
+          + "; posterior std / GLS uncertainty "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()), flush=True)
+    if not (np.isfinite(best)
+            and all(abs(v) <= MCMC_MEAN_SIGMA for v in pulls.values())
+            and all(abs(v - 1) <= MCMC_STD_RTOL for v in ratios.values())):
+        fail("the MCMC posterior disagrees with the GLS fit")
+    # where a step's time goes: one vmapped evaluation of a half-ensemble
+    lp = torch.func.vmap(f.bt._lnpost)
+    half = torch.as_tensor(f.chain[-(f.nwalkers // 2):], device=dev)
+    eval_ms = host_ms(lambda: lp(half), reps=5)
+    print(f"one vmapped log posterior over {f.nwalkers // 2} walkers: "
+          f"{eval_ms:.2f} ms wall (median of 5)", flush=True)
+    profile_step(f"one vmapped log posterior ({f.nwalkers // 2} walkers)",
+                 lambda: lp(half), eval_ms)
+    return wall
+
+
+def analysis_and_cli(dev, toas, state6, wls_state, dense, gls_state, photons):
+    """Phase 15 (see the module docstring). `toas` is phase 6's table and
+    `state6` its fit; `wls_state` phase 10's DownhillWLSFitter on it;
+    `dense` phase 10's 20,000-TOA table and `gls_state` its
+    DownhillGLSFitter fit; `photons` holds phase 14's event files."""
+    from pint_tpu_torch import event_toas, polycos, simulation
+    from pint_tpu_torch.io.fits import read_fits, write_event_fits
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.scripts import (event_optimize, photonphase, pintempo,
+                                        zima)
+    from pint_tpu_torch.toas import build_TOAs_from_arrays, get_TOAs, write_TOA_file
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="cli_"))
+    par = work / "bench.par"
+    par.write_text(PAR_FULL)
+    tim = work / "bench.tim"
+    t0 = time.perf_counter()
+    write_TOA_file(toas, str(tim))
+    print(f"wrote phase 6's {len(toas)} TOAs as {tim.name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 1. pintempo --fitter hybrid at the main path's width
+    gram.ds32_gram.launches = 0
+    out, wall = run_tool(pintempo.main, [str(par), str(tim), "--fitter", "hybrid",
+                                         "--outfile", str(work / "post.par")])
+    launches = gram.ds32_gram.launches
+    read_s = float(re.search(r"Read \d+ TOAs in ([0-9.]+) s", out).group(1))
+    fit_s = float(re.search(r"Fitted with \w+ in ([0-9.]+) s", out).group(1))
+    print("  " + "\n  ".join(line for line in out.splitlines()
+                             if line.startswith(("Read", "Prefit", "  chi2",
+                                                 "Fitted", "Wrote"))))
+    back = get_TOAs(str(tim), ephem="DE421", device=dev)
+    moved = ((back.utc.hi - toas.utc.hi) + (back.utc.lo - toas.utc.lo)) * 86400.0
+    rms_sigma = float(torch.sqrt(torch.mean(torch.square(moved / toas.get_errors_s()))))
+    post = get_model(str(work / "post.par"))
+    gaps = {k: abs(post[k].value_f64 - (state6["values"][k][0]
+                                         + state6["values"][k][1])) / state6["unc"][k]
+            for k in state6["fit_params"]}
+    print(f"pintempo --fitter hybrid: {wall:.3f} s wall (tim parse {read_s:.3f} s, "
+          f"fit {fit_s:.3f} s); ds32_gram launches {launches}; the tim round "
+          f"trip moves the MJDs by max {float(moved.abs().max()):.3e} s, rms "
+          f"{rms_sigma:.3e} of the TOA errors (so each fitted value by "
+          f"~{rms_sigma:.1e} sigma); post-fit - phase 6's fit (sigma): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (bar {PINTEMPO_SIGMA:g})", flush=True)
+    if launches == 0:
+        fail("pintempo --fitter hybrid did not launch ds32_gram")
+    if not (rms_sigma <= 0.1 * PINTEMPO_SIGMA
+            and max(gaps.values()) <= PINTEMPO_SIGMA):
+        fail("pintempo's post-fit values disagree with phase 6's fit")
+
+    # 2-3. the chi2 grids, white at 100,000 TOAs and GLS at 20,000
+    grid_check("white, phase 6's table, against DownhillWLSFitter", toas,
+               PAR_FULL, wls_state, GRID_WHITE, gls=False)
+    grid_check("gls=True, phase 10's table, against DownhillGLSFitter", dense,
+               PAR_FULL, gls_state, GRID_GLS, gls=True)
+
+    # 4. MCMCFitter at 10,000 TOAs
+    mcmc_check(dev)
+
+    # 5. event_optimize on the Fermi-like file's first N_OPT events,
+    # photonphase on the NICER-like file
+    f = read_fits(str(photons / "fermi.fits"))
+    tab = f.table("EVENTS")
+    opt = work / "fermi_opt.fits"
+    write_event_fits(str(opt), {k: np.asarray(tab[k])[:N_OPT] for k in ("TIME", "WEIGHT")},
+                     header={"MJDREF": 53750.0, "TIMESYS": "TDB",
+                             "TIMEREF": "SOLARSYSTEM", "TELESCOP": "GLAST"})
+    opt_par = work / "photon.par"
+    opt_par.write_text(PAR_PHOTON.replace(
+        f"F0             {PHOTON_F0}",
+        f"F0             {PHOTON_F0 + OPT_KICK!r} 1 {OPT_UNC:g}"))
+    gauss = work / "template.gauss"
+    gauss.write_text("# phase width amplitude\n" + "".join(
+        f"{loc} {w} {a}\n" for loc, w, a in zip(PEAKS["locs"], PEAKS["widths"],
+                                                PEAKS["norms"])))
+    out_par = work / "photon_post.par"
+    out, opt_wall = run_tool(event_optimize.main, [
+        str(opt), str(opt_par), str(gauss), "--mission", "fermi", "--weightcol",
+        "WEIGHT", "--nsteps", str(OPT_STEPS), "--outpar", str(out_par)])
+    opt_model = get_model(str(out_par))
+    pull = (opt_model["F0"].value_f64 - PHOTON_F0) / opt_model["F0"].uncertainty
+    print("  " + "\n  ".join(l for l in out.splitlines() if l.startswith(
+        ("Photons", "log-posterior", "Htest", "  F0", "Sampled"))))
+    print(f"event_optimize: {N_OPT} Fermi-like events, {OPT_STEPS} steps: "
+          f"{opt_wall:.3f} s wall; F0 {opt_model['F0'].value_f64!r} +- "
+          f"{opt_model['F0'].uncertainty:.3e} from a start {OPT_KICK:g} Hz off: "
+          f"{pull:+.3f} sigma from the truth (bar {OPT_SIGMA:g})", flush=True)
+    if not abs(pull) <= OPT_SIGMA:
+        fail("event_optimize did not recover F0")
+    phot_par = work / "photon_truth.par"
+    phot_par.write_text(PAR_PHOTON)
+    out, pp_wall = run_tool(photonphase.main, [
+        str(photons / "nicer.fits"), str(phot_par), "--mission", "nicer",
+        "--orbfile", str(photons / "orbit.fits")])
+    h = float(re.search(r"Htest\s*:\s*([0-9.]+)", out).group(1))
+    print("  " + "\n  ".join(l for l in out.splitlines()
+                             if l.startswith(("Photons", "Htest", "Loaded"))))
+    print(f"photonphase: the NICER-like file ({N_EVENTS} events, orbit file, "
+          f"the analytic ephemeris): {pp_wall:.3f} s wall; H = {h:.1f}",
+          flush=True)
+    if not h > 1000.0:
+        fail("photonphase did not find the pulsations")
+
+    # 6. polycos: one day at GBT from bench.py's par
+    model = get_model(PAR_FULL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcs = polycos.Polycos.generate_polycos(
+        model, POLYCO_MJD, POLYCO_MJD + 1.0, obs="gbt", segment_length_min=60.0,
+        ncoeff=12, freq_mhz=1400.0, device=dev)
+    gen_s = time.perf_counter() - t0
+    mjds = np.sort(np.random.default_rng(15).uniform(POLYCO_MJD + 1e-4,
+                                                     POLYCO_MJD + 1.0 - 1e-4, N_SMALL))
+    exact = build_TOAs_from_arrays(DD(mjds, np.zeros(N_SMALL)),
+                                   freq_mhz=np.full(N_SMALL, 1400.0),
+                                   error_us=np.ones(N_SMALL), obs_names=("gbt",),
+                                   eph=model.ephem, device=dev)
+    ph = model.phase(exact, abs_phase=True)
+    ints, fracs = pcs.eval_abs_phase(mjds)
+    gap = float(np.max(np.abs((ints - ph.int_part.cpu().numpy())
+                              + (fracs - (ph.frac.hi + ph.frac.lo).cpu().numpy()))))
+    many = np.random.default_rng(16).uniform(POLYCO_MJD + 1e-4, POLYCO_MJD + 1.0 - 1e-4,
+                                             N_POLYCO_EVAL)
+    t0 = time.perf_counter()
+    pcs.eval_abs_phase(many)
+    eval_s = time.perf_counter() - t0
+    print(f"polycos: {len(pcs.entries)} segments of 60 min x 12 coefficients at "
+          f"GBT generated in {gen_s:.3f} s (node phases on the card); polyco - "
+          f"exact model phase at {N_SMALL} points {gap:.3e} cycles (bar "
+          f"{POLYCO_BAR:g}); eval_abs_phase at {N_POLYCO_EVAL} MJDs (host) "
+          f"{eval_s:.3f} s", flush=True)
+    if not gap <= POLYCO_BAR:
+        fail("the polycos disagree with the model's phase")
+
+    # 7. calculate_random_models over phase 6's table
+    fitter6 = types.SimpleNamespace(model=model_at(PAR_FULL, state6),
+                                    fit_params=state6["fit_params"],
+                                    parameter_covariance_matrix=state6["cov"])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spread = simulation.calculate_random_models(fitter6, toas, N_RANDOM, seed=3)
+    rm_s = time.perf_counter() - t0
+    rm_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    sub = toas.select(np.arange(len(toas)) < N_SMALL)
+    card = simulation.calculate_random_models(fitter6, sub, N_RANDOM, seed=3)
+    cpu = simulation.calculate_random_models(fitter6, sub.to("cpu"), N_RANDOM, seed=3)
+    rm_gap = float(np.max(np.abs(card - cpu)))
+    print(f"calculate_random_models: {N_RANDOM} draws x {len(toas)} TOAs in "
+          f"{rm_s:.3f} s, peak memory {rm_peak:.1f} MiB; phase spread rms "
+          f"{float(np.std(spread)):.3e} cycles; {N_SMALL} rows card - CPU "
+          f"{rm_gap:.3e} cycles (bar {RANDOM_BAR:g})", flush=True)
+    if not (spread.shape == (N_RANDOM, len(toas)) and np.all(np.isfinite(spread))
+            and rm_gap <= RANDOM_BAR):
+        fail("calculate_random_models on the card disagrees with the CPU")
+
+    # 8. zima: 100,000 TOAs from bench.py's par
+    sim = work / "zima.tim"
+    out, zima_wall = run_tool(zima.main, [
+        str(par), str(sim), "--ntoa", str(N_TOAS), "--startMJD", "53000",
+        "--duration", "3000", "--freq", "1400", "430", "--addnoise", "--seed", "1"])
+    t0 = time.perf_counter()
+    zt = get_TOAs(str(sim), ephem="DE421", device=dev)
+    parse_s = time.perf_counter() - t0
+    zr = Residuals(zt, get_model(PAR_FULL), subtract_mean=False)
+    rms_us = float(torch.sqrt(torch.mean(torch.square(zr.time_resids)))) * 1e6
+    print(f"zima: {N_TOAS} TOAs from bench.py's par: {zima_wall:.3f} s wall "
+          f"({out.strip()}); reloaded in {parse_s:.3f} s, residual rms "
+          f"{rms_us:.4f} us (1 us white noise)", flush=True)
+    if not (len(zt) == N_TOAS and 0.95 < rms_us < 1.05):
+        fail("zima's TOAs do not carry the stated noise")
+    shutil.rmtree(work)
+    print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {f"pintempo --fitter hybrid, {len(toas)} TOAs": launches}
 
 
 def main() -> None:
@@ -2294,6 +2682,7 @@ def main() -> None:
         print(f"  {k} = {p.format_value()} +- {p.format_uncertainty()}")
     print(f"ds32_gram launches in the fit (counted per replay): {launches}",
           flush=True)
+    state6 = fit_state(fitter, chi2)   # phase 15's pintempo run is held to it
     if not (math.isfinite(chi2) and fitter.converged):
         fail(f"fit did not converge to a finite chi2 ({chi2})")
     if not 0.8 <= red <= 1.25:
@@ -2485,7 +2874,7 @@ def main() -> None:
     print(f"device_loop.clear_cache() freed "
           f"{held_mb - torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB of "
           f"captured loops", flush=True)
-    fitter_api(dev, toas)
+    dense, wls_state, gls_state = fitter_api(dev, toas)
 
     phase(f"11 the noise-model path: an EPTA-DR2-like MSP (DD, ChromaticCM, the "
           f"troposphere; red, DM and scattering noise), {N_TOAS} GBT TOAs, "
@@ -2513,10 +2902,19 @@ def main() -> None:
 
     phase(f"14 photon events: {N_EVENTS} NICER-like and {N_EVENTS} Fermi-like "
           f"events on the card, through phase 13's kernel")
-    launches_by_path.update(photon_path(dev, kernels))
+    photons = pathlib.Path(tempfile.mkdtemp(prefix="events_"))
+    launches_by_path.update(photon_path(dev, kernels, photons))
     shutil.rmtree(kernels)
 
-    phase("15 result")
+    phase(f"15 analysis and the command line: pintempo at {N_TOAS} TOAs, the "
+          f"chi2 grids, MCMCFitter at {N_MCMC}, event_optimize, photonphase, "
+          f"polycos, random models, zima")
+    device_loop.clear_cache()
+    launches_by_path.update(analysis_and_cli(dev, toas, state6, wls_state,
+                                             dense, gls_state, photons))
+    shutil.rmtree(photons)
+
+    phase("16 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)

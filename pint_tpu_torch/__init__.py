@@ -29,15 +29,3 @@ def resolve_device(device=None) -> torch.device:
             "host has none; pass device='cpu' to run on the CPU")
     return dev
 
-
-def env_on(name: str, default: bool = True) -> bool:
-    """Boolean knob, kill-switch convention: unset or empty -> `default`;
-    the literal ``"0"`` -> False; any other value -> True. Read per call,
-    so a test can flip it."""
-    import os
-
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    return raw != "0"
-

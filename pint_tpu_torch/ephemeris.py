@@ -354,16 +354,17 @@ def get_ephemeris(name: str = "builtin_analytic", **kwargs) -> Ephemeris:
     path. Without a kernel it logs the reference's warning and returns
     the analytic model, so par files naming an ephemeris still load;
     ``PINT_TORCH_STRICT_EPHEM=1`` makes that a ``FileNotFoundError``.
-    Both variables are read at each call.
+    Both are read at each call (``config.get_config``).
     """
     if name.lower() in ("builtin_analytic", "analytic", ""):
         return _analytic(**kwargs)
     if name.lower().startswith("de"):
         import os
 
-        from pint_tpu_torch import env_on
+        from pint_tpu_torch.config import get_config
 
-        for d in (os.environ.get("PINT_TORCH_EPHEM_DIR", ""), "."):
+        cfg = get_config()
+        for d in (cfg.ephem_dir, "."):
             if not d:
                 continue
             path = os.path.join(d, f"{name.lower()}.bsp")
@@ -376,7 +377,7 @@ def get_ephemeris(name: str = "builtin_analytic", **kwargs) -> Ephemeris:
                     inst = _SPK_INSTANCES[key] = SPKEphemeris(
                         path, name=name.upper())
                 return inst
-        if env_on("PINT_TORCH_STRICT_EPHEM", False):
+        if cfg.strict_ephem:
             raise FileNotFoundError(
                 f"JPL ephemeris {name} requested but no {name.lower()}.bsp "
                 "found (PINT_TORCH_EPHEM_DIR) and PINT_TORCH_STRICT_EPHEM is "

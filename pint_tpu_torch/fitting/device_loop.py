@@ -50,15 +50,14 @@ back to the host loop.
 
 from __future__ import annotations
 
-import collections
-
 import torch
 from torch.utils import _pytree as pytree
 
-from pint_tpu_torch import bucketing, env_on
+from pint_tpu_torch import bucketing, config
 from pint_tpu_torch.fitting.damped import COUNTERS
 from pint_tpu_torch.ops import gram
 from pint_tpu_torch.telemetry import recorder
+from pint_tpu_torch.utils.cache import LRUCache
 
 # accept tolerance of the host loop (damped.downhill_iterate)
 _EPS = 1e-12
@@ -70,13 +69,12 @@ _KERNELS = (gram.ds32_gram,)
 # captured loops keyed by the caller's key, the recorder setting and the
 # arguments' structure, shapes and device; an entry holds its step and
 # probe (and what they close over) alive, so its key cannot be reused
-_CACHE_SIZE = 8
-_LOOP_CACHE: collections.OrderedDict = collections.OrderedDict()
+_LOOP_CACHE = LRUCache(8)
 
 
 def enabled() -> bool:
     """Device-loop gate (read per call so tests can flip the env var)."""
-    return env_on("PINT_TORCH_DEVICE_LOOP", True)
+    return config.env_on("PINT_TORCH_DEVICE_LOOP")
 
 
 def clear_cache() -> None:
@@ -503,7 +501,7 @@ def dispatch_damped(full, deltas0, operands, *, key, probe=None,
     record = recorder.enabled()
     cache_key = (key, record, recorder.TRACE_LEN if record else 0,
                  _signature((deltas0, operands)))
-    cap = _LOOP_CACHE.get(cache_key)
+    cap = _LOOP_CACHE.get_lru(cache_key)
     stats = {"device": str(device), "captures": 0, "replays": 0,
              "fetches": 0, "full": 0, "probe": 0}
     if cap is None:
@@ -512,15 +510,12 @@ def dispatch_damped(full, deltas0, operands, *, key, probe=None,
                            max_step_halvings, device)
         # the init evaluation runs eagerly (the capture's warm-up)
         cap = _Captured(loop, carry0, operands, device)
-        _LOOP_CACHE[cache_key] = cap
-        while len(_LOOP_CACHE) > _CACHE_SIZE:
-            _LOOP_CACHE.popitem(last=False)
+        _LOOP_CACHE.put_lru(cache_key, cap)
         stats["captures"] = len(cap.graphs)
         stats["full"] = 1
         handle = InFlightFit(cap, kind, stats)
         cap.request_flags()
     else:
-        _LOOP_CACHE.move_to_end(cache_key)
         if cap.pending is not None:
             cap.pending.fetch()   # the statics are busy: finish that fit
         cap.start(cap.loop.init(deltas0, maxiter, min_chi2_decrease,

@@ -138,3 +138,17 @@ def get_model(parfile: str | ParFile, *, allow_tcb: bool = False) -> TimingModel
         log.warning("par parameter %s not recognized by any component; "
                     "ignored", nm)
     return model
+
+
+def get_model_and_toas(parfile: str, timfile: str, *, planets: bool = True,
+                       include_clock: bool = True, allow_tcb: bool = False,
+                       device=None, **kw):
+    """Load model and TOAs consistently (reference: get_model_and_toas):
+    the table is built with the model's ephemeris, on `device` (``None``:
+    the CUDA card); ``kw`` goes to :func:`~pint_tpu_torch.toas.get_TOAs`."""
+    from pint_tpu_torch.toas import get_TOAs
+
+    model = get_model(parfile, allow_tcb=allow_tcb)
+    toas = get_TOAs(timfile, ephem=model.ephem, planets=planets,
+                    include_clock=include_clock, device=device, **kw)
+    return model, toas

@@ -21,6 +21,11 @@ from pint_tpu_torch.models.component import DEFAULT_ORDER, Component
 from pint_tpu_torch.models.parameter import Param
 from pint_tpu_torch.ops import dd, phase as phase_mod
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.utils.cache import LRUCache
+
+# entries of a model's cached_fn memo (the reference's _JIT_PROGRAM_CACHE
+# holds 128): each pins the closures it built
+_FN_CACHE_SIZE = 128
 
 
 def _order_key(comp: Component) -> int:
@@ -148,11 +153,13 @@ class TimingModel:
         model's structure (free parameters, device) into ``key``; the
         structure itself (:meth:`structure_key`) is added here.
         """
-        cache = self.__dict__.setdefault("_fn_cache", {})
+        cache = self.__dict__.get("_fn_cache")
+        if cache is None:
+            cache = self.__dict__["_fn_cache"] = LRUCache(_FN_CACHE_SIZE)
         key = (key, self.structure_key())
-        fn = cache.get(key)
+        fn = cache.get_lru(key)
         if fn is None:
-            fn = cache[key] = build(self)
+            fn = cache.put_lru(key, build(self))
         return fn
 
     @staticmethod
@@ -207,6 +214,19 @@ class TimingModel:
                 ph = phase_mod.add(ph, phase_mod.neg(
                     self._phase_at(p, tzr, skip_categories=("phase_offset",))))
             return ph
+
+        return fn
+
+    def phase_fn(self, toas, *, abs_phase: bool = True, device=None):
+        """Build ``fn(base, deltas) -> Phase`` with `toas` closed over
+        (reference: ``TimingModel.phase_fn``): :meth:`phase_fn_toas` bound
+        to one table, its TZR anchor built on the table's device unless
+        `device` says otherwise."""
+        inner = self.phase_fn_toas(abs_phase=abs_phase,
+                                   device=toas.device if device is None else device)
+
+        def fn(base: dict[str, DD], deltas: dict[str, torch.Tensor]) -> phase_mod.Phase:
+            return inner(base, deltas, toas)
 
         return fn
 

@@ -87,7 +87,9 @@ def _discover_clock_chain(name: str):
     ``time_<name>.dat``. Returns the chain, or None if the variable is
     unset or no file matches.
     """
-    clock_dir = os.environ.get("PINT_TORCH_CLOCK_DIR", "")
+    from pint_tpu_torch.config import get_config
+
+    clock_dir = get_config().clock_dir
     if not clock_dir:
         return None
     chain: list[ClockFile] = []

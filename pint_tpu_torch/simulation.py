@@ -1,12 +1,14 @@
 """Fake-TOA simulation: invert the timing-model phase -> arrival times.
 
 Counterpart of ``pint_tpu.simulation`` (``make_fake_toas_uniform``,
-``make_fake_toas_from_arrays``). The inversion is the reference's
+``make_fake_toas_from_arrays``, ``make_fake_toas_fromtim``,
+``calculate_random_models``). The inversion is the reference's
 fixed-point iteration: compute phase residuals at the current epochs,
 shift the epochs by -residual in exact DD, repeat (quadratic
 convergence; 3 passes reach < 1e-12 s). All of it runs on the table's
-device. The noise draw is a ``torch.Generator``'s, so a seed gives other
-numbers than the reference's numpy generator.
+device. The noise draw and the random models' parameter draws are
+numpy's ``default_rng``, as the reference's: a seed gives the
+reference's numbers.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ def _invert_to_model(build, mjd_dd: dd.DD, model, errs: torch.Tensor, *,
 
     Residuals under ``model`` shift the exact DD MJDs by -residual
     ``niter`` times; ``add_noise`` then folds in a Gaussian draw of the
-    stated errors (a ``torch.Generator`` seeded with ``seed``, on the
-    table's device), and the final table is built.
+    stated errors (numpy's ``default_rng(seed)``, the reference's draw),
+    and the final table is built.
     """
     toas = None
     for _ in range(max(0, niter)):
@@ -51,14 +53,10 @@ def _invert_to_model(build, mjd_dd: dd.DD, model, errs: torch.Tensor, *,
         shift = -shift_day
 
     if add_noise:
-        gen = torch.Generator(device=errs.device)
-        if seed is None:
-            gen.seed()
-        else:
-            gen.manual_seed(int(seed))
-        noise_s = torch.randn(errs.shape[0], generator=gen, dtype=torch.float64,
-                              device=errs.device) * errs * 1e-6
-        mjd_dd = dd.add(mjd_dd, noise_s / SECS_PER_DAY)
+        rng = np.random.default_rng(seed)
+        noise_s = torch.as_tensor(rng.standard_normal(errs.shape[0]),
+                                  device=errs.device) * errs * 1e-6
+        mjd_dd = dd.add(mjd_dd, dd.true_div(noise_s, SECS_PER_DAY))
 
     return build(mjd_dd)
 
@@ -141,3 +139,88 @@ def make_fake_toas_from_arrays(mjd_dd: dd.DD, model, *, freq_mhz,
     return _invert_to_model(build, mjd_dd, model,
                             torch.as_tensor(errs, device=dev),
                             add_noise=add_noise, seed=seed, niter=niter)
+
+
+def make_fake_toas_fromtim(timfile, model, *, add_noise: bool = False,
+                           seed: int | None = None, niter: int = 3,
+                           device=None) -> TOAs:
+    """Replace the TOAs of an existing tim file (a path or a parsed
+    :class:`TimFile`) with model-perfect ones, keeping its errors,
+    frequencies, sites and flags; on `device` (``None``: the CUDA card)."""
+    from pint_tpu_torch.io.timfile import parse_timfile
+
+    dev = resolve_device(device)
+    tf = parse_timfile(timfile) if isinstance(timfile, str) else timfile
+    raw = tf.toas
+    mjd_dd = dd.from_strings([t.mjd_str for t in raw], device=dev)
+    errs = torch.as_tensor([t.error_us for t in raw], dtype=torch.float64,
+                           device=dev)
+
+    def build(m):
+        hi, lo = m.hi.cpu().numpy(), m.lo.cpu().numpy()
+        for i, t in enumerate(raw):
+            t.mjd_str = dd.to_string(dd.DD(hi[i], lo[i]), ndigits=25)
+        return get_TOAs(TimFile(toas=raw, n_jump_groups=tf.n_jump_groups),
+                        ephem=model.ephem, device=dev)
+
+    return _invert_to_model(build, mjd_dd, model, errs,
+                            add_noise=add_noise, seed=seed, niter=niter)
+
+
+def calculate_random_models(fitter, toas, Nmodels: int = 100, *,
+                            seed: int | None = None,
+                            return_time: bool = False) -> np.ndarray:
+    """Phase (or time) spread of models drawn from the fit covariance.
+
+    Reference: pint.simulation.calculate_random_models, the engine behind
+    pintk's "random models" overlay. Draws ``Nmodels`` parameter vectors
+    from N(fitted values, parameter covariance) with numpy's
+    ``default_rng(seed)`` (the reference's draws) and evaluates the phase
+    difference of each draw from the fitted model at `toas` (typically a
+    dense fake grid extending past the data): one ``torch.func.vmap`` of
+    the phase function over the draws, on the table's device.
+
+    The difference is taken part-wise (integer parts, then the DD
+    fraction words), as :mod:`pint_tpu_torch.polycos` takes its node
+    phases: the reference's ``int + frac`` rounds each ~1e10-cycle total
+    phase to a few microcycles before subtracting.
+
+    Returns (Nmodels, ntoas) float64 on the host: delta phase [cycles],
+    or seconds with ``return_time``.
+    """
+    model = fitter.model
+    names = list(fitter.fit_params)
+    cov = fitter.parameter_covariance_matrix
+    if cov is None:
+        raise ValueError("fit_toas() has not been run")
+    cov = np.asarray(cov)
+    cov_names = (["Offset"] + names) if cov.shape[0] == len(names) + 1 \
+        else list(names)
+    sel = [cov_names.index(n) for n in names]
+    C = cov[np.ix_(sel, sel)]
+    # draw in a conditioned basis: scale to unit diagonal before Cholesky
+    s = np.sqrt(np.clip(np.diag(C), 1e-300, None))
+    Cn = C / np.outer(s, s)
+    L = np.linalg.cholesky(Cn + 1e-12 * np.eye(len(names)))
+    rng = np.random.default_rng(seed)
+    draws = (L @ rng.standard_normal((len(names), Nmodels))).T * s[None, :]
+
+    dev = toas.device
+    base = model.base_dd(dev)
+    fn = model.phase_fn(toas)
+
+    def phase_at(delta_vec):
+        return fn(base, {n: delta_vec[i] for i, n in enumerate(names)})
+
+    ph0 = phase_at(torch.zeros(len(names), dtype=torch.float64, device=dev))
+
+    def dphase_at(delta_vec):
+        ph = phase_at(delta_vec)
+        return (ph.int_part - ph0.int_part) + ((ph.frac.hi - ph0.frac.hi)
+                                               + (ph.frac.lo - ph0.frac.lo))
+
+    dphase = torch.func.vmap(dphase_at)(torch.as_tensor(draws, device=dev))
+    out = dphase.cpu().numpy()
+    if return_time:
+        out = out / model.f0_f64
+    return out

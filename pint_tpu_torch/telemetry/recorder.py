@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pint_tpu_torch import env_on
+from pint_tpu_torch import config
 
 # scalar-loop entry fields, in emission order
 FIELDS = ("chi2", "lam", "accepted", "halvings", "probe_evals")
@@ -49,7 +49,7 @@ _LAST_TRACE: dict | None = None
 
 def enabled() -> bool:
     """Recorder gate (read per call so tests can flip the env var)."""
-    return env_on("PINT_TORCH_FLIGHT_RECORDER", True)
+    return config.env_on("PINT_TORCH_FLIGHT_RECORDER")
 
 
 def last_trace() -> dict | None:

@@ -263,7 +263,9 @@ def get_TOAs(
         import hashlib
 
         ename = ephem if isinstance(ephem, str) else getattr(ephem, "name", "eph")
-        cdir = (os.environ.get("PINT_TORCH_CACHE_DIR")
+        from pint_tpu_torch.config import get_config
+
+        cdir = (get_config().cache_dir
                 or os.path.dirname(os.path.abspath(timfile)))
         os.makedirs(cdir, exist_ok=True)
         # every value-affecting option is in the name; a path hash keeps

@@ -352,3 +352,65 @@ def test_spacecraft_photons_through_the_analytic_ephemeris(cuda_device, tmp_path
     pos_gap = float((xg - xc).norm(dim=-1).max())
     assert pos_gap <= 1e-11
     assert np.max(np.abs((pg - pc + 0.5) % 1.0 - 0.5)) <= f0 * (1e-13 + pos_gap)
+
+
+def test_vmapped_log_posterior_on_the_card_equals_the_cpus(cuda_device):
+    """One vmapped batch of BayesianTiming log posteriors (bench.py's
+    barycentric par without ECORR: the red-noise basis marginalized) on
+    the card against the same batch on the CPU, within 1e-12 relative. (At
+    a site the card's sin/cos move the Roemer delay's last bit, ~3e-14 s:
+    4.4e-10 of this log posterior.)"""
+    from pint_tpu_torch.bayesian import BayesianTiming
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+    from torch_parity import PAR_BARY, epoch_mjds
+
+    par = PAR_BARY.replace("ECORR 1.2\n", "")
+    rng = np.random.default_rng(4)
+    mjds = epoch_mjds(1000, rng)
+    toas = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(1000)), get_model(par), freq_mhz=1400.0,
+        error_us=1.0, obs="@", add_noise=True, seed=6, niter=2,
+        device="cpu")
+    model = get_model(par)
+    # eight points within a few sigma of a 1,000-TOA fit
+    scale = {"DM": 3e-5, "F0": 3e-12, "F1": 3e-20}
+    X = np.asarray([model[k].value_f64 for k in model.free_params]) \
+        + rng.standard_normal((8, 3)) * np.array([scale[k] for k in model.free_params])
+    out = []
+    for d in ("cpu", cuda_device):
+        bt = BayesianTiming(toas.to(d), get_model(par))
+        out.append(torch.func.vmap(bt._lnpost)(
+            torch.as_tensor(X, device=d)).cpu())
+    gap = float(torch.max(torch.abs(out[1] - out[0]) / torch.abs(out[0])))
+    print(f"  vmapped lnposterior card - CPU: {gap:.3e} relative")
+    assert torch.all(torch.isfinite(out[0])) and gap <= 1e-12
+
+
+def test_pintempo_hybrid_on_the_card_launches_the_kernel(cuda_device, tmp_path,
+                                                         monkeypatch, capsys):
+    """pintempo --fitter hybrid at 2,000 TOAs on the card (the default
+    device) runs the Gram kernel."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.scripts import pintempo
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+    from pint_tpu_torch.toas import write_TOA_file
+    from torch_parity import PAR_FULL, epoch_mjds
+
+    monkeypatch.delenv("PINT_TORCH_DEVICE", raising=False)
+    mjds = epoch_mjds(2000, np.random.default_rng(3))
+    toas = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(2000)), get_model(PAR_FULL), freq_mhz=1400.0,
+        error_us=1.0, obs="gbt", add_noise=True, seed=8, niter=2,
+        device=cuda_device)
+    par, tim = tmp_path / "b.par", tmp_path / "b.tim"
+    par.write_text(PAR_FULL)
+    write_TOA_file(toas, str(tim))
+    before = ds32_gram.launches
+    assert pintempo.main([str(par), str(tim), "--fitter", "hybrid",
+                          "--outfile", str(tmp_path / "post.par")]) == 0
+    assert "device cuda" in capsys.readouterr().out
+    assert ds32_gram.launches > before
+    assert get_model(str(tmp_path / "post.par"))["F0"].uncertainty > 0

@@ -2,15 +2,15 @@
 and writer, event TOAs (barycentered, geocentered, spacecraft with an
 orbit file), photon weights, templates, the H-test and template fits.
 
-The reference's own cases (tests/test_events.py, all but EventFitter's
-and the two command-line cases, which wait for the port's sampler and
-scripts) on the same numpy-seeded event files, each file read by both
-packages. Bars: event TOA columns equal to the reference's op-by-op
-build (TDB 1 ps, positions 1e-11 lt-s); photon phases within 1e-12
-turns; the H statistic within 1e-12 relative; template densities and
-likelihoods within 1e-12 relative; fit_template's parameters within
-1e-6 of the reference's (torch.optim.Adam against optax.adam, the same
-settings and steps).
+The reference's own cases (tests/test_events.py, EventFitter's and the
+two command-line cases included) on the same numpy-seeded event files,
+each file read by both packages. Bars: event TOA columns equal to the
+reference's op-by-op build (TDB 1 ps, positions 1e-11 lt-s); photon
+phases within 1e-12 turns; the H statistic within 1e-12 relative;
+template densities and likelihoods, and EventFitter's log posterior,
+within 1e-12 relative; fit_template's parameters within 1e-6 of the
+reference's (torch.optim.Adam against optax.adam, the same settings and
+steps).
 """
 
 import dataclasses
@@ -314,3 +314,105 @@ def test_read_fits_external_file():
     np.testing.assert_array_equal(cols["b"], [61, 62, 63])
     for k, v in jt.columns.items():
         assert np.array_equal(np.asarray(t.columns[k]), np.asarray(v)), k
+
+
+def test_event_fitter_recovers_f0(tmp_path):
+    """tests/test_events.py's EventFitter case on the port: from F0 off by
+    ~0.08 cycles over the span, the sampler's best F0 lies within 5e-8
+    Hz of the truth."""
+    from pint_tpu_torch.bayesian import UniformPrior
+
+    rng = np.random.default_rng(6)
+    p = tmp_path / "fit.fits"
+    _write_events(p, rng, n=400)
+    toas = ev.load_nicer_TOAs(str(p), device="cpu")
+    model = get_model(PAR.replace(f"F0             {F0}",
+                                  f"F0             {F0}  1"))
+    model["F0"].add_delta(3e-7)
+    f = tpl.EventFitter(toas, model, TEMPLATE,
+                        priors={"F0": UniformPrior(F0 - 2e-6, F0 + 2e-6)})
+    best = f.fit_toas(nsteps=250, seed=2)
+    assert np.isfinite(best)
+    assert f.chain.shape == (188 * 16, 1)
+    assert abs(model["F0"].value_f64 - F0) < 5e-8
+
+
+def test_event_fitter_log_posterior_matches_reference(tmp_path):
+    """EventFitter's log posterior equals the reference's at the same
+    points (REL_BAR), weighted, with phases folded by a floor mod: the
+    unfolded fractions include negative ones, which fold to [0, 1) as
+    the reference's ``%`` folds them."""
+    from pint_tpu import bayesian as jbayes
+    from pint_tpu_torch.bayesian import UniformPrior
+
+    rng = np.random.default_rng(9)
+    p = tmp_path / "w.fits"
+    _write_events(p, rng, n=300, weights=True)
+    par = PAR.replace(f"F0             {F0}", f"F0             {F0}  1") \
+        + "F1 0.0 1\n"
+    with jax.disable_jit():
+        jtoas = jev.load_nicer_TOAs(str(p), weight_column="WEIGHT")
+    toas = ev.load_nicer_TOAs(str(p), weight_column="WEIGHT", device="cpu")
+    jm, m = jget_model(par), get_model(par)
+    jf = jtpl.EventFitter(jtoas, jm, JTEMPLATE,
+                          priors={"F0": jbayes.UniformPrior(F0 - 2e-6, F0 + 2e-6)})
+    f = tpl.EventFitter(toas, m, TEMPLATE,
+                        priors={"F0": UniformPrior(F0 - 2e-6, F0 + 2e-6)})
+    frac = m.phase(toas, abs_phase=True).frac
+    assert torch.any(frac.hi + frac.lo < 0)
+    x0 = np.array([F0, 0.0])
+    for dx in ([0.0, 0.0], [4e-8, 0.0], [-1e-7, 1e-16], [3e-6, 0.0]):
+        x = x0 + np.asarray(dx)
+        with jax.disable_jit():
+            want = float(jf._lnpost(jnp.asarray(x)))
+        got = float(f._lnpost(torch.as_tensor(x)))
+        if np.isinf(want):
+            assert got == want
+        else:
+            assert got == pytest.approx(want, rel=REL_BAR)
+    assert float(torch.remainder(torch.tensor(-0.25, dtype=torch.float64), 1.0)) \
+        == float(jnp.remainder(-0.25, 1.0)) == 0.75
+
+
+def test_photonphase_cli(tmp_path, capsys, monkeypatch):
+    from pint_tpu_torch.scripts import photonphase
+
+    monkeypatch.setenv("PINT_TORCH_DEVICE", "cpu")
+    rng = np.random.default_rng(7)
+    evf = tmp_path / "cli.fits"
+    _write_events(evf, rng, n=300)
+    par = tmp_path / "cli.par"
+    par.write_text(PAR)
+    out = tmp_path / "phases.txt"
+    rc = photonphase.main([str(evf), str(par), "--mission", "nicer",
+                           "--outfile", str(out)])
+    assert rc == 0
+    assert "Htest" in capsys.readouterr().out
+    rows = np.loadtxt(out)
+    assert rows.shape == (300, 2)
+    assert np.all((rows[:, 1] >= 0) & (rows[:, 1] < 1))
+
+
+def test_event_optimize_cli(tmp_path, capsys, monkeypatch):
+    from pint_tpu_torch.scripts import event_optimize
+
+    monkeypatch.setenv("PINT_TORCH_DEVICE", "cpu")
+    rng = np.random.default_rng(8)
+    evf = tmp_path / "opt.fits"
+    _write_events(evf, rng, n=400)
+    par = tmp_path / "opt.par"
+    par.write_text(PAR.replace(f"F0             {F0}",
+                               f"F0             {F0}  1"))
+    tpl_file = tmp_path / "template.gauss"
+    tpl_file.write_text("# phase width amplitude\n0.3 0.04 0.7\n")
+    outpar = tmp_path / "post.par"
+    rc = event_optimize.main([str(evf), str(par), str(tpl_file), "--mission",
+                              "nicer", "--nsteps", "120", "--outpar",
+                              str(outpar)])
+    assert rc == 0
+    assert "Htest post-fit" in capsys.readouterr().out
+    post = get_model(outpar.read_text())
+    assert abs(post["F0"].value_f64 - F0) < 1e-6
+    with pytest.raises(ValueError, match="3 numbers"):
+        tpl_file.write_text("0.3 0.04\n")
+        event_optimize.read_gaussian_template(str(tpl_file))

@@ -133,6 +133,13 @@ def test_tdb_minus_tt_is_the_references(mjds):
           f"max |TDB-TT| {np.max(np.abs(ref)):.3e} s; against numpy: port "
           f"{np.max(np.abs(got - npv)):.3e} s, reference "
           f"{np.max(np.abs(ref - npv)):.3e} s")
+    # which rows moved, and whether the same call again moves them (a
+    # transient fault) or not (a state the process is in)
+    again = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
+    bad = np.nonzero(np.abs(got - npv) > PS)[0]
+    print(f"  rows off numpy by > {PS:g} s: {bad[:20].tolist()} of {hi.size}; "
+          f"the same call again: {np.max(np.abs(again - npv)):.3e} s off numpy; "
+          f"torch threads {torch.get_num_threads()}")
     assert np.max(np.abs(got - ref)) < PS
     assert 1.5e-3 < np.max(np.abs(got)) < 1.8e-3  # the annual term
 
