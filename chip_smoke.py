@@ -152,7 +152,28 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    ``calculate_random_models`` (100 draws over 100,000 TOAs; card
    against CPU within 1e-9 cycles at 2,000); ``zima`` writing 100,000
    TOAs;
-16. a ``{"kernels": [...]}`` line, then the last line
+16. many pulsars, after the loop cache is cleared: the BASELINE config-4
+   batch, 68 members x 8,824 GBT TOAs (600,032; bench.py's batch problem:
+   the bench par with RA stepped by 5 h and F0 by 0.3 Hz per member),
+   simulated on the card, fitted from kicked starts by
+   ``BatchedPulsarFitter.fit_toas`` through the fused batched loop, as
+   the GLS family (the par's EFAC, ECORR and red noise) and the WLS
+   family (its noise lines stripped, as ``bench_batch``): cold (capture)
+   and warm (replays) with the host batched loop as its witness (every
+   member's decisions the same, every full evaluation's chi2 within
+   1e-12), every member converged with chi2/dof in [0.8, 1.25] and every
+   fitted parameter within 5 sigma of the truth, four members against
+   their single-pulsar fused fits at the same row bucket, peak memory,
+   the idle share of a warm fit (torch.profiler) and the 68 table
+   builds' wall; a 4 x 2,000-TOA batch of each family card against CPU;
+   ``ShardedGLSFitter`` on a 1 x 1 mesh over phase 6's table (within
+   1e-3 sigma of phase 6's fit) and ``pintempo --fitter sharded`` on
+   phase 15's tim file; with telemetry writing a JSON-lines file, a warm
+   batch fit's span tree, counters, per-member records and rollup, and
+   with ``PINT_TORCH_TELEMETRY=0`` the same fit writing nothing; zero
+   ds32_gram launches in each of these sub-paths, counted from 0 before
+   each (their Grams are float64);
+17. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -622,8 +643,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the script's wall so far."""
+    print(f"== {name} (at {time.perf_counter() - _T_START:.1f} s)", flush=True)
 
 
 def epoch_mjds(n, rng):
@@ -1350,11 +1375,13 @@ def profile_step(label, fn, wall_ms):
     """torch.profiler over one warm call of fn (a fit, a step or its
     stage 1): the kernels that take the time, and the device's idle share
     of the unprofiled call's wall time `wall_ms`. Returns the trace's
-    device time (ms) and launches by kernel name."""
+    device time (ms) and launches by kernel name. Only the card's
+    activity is recorded: the host ops of an eager fit (~10^6 events)
+    would take tens of seconds to parse and add nothing here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -2373,7 +2400,9 @@ def analysis_and_cli(dev, toas, state6, wls_state, dense, gls_state, photons):
     """Phase 15 (see the module docstring). `toas` is phase 6's table and
     `state6` its fit; `wls_state` phase 10's DownhillWLSFitter on it;
     `dense` phase 10's 20,000-TOA table and `gls_state` its
-    DownhillGLSFitter fit; `photons` holds phase 14's event files."""
+    DownhillGLSFitter fit; `photons` holds phase 14's event files.
+    Returns the kernel launches and the directory holding the par and
+    tim files, which phase 16 reads and removes."""
     from pint_tpu_torch import event_toas, polycos, simulation
     from pint_tpu_torch.io.fits import read_fits, write_event_fits
     from pint_tpu_torch.models import get_model
@@ -2545,9 +2574,496 @@ def analysis_and_cli(dev, toas, state6, wls_state, dense, gls_state, photons):
           f"{rms_us:.4f} us (1 us white noise)", flush=True)
     if not (len(zt) == N_TOAS and 0.95 < rms_us < 1.05):
         fail("zima's TOAs do not carry the stated noise")
-    shutil.rmtree(work)
     print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {f"pintempo --fitter hybrid, {len(toas)} TOAs": launches}
+    return {f"pintempo --fitter hybrid, {len(toas)} TOAs": launches}, work
+
+
+# ----------------------------------------------------------------------
+# phase 16: many pulsars (the BASELINE config-4 batch), sharded fits and
+# the telemetry artifact
+# ----------------------------------------------------------------------
+
+# bench.py's batch problem (bench.py:961-1001): 68 members, each the bench
+# par with RA stepped by 5 h and F0 by 0.3 Hz, 8,824 TOAs each: 600,032
+N_PSR = 68
+N_PER_PSR = 8_824
+NOISE_LINES = ("EFAC", "ECORR", "TNREDAMP", "TNREDGAM", "TNREDC")
+# members compared with their own single-pulsar fit at the same row bucket
+NAMED_MEMBERS = (0, 22, 45, 67)
+# a member of the batch against its single-pulsar fused fit: the same
+# algebra over the same bucketed rows, but the batch's ECORR block padded
+# to the basis bucket and every product batched (other cuBLAS kernels,
+# other summation orders): values within 1e-6 sigma, uncertainties 1e-9
+# and chi2 1e-9 relative (the CPU rehearsal: ~1e-13 and ~1e-15)
+MEMBER_VALUE_SIGMA = 1e-6
+MEMBER_RTOL = 1e-9
+# the sharded GLS fit (f64 Grams) against phase 6's fit (the ds32 kernel):
+# the ds32 conditioning trap moves the uncertainties by ~1e-3 relative
+SHARDED_SIGMA = 1e-3
+N_CARD_CPU_PSR = 4
+
+
+def member_par(i, noise=True):
+    """Member i of the batch: the bench par with RA stepped by 5 h and F0
+    by 0.3 Hz; without its noise lines for the WLS family (bench_batch)."""
+    par = PAR_FULL.replace("17:48:52.75", f"{(i * 5) % 24:02d}:48:52.75")
+    par = par.replace("61.485476554", f"{61.485476554 + 0.3 * i:.9f}")
+    if noise:
+        return par
+    return "".join(line + "\n" for line in par.splitlines()
+                   if line.split()[:1] not in ([k] for k in NOISE_LINES))
+
+
+def simulate_member(i, n, seed, device):
+    """Member i's traffic, as `simulate`'s: n GBT TOAs in 4-TOA epochs at
+    1400/430 MHz with stated errors of 1 us, the arrivals timed perfectly
+    by its par. Returns (the GLS family's table, the WLS family's): the
+    WLS table carries 1 us white noise (the stripped par's); the GLS table
+    is the same arrivals shifted by a draw of the rest of the par's noise
+    model: white noise to make up its EFAC, one ECORR offset per epoch
+    and a power-law red-noise realization over its Fourier basis. Data
+    that follow the model make a fit's chi2/dof ~1."""
+    from pint_tpu_torch.fitting.gls_step import build_noise_statics, pl_bases
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import _shift_toas, make_fake_toas_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjds = epoch_mjds(n, rng)
+    wls = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(n)), get_model(member_par(i, noise=False)),
+        freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
+        error_us=1.0, obs="gbt", add_noise=True,
+        seed=int(rng.integers(2 ** 31)), niter=2, device=device)
+    model = get_model(member_par(i))
+    efac = model["EFAC1"].value_f64
+    noise, specs = build_noise_statics(model, wls)
+    phi_e = noise.ecorr_phi.cpu().numpy()
+    offsets = np.append(rng.standard_normal(phi_e.shape[0]) * np.sqrt(phi_e), 0.0)
+    dt = (torch.as_tensor(offsets[noise.epoch_idx.cpu().numpy()], device=device)
+          + torch.as_tensor(rng.standard_normal(n), device=device)
+          * (np.sqrt(efac ** 2 - 1.0) * 1e-6))
+    F, phi = pl_bases(wls, specs, noise.pl_params)
+    dt = dt + F @ (torch.sqrt(phi) * torch.as_tensor(
+        rng.standard_normal(phi.shape[0]), device=device))
+    return _shift_toas(wls, dt / 86400.0), wls
+
+
+def dd_sigma(a, b, sigma):
+    """|a - b| / sigma for two (hi, lo) values, in double-double."""
+    return abs((a[0] - b[0]) + (a[1] - b[1])) / sigma
+
+
+def run_batched(bf, start, loop="1", maxiter=10):
+    """One batched fit of `bf` from `start` (each member's free values)
+    through the fused loop (``loop="1"``) or the host loop (``"0"``): its
+    chi2 and converged vectors, wall, captures/replays/fetches, counters,
+    trace and the fitted values."""
+    import os
+
+    from pint_tpu_torch.telemetry import recorder
+
+    for m, values in zip(bf.models, start):
+        for k, v in values.items():
+            m[k].value = v
+    os.environ["PINT_TORCH_DEVICE_LOOP"] = loop
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chi2 = bf.fit_toas(maxiter=maxiter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PINT_TORCH_DEVICE_LOOP")
+    return {"chi2": chi2, "wall": wall, "stats": dict(bf.loop_stats),
+            "counters": dict(bf.counters), "converged": bf.converged.copy(),
+            "trace": recorder.last_trace(),
+            "values": [{k: (m[k].value, m[k].uncertainty)
+                        for k in m.free_params} for m in bf.models]}
+
+
+def member_trials(trace, m):
+    """Member m's full evaluations in a batched trace: the init pass and
+    every later entry where it ran (a damping factor > 0), as (chi2, lam,
+    accepted)."""
+    return [(trace["chi2"][j][m], trace["lam"][j][m], trace["accepted"][j][m])
+            for j in range(len(trace["chi2"]))
+            if j == 0 or trace["lam"][j][m] > 0.0]
+
+
+def same_member_loops(ta, tb, rtol, floor=None):
+    """Every member makes the same decisions in traces `ta` and `tb`: the
+    same damping factors and accepts at each full evaluation, every chi2
+    within `rtol`. With `floor` (card against CPU) a member's comparison
+    ends at its first evaluation resolved by less than `floor` relative
+    on either side (the noise floor, where the two may part). Returns
+    the members that differ."""
+    bad = []
+    for m in range(len(ta["chi2"][0])):
+        a, b = member_trials(ta, m), member_trials(tb, m)
+        kept = a[0][0]
+        ok = len(a) == len(b) or floor is not None
+        for (ca, la, aa), (cb, lb, ab) in zip(a, b):
+            if abs(ca - cb) > rtol * abs(cb):
+                ok = False
+                break
+            if floor is not None and min(abs(ca - kept), abs(cb - kept)) \
+                    <= floor * abs(kept):
+                break
+            if (la, aa) != (lb, ab):
+                ok = False
+                break
+            if aa:
+                kept = ca
+        else:
+            ok = ok and len(a) == len(b)
+        if not ok:
+            bad.append(m)
+    return bad
+
+
+def batch_family(dev, tables, family):
+    """One family (``"gls"``: the bench par's noise; ``"wls"``: stripped)
+    of the N_PSR-member batch over `tables`: the fused fit cold and warm,
+    the host loop as its witness, the gates, the named members against
+    their single-pulsar fits and a profiled warm fit. Returns (the
+    fitter, the members' start)."""
+    from pint_tpu_torch import bucketing
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import BatchedPulsarFitter
+
+    noise = family == "gls"
+    pars = [member_par(i, noise) for i in range(len(tables))]
+    models = []
+    for par in pars:
+        m = get_model(par)
+        for k, d in KICK.items():
+            m[k].add_delta(d)
+        models.append(m)
+    start = [free_values(m) for m in models]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf = BatchedPulsarFitter(list(zip(tables, models)))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_rows = len(bf.toas)
+    print(f"{family} batch: {len(tables)} members, {sum(map(len, tables))} "
+          f"TOAs, bucketed to {len(tables)} x {n_rows} rows; family "
+          f"{bf.family}, {len(bf.free_params)} fitted names "
+          f"{bf.free_params}; ECORR epochs bucketed to {bf.basis_bucket}; "
+          f"sigma in the statics {bf._trace_sigma}; construction (stacking, "
+          f"statics, TZR tables) {build_s:.3f} s", flush=True)
+    cold = run_batched(bf, start)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    warm = run_batched(bf, start)
+    host = run_batched(bf, start, loop="0")
+    fused_values = cold["values"]
+    for label, r in (("cold (capture)", cold), ("warm (replays)", warm),
+                     ("host loop (witness)", host)):
+        print(f"  {label}: {r['wall']:.4f} s wall; {len(r['trace']['chi2'])} "
+              f"full evaluations; loop {r['stats'] or 'host'}; counters "
+              f"{r['counters']}", flush=True)
+    print(f"  peak memory {peak_mb:.1f} MiB allocated over the cold fit "
+          f"(graph pool included)", flush=True)
+    st = cold["stats"]
+    if not (st["captures"] == 2 and warm["stats"]["captures"] == 0
+            and warm["stats"]["replays"] > 0):
+        fail(f"the {family} batch did not run as graph replays: {st} / "
+             f"{warm['stats']}")
+    if not np.array_equal(cold["chi2"], warm["chi2"]) \
+            or same_member_loops(cold["trace"], warm["trace"], 0.0):
+        fail(f"the warm {family} batch is not the cold one replayed")
+    differ = same_member_loops(cold["trace"], host["trace"], LOOP_RTOL)
+    gap = float(np.max(np.abs(cold["chi2"] - host["chi2"]) / np.abs(host["chi2"])))
+    print(f"  fused - host loop: {len(differ)} members differ in their "
+          f"decisions or full-evaluation chi2 (bar {LOOP_RTOL:g}); final "
+          f"chi2 largest relative gap {gap:.3e}", flush=True)
+    if differ or gap > LOOP_RTOL or not (cold["converged"] == host["converged"]).all():
+        fail(f"the fused {family} batch disagrees with its host loop "
+             f"(members {differ[:8]})")
+    # gates on the fused fit: each member's fit chi2 (GLS: r^T C^-1 r,
+    # the noise marginalized) per degree of freedom, and the pulls from
+    # the truth
+    dof = np.array([len(t) - len(m.free_params) - 1
+                    for t, m in zip(tables, models)])
+    red = cold["chi2"] / dof
+    pulls = []
+    for i, (par, values) in enumerate(zip(pars, fused_values)):
+        truth = get_model(par)
+        for k, (v, unc) in values.items():
+            pulls.append((dd_sigma(v, truth[k].value, unc), i, k))
+    worst = max(pulls)
+    print(f"  chi2/dof over members: min {red.min():.4f}, median "
+          f"{np.median(red):.4f}, max {red.max():.4f}; converged "
+          f"{int(cold['converged'].sum())}/{len(tables)}; largest pull from "
+          f"the truth {worst[0]:.3f} sigma (member {worst[1]}, {worst[2]})",
+          flush=True)
+    if not cold["converged"].all():
+        fail(f"{family} members {np.nonzero(~cold['converged'])[0][:8]} "
+             "did not converge")
+    if not (0.8 <= red.min() and red.max() <= 1.25):
+        fail(f"{family} batch chi2/dof outside [0.8, 1.25]: {red.min()} .. "
+             f"{red.max()}")
+    if not worst[0] < TRUTH_SIGMA:
+        fail(f"{family} member {worst[1]} left {worst[2]} {worst[0]:.2f} "
+             "sigma from the truth")
+    # named members against their single-pulsar fused fits
+    single = (device_loop.dense_gls_fit if noise else device_loop.dense_wls_fit)
+    for i in NAMED_MEMBERS:
+        if i >= len(tables):
+            continue
+        m = get_model(pars[i])
+        for k, v in start[i].items():
+            m[k].value = v
+        deltas, info, chi2, conv, _ = single(tables[i], m, maxiter=10)
+        for k, d in deltas.items():
+            m[k].add_delta(float(d))
+        vgap = max(dd_sigma(fused_values[i][k][0], m[k].value,
+                            fused_values[i][k][1]) for k in deltas)
+        ugap = max(abs(fused_values[i][k][1] - float(info["errors"][k]))
+                   / fused_values[i][k][1] for k in deltas)
+        cgap = abs(cold["chi2"][i] - chi2) / chi2
+        print(f"  member {i} against its single-pulsar fused fit "
+              f"({'dense_gls_fit' if noise else 'dense_wls_fit'}, "
+              f"{bucketing.bucket_size(len(tables[i]))} rows): values "
+              f"{vgap:.3e} sigma, uncertainties {ugap:.3e}, chi2 {cgap:.3e} "
+              f"relative (bars {MEMBER_VALUE_SIGMA:g}, {MEMBER_RTOL:g}); "
+              f"converged {conv}", flush=True)
+        if not (vgap <= MEMBER_VALUE_SIGMA and ugap <= MEMBER_RTOL
+                and cgap <= MEMBER_RTOL and conv == cold["converged"][i]):
+            fail(f"{family} member {i} differs from its single-pulsar fit")
+    warm_ms = host_ms(lambda: run_batched(bf, start), reps=3)
+    print(f"  one warm fused batch fit: {warm_ms:.2f} ms wall (median of 3)",
+          flush=True)
+    profile_step(f"one warm fused {family} batch fit",
+                 lambda: run_batched(bf, start), warm_ms)
+    return bf, start
+
+
+def batch_card_vs_cpu(dev):
+    """N_CARD_CPU_PSR members x N_SMALL TOAs of each family, fused on the
+    card and on the CPU: the same decisions above the noise floor, chi2
+    and values at phase 9's bars."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import BatchedPulsarFitter
+
+    pairs = [simulate_member(i, N_SMALL, 300 + i, dev)
+             for i in range(N_CARD_CPU_PSR)]
+    for j, family in enumerate(("gls", "wls")):
+        pars = [member_par(i, family == "gls") for i in range(N_CARD_CPU_PSR)]
+        tables = [p[j] for p in pairs]
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            models = []
+            for par in pars:
+                m = get_model(par)
+                for k, dk in KICK.items():
+                    m[k].add_delta(dk)
+                models.append(m)
+            bf = BatchedPulsarFitter([(t.to(d), m) for t, m in
+                                      zip(tables, models)], device=d)
+            out[d.type] = run_batched(bf, [free_values(m) for m in models])
+        card, cpu = out["cuda"], out["cpu"]
+        differ = same_member_loops(card["trace"], cpu["trace"],
+                                   CARD_CHI2_RTOL, floor=CARD_CHI2_RTOL)
+        gap = float(np.max(np.abs(card["chi2"] - cpu["chi2"]) / cpu["chi2"]))
+        worst = max(dd_sigma(a[k][0], b[k][0], b[k][1])
+                    for a, b in zip(card["values"], cpu["values"]) for k in a)
+        print(f"{family} batch of {N_CARD_CPU_PSR} x {N_SMALL}: card - CPU chi2 "
+              f"{gap:.3e} relative (bar {CARD_CHI2_RTOL:g}), values "
+              f"{worst:.3e} sigma (bar {CARD_VALUE_SIGMA:g}); members whose "
+              f"decisions differ above the noise floor: {differ}; converged "
+              f"{card['converged'].tolist()} / {cpu['converged'].tolist()}",
+              flush=True)
+        if differ or gap > CARD_CHI2_RTOL or worst > CARD_VALUE_SIGMA \
+                or not (card["converged"] == cpu["converged"]).all():
+            fail(f"the {family} batch on the card disagrees with the CPU")
+
+
+def sharded_check(dev, toas, state6):
+    """ShardedGLSFitter on a 1 x 1 mesh over phase 6's table against
+    phase 6's fit."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import ShardedGLSFitter, make_mesh
+
+    mesh = make_mesh(devices=[dev])
+    model = get_model(PAR_FULL)
+    start = free_values(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = ShardedGLSFitter(toas, model, mesh=mesh)
+    chi2 = f.fit_toas(maxiter=10)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    stats = dict(f.loop_stats)
+    for k, v in start.items():
+        model[k].value = v
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f.fit_toas(maxiter=10)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    g = gaps6(model, state6)
+    print(f"ShardedGLSFitter on a 1 x 1 mesh ({mesh}), {len(toas)} TOAs: "
+          f"cold {cold_s:.3f} s ({stats}), warm {warm_s:.3f} s "
+          f"({f.loop_stats}); chi2 {chi2:.6f} (phase 6 {state6['chi2']:.6f}), "
+          f"converged {f.converged}; post-fit - phase 6's fit (sigma): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+          + f" (bar {SHARDED_SIGMA:g})", flush=True)
+    if not (f.converged and max(g.values()) <= SHARDED_SIGMA
+            and f.loop_stats["captures"] == 0):
+        fail("the sharded GLS fit disagrees with phase 6's fit")
+
+
+def gaps6(m, state6):
+    """Each fitted value of model `m` less phase 6's, in phase 6's sigma."""
+    return {k: dd_sigma(m[k].value, state6["values"][k], state6["unc"][k])
+            for k in state6["fit_params"]}
+
+
+def pintempo_sharded_check(state6, cli_dir):
+    """``pintempo --fitter sharded`` on phase 15's tim file against phase
+    6's fit."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts import pintempo
+
+    par, tim = cli_dir / "bench.par", cli_dir / "bench.tim"
+    out, wall = run_tool(pintempo.main, [str(par), str(tim), "--fitter",
+                                         "sharded", "--outfile",
+                                         str(cli_dir / "sharded.par")])
+    print("  " + "\n  ".join(line for line in out.splitlines()
+                             if line.startswith(("Read", "Fitted"))))
+    g = gaps6(get_model(str(cli_dir / "sharded.par")), state6)
+    print(f"pintempo --fitter sharded: {wall:.3f} s wall; post-fit - phase 6's "
+          "fit (sigma): " + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+          + f" (bar {PINTEMPO_SIGMA:g})", flush=True)
+    if "ShardedGLSFitter" not in out or max(g.values()) > PINTEMPO_SIGMA:
+        fail("pintempo --fitter sharded disagrees with phase 6's fit")
+
+
+def telemetry_checks(bf, start):
+    """A warm batched fit with telemetry writing a JSON-lines artifact:
+    its span tree, the loop's counters and the per-member records; the
+    rollup equal to the counters; then the same fit with
+    PINT_TORCH_TELEMETRY=0 writing nothing and counting nothing."""
+    import os
+
+    from pint_tpu_torch import telemetry
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="telemetry_"))
+    path = work / "fit.jsonl"
+    telemetry.reset()
+    telemetry.configure(enabled=True, jsonl_path=str(path))
+    on = run_batched(bf, start)
+    roll = telemetry.write_rollup()
+    counters = telemetry.counters_snapshot()
+    lines = [json.loads(line) for line in open(path)]
+    spans = {r["name"]: r for r in lines if r["type"] == "span"}
+    tree = {name: (spans[name]["depth"], spans[name]["parent"], spans[name]["kind"])
+            for name in ("fit.batched", "fit.batched.dispatch",
+                         "device_loop_batched.program",
+                         "device_loop_batched.fetch") if name in spans}
+    traces = [r for r in lines if r["type"] == "trace"]
+    batch = [r for r in lines if r["type"] == "batch"]
+    st, cnt = on["stats"], on["counters"]
+    print(f"telemetry on: {path.stat().st_size} bytes, {len(lines)} lines "
+          f"({sorted({r['type'] for r in lines})}); span tree {tree}; "
+          f"counters {counters}", flush=True)
+    want_tree = {"fit.batched": (0, None, None),
+                 "fit.batched.dispatch": (1, "fit.batched", None),
+                 "device_loop_batched.program": (2, "fit.batched.dispatch",
+                                                 "replay"),
+                 "device_loop_batched.fetch": (1, "fit.batched", None)}
+    want = {"fit.device_loop.launches": 1,
+            "fit.device_loop.replays": st["replays"],
+            "fit.device_loop.fetches": st["fetches"],
+            "cache.fit_program.hit": 1,
+            **{f"fit.{k}": v for k, v in cnt.items() if v}}
+    if tree != want_tree or any(counters.get(k, 0) != v
+                                for k, v in want.items()):
+        fail(f"the telemetry artifact's spans or counters are not the fit's "
+             f"(want {want_tree}, {want})")
+    if not (len(traces) == 1 and len(traces[0]["chi2"][0]) == len(bf.models)
+            and len(batch) == 1 and batch[0]["n_members"] == bf.n_real
+            and batch[0]["converged"] == on["converged"].tolist()):
+        fail("the telemetry artifact lacks the recorder's per-member records")
+    if roll["counters"] != counters or not lines[-1]["type"] == "rollup":
+        fail("rollup() disagrees with the counters")
+    # the kill switch beats configure()
+    off_path = work / "off.jsonl"
+    os.environ["PINT_TORCH_TELEMETRY"] = "0"
+    try:
+        telemetry.reset()
+        telemetry.configure(enabled=True, jsonl_path=str(off_path))
+        off = run_batched(bf, start)
+        telemetry.flush()
+        quiet = (not off_path.exists() and telemetry.counters_snapshot() == {}
+                 and telemetry.span_stats() == {})
+    finally:
+        os.environ.pop("PINT_TORCH_TELEMETRY")
+        telemetry.reset()
+    print(f"telemetry off (PINT_TORCH_TELEMETRY=0 over configure): artifact "
+          f"written {off_path.exists()}, counters and spans empty {quiet}; "
+          f"warm batch fit {on['wall']:.4f} s with telemetry on, "
+          f"{off['wall']:.4f} s off", flush=True)
+    if not quiet or not np.array_equal(on["chi2"], off["chi2"]):
+        fail("with telemetry off the fit wrote or counted something")
+    shutil.rmtree(work)
+
+
+def many_pulsars(dev, toas, state6, cli_dir, n_psr=N_PSR, n_per=N_PER_PSR):
+    """Phase 16 (see the module docstring). Returns the ds32_gram
+    launches of its sub-paths by name (each must be 0)."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.ops import gram
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = [simulate_member(i, n_per, 1000 + i, dev) for i in range(n_psr)]
+    tables = {"gls": [p[0] for p in pairs], "wls": [p[1] for p in pairs]}
+    del pairs
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    builds_s = host_ms(lambda: [gbt_table(n_per, 1000 + i, dev, "DE421")
+                                for i in range(n_psr)], reps=1) / 1e3
+    print(f"simulated {n_psr} members x {n_per} GBT TOAs "
+          f"({n_psr * n_per} TOAs) of each family in {sim_s:.2f} s; the "
+          f"{n_psr} table builds alone {builds_s:.3f} s", flush=True)
+    launches = {}
+
+    def counted(label, fn, *args):
+        # each sub-path's ds32_gram launches, counted from 0
+        device_loop.clear_cache()
+        gram.ds32_gram.launches = 0
+        out = fn(*args)
+        launches[label] = gram.ds32_gram.launches
+        return out
+
+    def gls_batch():
+        bf, start = batch_family(dev, tables["gls"], "gls")
+        telemetry_checks(bf, start)
+
+    counted(f"batched GLS fits {n_psr} x {n_per} (fused, host loop, "
+            f"telemetry)", gls_batch)
+    counted(f"batched WLS fits {n_psr} x {n_per} (fused, host loop)",
+            batch_family, dev, tables["wls"], "wls")
+    counted(f"batched fits {N_CARD_CPU_PSR} x {N_SMALL}, card against CPU",
+            batch_card_vs_cpu, dev)
+    counted(f"ShardedGLSFitter {len(toas)} (1 x 1 mesh)", sharded_check, dev,
+            toas, state6)
+    counted("pintempo --fitter sharded", pintempo_sharded_check, state6,
+            cli_dir)
+    device_loop.clear_cache()
+    print(f"ds32_gram launches in phase 16 (its fits build their Grams in "
+          f"float64): {launches}", flush=True)
+    if any(launches.values()):
+        fail(f"phase 16's fits launched ds32_gram: {launches}")
+    print(f"phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -2910,11 +3426,18 @@ def main() -> None:
           f"chi2 grids, MCMCFitter at {N_MCMC}, event_optimize, photonphase, "
           f"polycos, random models, zima")
     device_loop.clear_cache()
-    launches_by_path.update(analysis_and_cli(dev, toas, state6, wls_state,
-                                             dense, gls_state, photons))
+    launches15, cli_dir = analysis_and_cli(dev, toas, state6, wls_state,
+                                           dense, gls_state, photons)
+    launches_by_path.update(launches15)
     shutil.rmtree(photons)
 
-    phase("16 result")
+    phase(f"16 many pulsars: {N_PSR} x {N_PER_PSR} TOAs through the fused "
+          f"batched loop (GLS and WLS families), card against CPU, "
+          f"ShardedGLSFitter and pintempo --fitter sharded, telemetry")
+    launches_by_path.update(many_pulsars(dev, toas, state6, cli_dir))
+    shutil.rmtree(cli_dir)
+
+    phase("17 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)

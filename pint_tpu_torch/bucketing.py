@@ -17,9 +17,19 @@ share a bucket can share one capture:
   Fourier span) is unchanged to f64 round-off. ECORR epochs must leave
   padding rows out (``fitting.gls_step.pad_noise_statics``).
 
-``FIT_BUCKETING = False`` keeps exact shapes everywhere. The member and
-basis buckets and ``pad_solve_rows`` of the reference belong to the
-batched fits and are not ported yet.
+The batched fits add the member and basis buckets
+(:func:`member_bucket_size`, :func:`basis_bucket_size` with
+:func:`pad_basis_cols`), the append bucket of incremental refits
+(:func:`append_bucket_size`), the TOA-build pipeline's rule
+(:func:`pipeline_bucket_size`) and exact zero-row padding of the dense
+solvers (:func:`pad_solve_rows`). :func:`note_program` accounts each
+dispatch of a fused-loop program in telemetry: a graph capture (the
+port's counterpart of an XLA compile) is a ``cache.fit_program.miss``,
+a dispatch that only replays a ``.hit``; :func:`note_batch_occupancy`
+counts a batch's real and padding members.
+
+``FIT_BUCKETING = False`` keeps exact shapes everywhere (and makes the
+member, append and basis buckets exact counts).
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from pint_tpu_torch.telemetry import core as _tele_core
+from pint_tpu_torch.telemetry import counters as _tele_counters
 
 # padded TOAs carry this uncertainty -> weight ~1e-24 of a real TOA
 PAD_ERROR_US = 1e12
@@ -56,6 +69,129 @@ def bucket_size(n: int, *, multiple: int = 1) -> int:
         return _round_up(n, multiple)
     b = max(BUCKET_FLOOR, 1 << (n - 1).bit_length())
     return _round_up(b, multiple)
+
+
+def member_bucket_size(b: int, *, floor: int = 1) -> int:
+    """Canonical member count of a batched fit of ``b`` members: the next
+    power of two (at least ``floor``), so batches of similar sizes share
+    one captured loop; ``max(b, floor)`` with bucketing off."""
+    if b <= 0:
+        raise ValueError(f"member_bucket_size needs b >= 1, got {b}")
+    floor = max(1, int(floor))
+    if not FIT_BUCKETING:
+        return max(b, floor)
+    return max(floor, 1 << (b - 1).bit_length())
+
+
+def append_bucket_size(k: int, *, floor: int = 8) -> int:
+    """Canonical row count of an append of ``k`` TOAs to a fitted table:
+    the next power of two (at least ``floor``, no ceiling); ``k`` with
+    bucketing off."""
+    if k <= 0:
+        raise ValueError(f"append_bucket_size needs k >= 1, got {k}")
+    if not FIT_BUCKETING:
+        return k
+    return max(floor, 1 << (k - 1).bit_length())
+
+
+def basis_bucket_size(ne: int, *, floor: int = 8) -> int:
+    """Canonical ECORR epoch count of a noise basis of ``ne`` epochs: the
+    next power of two (at least ``floor``); 0 stays 0 (no ECORR is its
+    own shape), and bucketing off keeps ``ne``. Padded epochs are inert
+    (:func:`pad_basis_cols`)."""
+    if ne < 0:
+        raise ValueError(f"basis_bucket_size needs ne >= 0, got {ne}")
+    if ne == 0 or not FIT_BUCKETING:
+        return ne
+    return max(floor, 1 << (ne - 1).bit_length())
+
+
+def pad_basis_cols(ne_target: int, phi, *mats):
+    """Pad a noise-basis prior (numpy, (ne,)) to ``ne_target`` entries of
+    1.0 s^2, and each basis matrix (or None) along axis 1 with zero
+    columns.
+
+    A zero column with a finite prior is exactly inert in the segment-sum
+    Schur solve: its Gram row and gradient entry are zeros, its epoch has
+    no TOA, so ``d = 1/phi`` and its coefficient 0/d = 0.
+    """
+    ne = int(np.shape(phi)[0])
+    if ne_target == ne:
+        return (phi,) + mats
+    if ne_target < ne:
+        raise ValueError(f"ne_target {ne_target} < ne {ne}")
+    k = ne_target - ne
+    out = [np.concatenate([np.asarray(phi, dtype=np.float64), np.ones(k)])]
+    for M in mats:
+        if M is None:
+            out.append(None)
+            continue
+        M = np.asarray(M)
+        out.append(np.concatenate(
+            [M, np.zeros(M.shape[:1] + (k,) + M.shape[2:])], axis=1))
+    return tuple(out)
+
+
+def note_batch_occupancy(n_real: int, n_members: int) -> None:
+    """Count one batched fit's members: ``batch.members.real`` and
+    ``batch.members.pad`` (occupancy = real / (real + pad)) and the
+    ``batch.occupancy.last`` gauge."""
+    if not _tele_core._enabled:
+        return
+    _tele_counters.inc("batch.members.real", n_real)
+    _tele_counters.inc("batch.members.pad", max(0, n_members - n_real))
+    _tele_counters.set_gauge("batch.occupancy.last",
+                             n_real / max(1, n_members))
+
+
+def pipeline_bucket_size(n: int) -> int:
+    """Row bucket of an elementwise pass that runs once per table: the
+    next power of two up to 8,192, above that the next multiple of 1,024
+    (a power of two would waste up to 2x; this wastes < 12%)."""
+    if n <= 8192:
+        return max(16, 1 << (n - 1).bit_length())
+    return _round_up(n, 1024)
+
+
+def pad_solve_rows(n_target: int, r, sigma, *mats):
+    """Row-pad dense solver inputs (tensors) to ``n_target`` with exact
+    zeros: appended rows r = 0, sigma = 1 and all-zero matrix rows (None
+    passes through). A zero row adds exactly 0 to every column norm, Gram
+    entry, gradient and chi2 term, whatever its weight."""
+    n = int(r.shape[0])
+    if n_target == n:
+        return (r, sigma) + mats
+    if n_target < n:
+        raise ValueError(f"n_target {n_target} < n {n}")
+    k = n_target - n
+    out = [torch.cat([r, r.new_zeros(k)]), torch.cat([sigma, sigma.new_ones(k)])]
+    for M in mats:
+        out.append(None if M is None else
+                   torch.cat([M, M.new_zeros((k,) + tuple(M.shape[1:]))]))
+    return tuple(out)
+
+
+def note_program(kind: str, fingerprint, shape, *, captured=None) -> None:
+    """Account one dispatch of fused-loop program ``kind`` at ``shape``.
+
+    ``captured`` is given when this dispatch captured its graphs (the
+    port's counterpart of an XLA compile): a ``cache.fit_program.miss``,
+    with the capture's counts (graphs, kernel launches recorded) in
+    ``program.<kind>.*`` gauges and a ``type="program"`` record that
+    carries a hash of ``fingerprint`` (what the program closes over: the
+    loop cache's key). A dispatch that only replays is a
+    ``cache.fit_program.hit``.
+    """
+    if not _tele_core._enabled:
+        return
+    _tele_counters.inc("cache.fit_program."
+                       + ("hit" if captured is None else "miss"))
+    if captured is not None:
+        from pint_tpu_torch.telemetry import recorder
+
+        recorder.capture_program(kind, shape=shape,
+                                 fingerprint=hash(fingerprint) & 0xFFFFFFFF,
+                                 **captured)
 
 
 def pad_toas(toas, n_target: int):

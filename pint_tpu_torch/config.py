@@ -133,6 +133,25 @@ declare("PINT_TORCH_FLIGHT_RECORDER", True, "bool",
         "Kill switch for the fused loop's trace ring; 0 drops the ring "
         "from the loop's state (a different capture).")
 
+declare("PINT_TORCH_TELEMETRY", "", "tristate",
+        "Telemetry master gate: 0 is a hard kill switch (beats "
+        "telemetry.configure), 1 turns it on at import for plain library "
+        "use, unset defers to telemetry.configure().")
+declare("PINT_TORCH_TELEMETRY_PATH", None, "str",
+        "Telemetry JSON-lines artifact path (appended to); unset keeps "
+        "records in memory only (the rollup still works).")
+declare("PINT_TORCH_TELEMETRY_LOAD1", 1.5, "float",
+        "1-minute load average above which a host sample is flagged "
+        "polluted.")
+declare("PINT_TORCH_TELEMETRY_LOG", False, "bool",
+        "Mirror span begin/end to the pint_tpu_torch.telemetry logger at "
+        "the TELEMETRY level.")
+declare("PINT_TORCH_TELEMETRY_MAX_MB", 16.0, "float",
+        "Telemetry artifact rotation threshold [MB].")
+declare("PINT_TORCH_PROFILE_DIR", None, "str",
+        "Directory that telemetry.profile_span writes a torch.profiler "
+        "trace into; unset, profile_span is a plain span.")
+
 
 @dataclasses.dataclass
 class Config:

@@ -1,8 +1,9 @@
 """Damped Gauss-Newton outer loop over a fused fit step.
 
 Counterpart of ``pint_tpu.fitting.damped.downhill_iterate``, with the
-reference's loop counters and flight-recorder trace (its telemetry spans
-are not carried). One step call evaluates the chi2 at the input
+reference's loop counters, telemetry spans (``fit.step`` around each full
+evaluation, ``fit.probe`` around each probe) and flight-recorder trace.
+One step call evaluates the chi2 at the input
 parameters AND proposes a Gauss-Newton step, so judging a trial point
 costs one step. This host loop is the oracle of the fused loop
 (:mod:`pint_tpu_torch.fitting.device_loop`): the same accept / halve /
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+from pint_tpu_torch import telemetry
 from pint_tpu_torch.telemetry import recorder
 
 # the loop's event counters (the reference's fit.* telemetry counters)
@@ -49,11 +51,14 @@ def downhill_iterate(iterate, deltas0: dict, *, maxiter: int = 20,
     :data:`COUNTERS` and the outcome (``converged``,
     ``maxiter_exhausted``, ``diverged``: 1 for the one that happened).
     When the flight recorder is on, one trace record is emitted
-    (:func:`pint_tpu_torch.telemetry.recorder.last_trace`).
+    (:func:`pint_tpu_torch.telemetry.recorder.last_trace`). With
+    telemetry on, the counters also go to ``fit.<name>`` and the outcome
+    to ``fit.converged``/``fit.maxiter_exhausted``/``fit.diverged``.
     """
     cnt = dict.fromkeys(COUNTERS, 0)
     rec = recorder.host_trace()
-    new_deltas, info = iterate(deltas0)
+    with telemetry.span("fit.step"):
+        new_deltas, info = iterate(deltas0)
     chi2 = float(info["chi2_at_input"])
     if rec:
         rec.eval(chi2, 1.0)
@@ -72,7 +77,8 @@ def downhill_iterate(iterate, deltas0: dict, *, maxiter: int = 20,
                     rec.halving()
             trial = {k: deltas[k] + lam * dx[k] for k in deltas}
             if _h == 0 or chi2_at is None:
-                trial_new, trial_info = iterate(trial)
+                with telemetry.span("fit.step"):
+                    trial_new, trial_info = iterate(trial)
                 trial_chi2 = float(trial_info["chi2_at_input"])
                 if rec:
                     rec.eval(trial_chi2, lam)
@@ -82,7 +88,8 @@ def downhill_iterate(iterate, deltas0: dict, *, maxiter: int = 20,
             else:
                 cnt["probe_evals"] += 1
                 trial_new = trial_info = None
-                trial_chi2 = float(chi2_at(trial))
+                with telemetry.span("fit.probe"):
+                    trial_chi2 = float(chi2_at(trial))
                 if rec:
                     rec.probe_eval()
             if trial_chi2 <= chi2 + 1e-12:
@@ -91,7 +98,8 @@ def downhill_iterate(iterate, deltas0: dict, *, maxiter: int = 20,
                     # the accepted point supplies the next proposal; its
                     # chi2 is authoritative, so an uphill value there
                     # keeps halving instead of applying the step
-                    trial_new, trial_info = iterate(trial)
+                    with telemetry.span("fit.step"):
+                        trial_new, trial_info = iterate(trial)
                     trial_chi2 = float(trial_info["chi2_at_input"])
                     if rec:
                         rec.eval(trial_chi2, lam)
@@ -120,10 +128,22 @@ def downhill_iterate(iterate, deltas0: dict, *, maxiter: int = 20,
         if decrease < min_chi2_decrease:
             converged = True
             break
+    outcome = dict(converged=int(converged and not diverged),
+                   maxiter_exhausted=int(not (converged or diverged)),
+                   diverged=int(diverged))
     if counters is not None:
-        counters.update(cnt, converged=int(converged and not diverged),
-                        maxiter_exhausted=int(not (converged or diverged)),
-                        diverged=int(diverged))
+        counters.update(cnt, **outcome)
+    note_fit_counters(cnt, outcome)
     if rec:
         rec.emit()
     return deltas, dict(info, diverged=diverged), chi2, converged
+
+
+def note_fit_counters(cnt: dict, outcome: dict) -> None:
+    """Add one fit's loop events and outcome to the ``fit.*`` telemetry
+    counters (nothing when telemetry is off)."""
+    if not telemetry.enabled():
+        return
+    for k, v in list(cnt.items()) + list(outcome.items()):
+        if v:
+            telemetry.inc(f"fit.{k}", v)

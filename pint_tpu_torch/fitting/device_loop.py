@@ -53,8 +53,8 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
-from pint_tpu_torch import bucketing, config
-from pint_tpu_torch.fitting.damped import COUNTERS
+from pint_tpu_torch import bucketing, config, telemetry
+from pint_tpu_torch.fitting.damped import COUNTERS, note_fit_counters
 from pint_tpu_torch.ops import gram
 from pint_tpu_torch.telemetry import recorder
 from pint_tpu_torch.utils.cache import LRUCache
@@ -69,7 +69,7 @@ _KERNELS = (gram.ds32_gram,)
 # captured loops keyed by the caller's key, the recorder setting and the
 # arguments' structure, shapes and device; an entry holds its step and
 # probe (and what they close over) alive, so its key cannot be reused
-_LOOP_CACHE = LRUCache(8)
+_LOOP_CACHE = LRUCache(8, name="device_loop")
 
 
 def enabled() -> bool:
@@ -443,7 +443,7 @@ class InFlightFit:
 
     def _advance(self) -> None:
         """Read the flags of the last evaluation; launch the next one."""
-        body = DampedLoop.next_kind(self._cap.flags())
+        body = self._cap.loop.next_kind(self._cap.flags())
         if self._cap.cuda:
             self.stats["fetches"] += 1
         if body is None:
@@ -462,22 +462,41 @@ class InFlightFit:
     def fetch(self):
         """Drive the loop to its end; the fit's result on the host."""
         if self._result is None:
-            while not self._done:
-                self._advance()
-            cap, self._cap = self._cap, None
-            # the fit's result, copied out of the statics that the next
-            # dispatch reuses
-            deltas, info, chi2, converged, counters, trace = _tensors(
-                lambda t: t.to("cpu", copy=True), cap.loop.result(cap.carry))
+            with telemetry.span(f"{self._kind}.fetch"):
+                while not self._done:
+                    self._advance()
+                cap, self._cap = self._cap, None
+                # the fit's result, copied out of the statics that the
+                # next dispatch reuses
+                deltas, info, chi2, converged, counters, trace = _tensors(
+                    lambda t: t.to("cpu", copy=True),
+                    cap.loop.result(cap.carry))
             if cap.cuda:
                 self.stats["fetches"] += 1
             cap.pending = None
             counters = {k: int(v) for k, v in counters.items()}
+            _note_loop_stats(self.stats, counters)
             if trace is not None:
                 recorder.emit_device_trace(
                     self._kind, {k: v.numpy() for k, v in trace.items()})
             self._result = (deltas, info, chi2, converged, counters)
         return self._result
+
+
+def _note_loop_stats(stats: dict, counters: dict) -> None:
+    """One fetched fit's host-side accounting in telemetry: the loop's
+    launches, captures, replays and fetches (``fit.device_loop.*``) and
+    its events (``fit.<counter>``), all read from what the host already
+    holds, never from inside a capture."""
+    if not telemetry.enabled():
+        return
+    telemetry.inc("fit.device_loop.launches")
+    for k in ("captures", "replays", "fetches", "full", "probe"):
+        if stats.get(k):
+            telemetry.inc(f"fit.device_loop.{k}", stats[k])
+    for k, v in counters.items():
+        if v:
+            telemetry.inc(f"fit.{k}", v)
 
 
 def dispatch_damped(full, deltas0, operands, *, key, probe=None,
@@ -501,27 +520,45 @@ def dispatch_damped(full, deltas0, operands, *, key, probe=None,
     record = recorder.enabled()
     cache_key = (key, record, recorder.TRACE_LEN if record else 0,
                  _signature((deltas0, operands)))
+    return _dispatch(lambda: build_damped_loop(full, probe, record=record),
+                     cache_key, deltas0, operands, device,
+                     (maxiter, min_chi2_decrease, max_step_halvings), kind,
+                     InFlightFit)
+
+
+def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
+              handle_cls):
+    """The shared launch head of the scalar and batched runners: find or
+    capture the loop of ``cache_key`` (the caller's key first, the
+    arguments' signature last) and start a fit on it."""
     cap = _LOOP_CACHE.get_lru(cache_key)
     stats = {"device": str(device), "captures": 0, "replays": 0,
              "fetches": 0, "full": 0, "probe": 0}
     if cap is None:
-        loop = build_damped_loop(full, probe, record=record)
-        carry0 = loop.init(deltas0, maxiter, min_chi2_decrease,
-                           max_step_halvings, device)
+        loop = build()
+        carry0 = loop.init(deltas0, *hyper, device)
         # the init evaluation runs eagerly (the capture's warm-up)
-        cap = _Captured(loop, carry0, operands, device)
+        with telemetry.span(f"{kind}.program", kind="capture"):
+            cap = _Captured(loop, carry0, operands, device)
         _LOOP_CACHE.put_lru(cache_key, cap)
         stats["captures"] = len(cap.graphs)
         stats["full"] = 1
-        handle = InFlightFit(cap, kind, stats)
+        bucketing.note_program(
+            kind, cache_key[0], cache_key[-1],
+            captured={"graphs": len(cap.graphs), **{
+                f"{k}.{fn.__name__}": n
+                for k, ns in getattr(cap, "recorded", {}).items()
+                for fn, n in zip(_KERNELS, ns)}})
+        handle = handle_cls(cap, kind, stats)
         cap.request_flags()
     else:
+        bucketing.note_program(kind, cache_key[0], cache_key[-1])
         if cap.pending is not None:
             cap.pending.fetch()   # the statics are busy: finish that fit
-        cap.start(cap.loop.init(deltas0, maxiter, min_chi2_decrease,
-                                max_step_halvings, device), operands)
-        handle = InFlightFit(cap, kind, stats)
-        handle._launch("full")
+        with telemetry.span(f"{kind}.program", kind="replay"):
+            cap.start(cap.loop.init(deltas0, *hyper, device), operands)
+            handle = handle_cls(cap, kind, stats)
+            handle._launch("full")
     cap.pending = handle
     return handle
 
@@ -544,7 +581,340 @@ def run_damped(full, deltas0, operands, *, key, probe=None, maxiter=20,
     deltas, info, chi2, converged, counters = handle.fetch()
     if stats is not None:
         stats.update(handle.stats)
+    diverged = bool(info.get("diverged", False))
+    note_fit_counters({}, dict(
+        converged=int(bool(converged) and not diverged),
+        maxiter_exhausted=int(not (bool(converged) or diverged)),
+        diverged=int(diverged)))
     return deltas, info, float(chi2), bool(converged), counters
+
+
+# ----------------------------------------------------------------------
+# the batched loop: one damped state machine per member
+# ----------------------------------------------------------------------
+
+def _bwhere(mask, a, b):
+    """Member-wise where over leaves with a leading (B,) axis."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _btree(mask, ta, tb):
+    return pytree.tree_map(lambda a, b: _bwhere(mask, a, b), ta, tb)
+
+
+def _scaled(lam, tree):
+    """``lam * x`` member-wise for every (B, ...) leaf of `tree`."""
+    return pytree.tree_map(
+        lambda x: lam.reshape(lam.shape + (1,) * (x.dim() - 1)) * x, tree)
+
+
+def _count(b) -> torch.Tensor:
+    return torch.sum(b.long())
+
+
+BATCH_COUNTERS = ("iterations", "accepts", "halvings", "step_evals")
+BATCH_PROBE_COUNTERS = BATCH_COUNTERS + ("probe_evals", "probe_rejects")
+
+
+class BatchedLoop(DampedLoop):
+    """The fused loop over a batch: ``full(deltas, operands)`` is the
+    vmapped step over a leading member axis, so every judged quantity is
+    a (B,) vector and each member carries its own damping ``lam`` and
+    flags.
+
+    Without a probe (the reference's lockstep loop) every body is one
+    batch-wide trial: members that have accepted, converged or diverged
+    ride at lam 0, halving levels are full evaluations, and a final
+    evaluation at the kept points runs when the last trial left some
+    member away from its kept point.
+
+    With ``probe(deltas, operands) -> (B,) chi2`` (the reference's
+    continuous loop) each full body advances every unfinished member by
+    one authoritative evaluation (its iteration's lam=1 trial, or the
+    re-check of a probe-found candidate), and a member whose trial it
+    rejects walks its own halving ladder in probe bodies: one member-wise
+    probe round per body, members halving at the same time sharing it.
+    ``info`` is carried member-wise at each member's last adopted point.
+
+    The flight recorder carries per-member ``chi2``/``lam``/``accepted``
+    vectors, one entry per full body.
+    """
+
+    def init(self, deltas0: dict, maxiter, min_dec, max_halvings,
+             dev) -> dict:
+        f64, i64 = torch.float64, torch.int64
+        B = next(iter(deltas0.values())).shape[0]
+        zero_i = _scalar(0, i64, dev)
+        falses = torch.zeros(B, dtype=torch.bool, device=dev)
+        c = {
+            "deltas": dict(deltas0), "new_deltas": dict(deltas0),
+            "dx": {k: torch.zeros_like(v) for k, v in deltas0.items()},
+            "info": None,
+            "chi2": torch.zeros(B, dtype=f64, device=dev),
+            "lam": torch.ones(B, dtype=f64, device=dev),
+            "converged": falses, "diverged": falses,
+            "done": _scalar(False, torch.bool, dev),
+            "maxiter": _scalar(max(int(maxiter), 1), i64, dev),
+            "min_dec": _scalar(float(min_dec), f64, dev),
+            "max_halvings": _scalar(max(int(max_halvings), 1), i64, dev),
+            "flags": torch.zeros(2, dtype=i64, device=dev),
+        }
+        if self.probe is None:
+            c.update(active=torch.ones(B, dtype=torch.bool, device=dev),
+                     accepted=falses, h=zero_i, it=zero_i,
+                     is_init=_scalar(True, torch.bool, dev),
+                     is_final=_scalar(False, torch.bool, dev),
+                     **{k: zero_i for k in BATCH_COUNTERS})
+        else:
+            zeros_i = torch.zeros(B, dtype=i64, device=dev)
+            trues = torch.ones(B, dtype=torch.bool, device=dev)
+            c.update(h=zeros_i, it=zeros_i, init=trues, pend=trues,
+                     fin=falses, **{k: zero_i for k in BATCH_PROBE_COUNTERS})
+            # the halving ladder a rejecting full body opens, and that
+            # body's verdict, which waits for the ladder's end
+            c.update(seek=falses, found=falses, hp=zeros_i,
+                     lam_p=torch.zeros(B, dtype=f64, device=dev),
+                     halv=zero_i, pev=zero_i, v_newly=falses, v_rej=falses,
+                     v_fin_acc=falses, v_conv_now=falses, v_div_now=falses,
+                     v_startm=falses)
+        if self.trace_cap:
+            cap = self.trace_cap
+            c["trace"] = {
+                "chi2": torch.zeros((cap, B), dtype=f64, device=dev),
+                "lam": torch.zeros((cap, B), dtype=f64, device=dev),
+                "accepted": torch.zeros((cap, B), dtype=torch.bool,
+                                        device=dev)}
+            c["tn"] = zero_i
+        return c
+
+    def _evaluate(self, c, lam_j, operands):
+        trial = {k: c["deltas"][k] + v
+                 for k, v in _scaled(lam_j, c["dx"]).items()}
+        t_new, t_info = self.full(trial, operands)
+        info_prev = c["info"]
+        if info_prev is None:
+            info_prev = pytree.tree_map(torch.zeros_like, t_info)
+        return trial, t_new, t_info, info_prev
+
+    def _record(self, out, c, t_chi2, lam_j, newly):
+        if self.trace_cap:
+            slot = self._slot(c["tn"])[:, None]
+            tr = c["trace"]
+            out["trace"] = {
+                "chi2": torch.where(slot, t_chi2[None, :], tr["chi2"]),
+                "lam": torch.where(slot, lam_j[None, :], tr["lam"]),
+                "accepted": torch.where(slot, newly[None, :],
+                                        tr["accepted"])}
+            out["tn"] = c["tn"] + 1
+
+    def full_body(self, c: dict, operands) -> dict:
+        if self.probe is None:
+            return self._lockstep_body(c, operands)
+        act = c["pend"] & ~c["fin"]
+        lam_j = torch.where(c["init"] | ~act, 0.0, c["lam"])
+        trial, t_new, t_info, info_prev = self._evaluate(c, lam_j, operands)
+        t_chi2 = t_info["chi2_at_input"]
+
+        # a member whose full evaluation is non-finite diverges: finished
+        # at its last kept point, never adopted or counted converged; every
+        # new predicate is False for finite members (member-diagonal)
+        bad = ~torch.isfinite(t_chi2)
+        norm = act & ~c["init"]
+        better = (t_chi2 <= c["chi2"] + _EPS) & ~bad
+        newly = norm & better
+        rej = norm & ~better & ~bad
+        div_now = bad & (c["init"] | norm)
+        adopt = c["init"] | newly
+        deltas_n = _btree(newly, trial, c["deltas"])
+        new_n = _btree(adopt, t_new, c["new_deltas"])
+        conv_now = newly & (c["chi2"] - t_chi2 < c["min_dec"])
+        fin_acc = conv_now | (newly & (c["it"] >= c["maxiter"]))
+        # accepting members open their next iteration at once
+        startm = adopt & ~fin_acc & ~div_now
+        out = dict(c)
+        out.update(
+            deltas=deltas_n, new_deltas=new_n,
+            info=_btree(adopt, t_info, info_prev),
+            dx=_btree(startm, {k: new_n[k] - deltas_n[k] for k in new_n},
+                      c["dx"]),
+            chi2=torch.where(adopt, t_chi2, c["chi2"]),
+            seek=rej, found=torch.zeros_like(rej), hp=c["h"] + 1,
+            lam_p=c["lam"] * 0.5, halv=torch.zeros_like(c["halv"]),
+            pev=torch.zeros_like(c["pev"]), v_newly=newly, v_rej=rej,
+            v_fin_acc=fin_acc, v_conv_now=conv_now, v_div_now=div_now,
+            v_startm=startm, step_evals=c["step_evals"] + 1)
+        self._record(out, c, t_chi2, lam_j, newly)
+        return self._after_probe_step(out)
+
+    def probe_body(self, c: dict, operands) -> dict:
+        """One member-wise probe round of the halving ladders."""
+        sk = c["seek"] & (c["hp"] < c["max_halvings"])
+        lam_pj = torch.where(sk, c["lam_p"], 0.0)
+        cand = {k: c["deltas"][k] + v
+                for k, v in _scaled(lam_pj, c["dx"]).items()}
+        pc = self.probe(cand, operands)
+        fnd = sk & (pc <= c["chi2"] + _EPS)
+        cont = sk & ~fnd
+        out = dict(c)
+        out.update(seek=c["seek"] & ~fnd, found=c["found"] | fnd,
+                   hp=torch.where(cont, c["hp"] + 1, c["hp"]),
+                   lam_p=torch.where(cont, c["lam_p"] * 0.5, c["lam_p"]),
+                   halv=c["halv"] + _count(sk), pev=c["pev"] + _count(sk))
+        return self._after_probe_step(out)
+
+    def _after_probe_step(self, c: dict) -> dict:
+        """Settle the waiting verdict once every ladder has ended."""
+        ladder = torch.any(c["seek"] & (c["hp"] < c["max_halvings"]))
+        found, rej, newly = c["found"], c["v_rej"], c["v_newly"]
+        startm, fin_acc = c["v_startm"], c["v_fin_acc"]
+        exhausted = rej & ~found      # no downhill step left: optimum
+        fin_n = c["fin"] | fin_acc | exhausted | c["v_div_now"]
+        settled = dict(
+            lam=torch.where(startm, 1.0, torch.where(found, c["lam_p"],
+                                                     c["lam"])),
+            h=torch.where(startm, 0, torch.where(found, c["hp"], c["h"])),
+            it=torch.where(c["init"], 1, torch.where(newly & ~fin_acc,
+                                                     c["it"] + 1, c["it"])),
+            init=torch.zeros_like(c["init"]), pend=startm | found,
+            fin=fin_n,
+            converged=c["converged"] | c["v_conv_now"] | exhausted,
+            diverged=c["diverged"] | c["v_div_now"],
+            done=torch.all(fin_n),
+            iterations=c["iterations"] + _count(c["init"]
+                                                | (newly & ~fin_acc)),
+            accepts=c["accepts"] + _count(newly),
+            halvings=c["halvings"] + c["halv"],
+            probe_evals=c["probe_evals"] + c["pev"],
+            # a rejecting full body at h > 0 is the re-check contradicting
+            # its member's probe acceptance
+            probe_rejects=c["probe_rejects"] + _count(rej & (c["h"] > 0)))
+        out = dict(c)
+        out.update(_tree_sel(ladder, {k: c[k] for k in settled}, settled))
+        out["flags"] = torch.stack([out["done"].long(), ladder.long()])
+        return out
+
+    def _lockstep_body(self, c: dict, operands) -> dict:
+        live = c["active"] & ~c["accepted"] & ~c["diverged"]
+        # init: dx == 0; final: lam 0 pins the trial at the kept points
+        lam_j = torch.where(c["is_init"] | c["is_final"] | ~live, 0.0,
+                            c["lam"])
+        trial, t_new, t_info, _prev = self._evaluate(c, lam_j, operands)
+        t_chi2 = t_info["chi2_at_input"]
+        p_init, p_final = c["is_init"], c["is_final"]
+        p_norm = ~p_init & ~p_final
+
+        bad = ~torch.isfinite(t_chi2)
+        better = (t_chi2 <= c["chi2"] + _EPS) & ~bad
+        newly = p_norm & live & better
+        div_n = c["diverged"] | (bad & (p_init | (p_norm & live)))
+        deltas_n = _btree(newly, trial, c["deltas"])
+        new_n = _btree(newly, t_new, c["new_deltas"])
+        chi2_n = torch.where(p_init, t_chi2,
+                             torch.where(newly, t_chi2, c["chi2"]))
+        conv_n = c["converged"] | (newly & (c["chi2"] - t_chi2 < c["min_dec"]))
+        acc_n = c["accepted"] | newly
+
+        inner_done = torch.all(acc_n | ~c["active"] | div_n)
+        inner_exh = p_norm & ~inner_done & (c["h"] + 1 >= c["max_halvings"])
+        end_iter = p_norm & (inner_done | inner_exh)
+        # members with no downhill step left are at their optimum
+        conv_n = conv_n | (end_iter & c["active"] & ~acc_n & ~div_n)
+        stop_outer = end_iter & (torch.all(conv_n | div_n)
+                                 | (c["it"] >= c["maxiter"]))
+        # the host loop evaluates again at the kept points only when the
+        # last trial left an active member at a rejected lam
+        need_final = stop_outer & ~inner_done
+        next_iter = end_iter & ~stop_outer
+        start = p_init | next_iter
+        new_n = _tree_sel(p_init, t_new, new_n)
+        out = dict(c)
+        out.update(
+            deltas=deltas_n, new_deltas=new_n,
+            dx=_tree_sel(start, {k: new_n[k] - deltas_n[k] for k in new_n},
+                         c["dx"]),
+            # every body is an evaluation: its info is the freshest
+            info=t_info, chi2=chi2_n,
+            lam=torch.where(start, 1.0, torch.where(
+                p_norm & ~end_iter & c["active"] & ~acc_n, c["lam"] * 0.5,
+                c["lam"])),
+            active=torch.where(start, ~(conv_n | div_n), c["active"]),
+            accepted=torch.where(start, False, acc_n),
+            converged=conv_n, diverged=div_n,
+            h=torch.where(start | end_iter, 0,
+                          torch.where(p_norm, c["h"] + 1, c["h"])),
+            it=torch.where(p_init, 1, torch.where(next_iter, c["it"] + 1,
+                                                  c["it"])),
+            is_init=torch.zeros_like(p_init), is_final=need_final,
+            done=p_final | (stop_outer & ~need_final),
+            iterations=c["iterations"] + (p_init | next_iter).long(),
+            accepts=c["accepts"] + _count(newly),
+            halvings=c["halvings"] + (p_norm & (c["h"] > 0)).long(),
+            step_evals=c["step_evals"] + 1)
+        self._record(out, c, t_chi2, lam_j, newly)
+        out["flags"] = torch.stack([out["done"].long(),
+                                    torch.zeros_like(out["done"]).long()])
+        return out
+
+    def result(self, c: dict):
+        names = BATCH_COUNTERS if self.probe is None else BATCH_PROBE_COUNTERS
+        counters = {k: c[k] for k in names}
+        trace = dict(c["trace"], n=c["tn"]) if self.trace_cap else None
+        return (c["deltas"], dict(c["info"], diverged=c["diverged"]),
+                c["chi2"], c["converged"], counters, trace)
+
+
+def build_batched_loop(run, probe=None, record: bool = False) -> BatchedLoop:
+    """The fused batched loop over ``run`` (and ``probe``): see
+    :class:`BatchedLoop`."""
+    return BatchedLoop(run, probe, record=record)
+
+
+class InFlightBatchedFit(InFlightFit):
+    """A dispatched batched fit: :meth:`fetch` returns the per-member
+    (B,) chi2 and converged arrays as numpy."""
+
+    __slots__ = ()
+
+    def fetch(self):
+        deltas, info, chi2, converged, counters = super().fetch()
+        return (deltas, info, chi2.numpy(), converged.numpy(), counters)
+
+
+def dispatch_damped_batched(run, deltas0, operands, *, key, probe=None,
+                            maxiter=20, min_chi2_decrease=1e-3,
+                            max_step_halvings=8,
+                            kind="device_loop_batched") -> InFlightBatchedFit:
+    """Start a fused batched fit (:func:`dispatch_damped` for
+    :class:`BatchedLoop`): ``deltas0`` holds (B,) tensors, ``run`` and
+    ``probe`` evaluate every member at once. The batch's shape is in
+    the loop cache's key through the arguments' signature."""
+    device = next(t for t in pytree.tree_leaves((deltas0, operands))
+                  if isinstance(t, torch.Tensor)).device
+    record = recorder.enabled()
+    cache_key = (key, "batched", record,
+                 recorder.TRACE_LEN if record else 0,
+                 _signature((deltas0, operands)))
+    return _dispatch(lambda: build_batched_loop(run, probe, record=record),
+                     cache_key, deltas0, operands, device,
+                     (maxiter, min_chi2_decrease, max_step_halvings), kind,
+                     InFlightBatchedFit)
+
+
+def run_damped_batched(run, deltas0, operands, *, key, probe=None,
+                       maxiter=20, min_chi2_decrease=1e-3,
+                       max_step_halvings=8, kind="device_loop_batched",
+                       stats: dict | None = None):
+    """Run a fused batched fit to its end: ``(deltas, info, chi2,
+    converged, counters)`` on the host, chi2 and converged (B,) numpy
+    arrays. ``stats`` receives the fit's captures, replays and fetches."""
+    handle = dispatch_damped_batched(
+        run, deltas0, operands, key=key, probe=probe, maxiter=maxiter,
+        min_chi2_decrease=min_chi2_decrease,
+        max_step_halvings=max_step_halvings, kind=kind)
+    out = handle.fetch()
+    if stats is not None:
+        stats.update(handle.stats)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -249,49 +249,107 @@ def build_noise_statics(model, toas, *, as_numpy: bool = False
         tuple(specs))
 
 
-def pad_noise_statics(noise: NoiseStatics, n_target: int) -> NoiseStatics:
-    """Extend the statics to ``n_target`` rows (a bucketed table's).
+def pad_noise_statics(noise: NoiseStatics, n_target: int,
+                      ne_target: int | None = None) -> NoiseStatics:
+    """Extend the statics to ``n_target`` rows (a bucketed table's) and,
+    with ``ne_target`` (the batched fits' epoch bucket,
+    :func:`pint_tpu_torch.bucketing.basis_bucket_size`), to that many
+    ECORR epochs.
 
-    Padding rows point at the dummy ECORR segment (``ne``), so they join
-    no epoch; a per-row ``sigma`` gets ``PAD_ERROR_US`` rows and a
-    per-row ``dm_sigma`` ``DM_PAD_ERROR`` rows (zero weight). The
-    reference's ``ne_target`` (the batched fits' epoch bucket) and its
-    numpy statics are not ported yet.
+    Padding rows point at the dummy ECORR segment (``ne_target``, else
+    ``ne``), so they join no epoch; a per-row ``sigma`` gets
+    ``PAD_ERROR_US`` rows and a per-row ``dm_sigma`` ``DM_PAD_ERROR``
+    rows (zero weight). Padded epochs have a 1.0 s^2 prior and no TOA:
+    their slots' mask is 0 (:func:`pint_tpu_torch.bucketing
+    .pad_basis_cols` says why they are inert).
     """
     from pint_tpu_torch.bucketing import PAD_ERROR_US
     from pint_tpu_torch.fitting.wideband import DM_PAD_ERROR
 
     n = int(noise.epoch_idx.shape[0])
+    ne = int(noise.ecorr_phi.shape[0])
     if n_target < n:
         raise ValueError(f"n_target {n_target} < ntoas {n}")
+    out = noise
+    if ne_target is not None and ne_target != ne:
+        if ne_target < ne:
+            raise ValueError(f"ne_target {ne_target} < ne {ne}")
+        idx, phi = noise.epoch_idx, noise.ecorr_phi
+        k = ne_target - ne
+        slots = noise.slots
+        if slots is not None:
+            slots = EpochSlots(
+                torch.cat([slots.rows, slots.rows.new_zeros(
+                    (slots.rows.shape[0], k))], dim=1),
+                torch.cat([slots.mask, slots.mask.new_zeros(
+                    (slots.mask.shape[0], k))], dim=1))
+        out = out._replace(
+            epoch_idx=torch.where(idx == ne, torch.full_like(idx, ne_target),
+                                  idx),
+            ecorr_phi=torch.cat([phi, phi.new_ones(k)]), slots=slots)
+        ne = ne_target
     k = n_target - n
     if k == 0:
-        return noise
-    idx = noise.epoch_idx
-    epoch_idx = torch.cat([idx, torch.full((k,), noise.ecorr_phi.shape[0],
-                                           dtype=idx.dtype, device=idx.device)])
-    sigma = noise.sigma
-    if sigma is not None and sigma.shape[0] == n:
-        sigma = torch.cat([sigma, torch.full((k,), PAD_ERROR_US * 1e-6,
-                                             dtype=sigma.dtype,
-                                             device=sigma.device)])
-    dm_sigma = noise.dm_sigma
-    if dm_sigma is not None and dm_sigma.shape[0] == n:
-        dm_sigma = torch.cat([dm_sigma, torch.full((k,), DM_PAD_ERROR,
-                                                   dtype=dm_sigma.dtype,
-                                                   device=dm_sigma.device)])
-    return noise._replace(epoch_idx=epoch_idx, sigma=sigma, dm_sigma=dm_sigma)
+        return out
+
+    def pad(x, value):
+        if x is None or x.shape[0] != n:
+            return x
+        return torch.cat([x, torch.full((k,), value, dtype=x.dtype,
+                                        device=x.device)])
+
+    return out._replace(epoch_idx=pad(out.epoch_idx, ne),
+                        sigma=pad(out.sigma, PAD_ERROR_US * 1e-6),
+                        dm_sigma=pad(out.dm_sigma, DM_PAD_ERROR))
 
 
-def fourier_design(t_s: torch.Tensor, nharm: int
+def stack_noise_statics(statics: list[NoiseStatics], n_target: int,
+                        ne_target: int) -> NoiseStatics:
+    """Stack per-member statics along a leading batch axis, each padded
+    first to ``n_target`` rows and ``ne_target`` epochs
+    (:func:`pad_noise_statics`): epoch_idx (B, n), ecorr_phi (B, ne),
+    pl_params (B, n_pl, 2), sigma/dm_sigma (B, n) where every member has
+    them, and the epochs' slots (B, K, ne), K the largest member's
+    (a member's missing layers are rows 0 with mask 0)."""
+    padded = [pad_noise_statics(s, n_target, ne_target) for s in statics]
+    for leaf in ("sigma", "dm_sigma", "slots"):
+        have = [getattr(s, leaf) is not None for s in padded]
+        if any(have) and not all(have):
+            raise ValueError(f"mixed {leaf} across a batch; give it to "
+                             "every member or none")
+    slots = None
+    if padded[0].slots is not None:
+        kmax = max(int(s.slots.rows.shape[0]) for s in padded)
+
+        def layers(x):
+            return torch.cat([x, x.new_zeros((kmax - x.shape[0],)
+                                              + tuple(x.shape[1:]))])
+
+        slots = EpochSlots(
+            torch.stack([layers(s.slots.rows) for s in padded]),
+            torch.stack([layers(s.slots.mask) for s in padded]))
+
+    def stack(leaf):
+        if getattr(padded[0], leaf) is None:
+            return None
+        return torch.stack([getattr(s, leaf) for s in padded])
+
+    return NoiseStatics(stack("epoch_idx"), stack("ecorr_phi"),
+                        stack("pl_params"), stack("sigma"), slots,
+                        stack("dm_sigma"))
+
+
+def fourier_design(t_s: torch.Tensor, nharm: int, t_ref=None, tspan=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fourier basis: (F (n, 2*nharm), f (nharm,) Hz, df Hz).
 
     Columns interleave sin/cos per harmonic. f_j = j / T_span with T_span
-    from the times themselves (at least one day).
+    from the times themselves (at least one day), unless ``t_ref`` and
+    ``tspan`` [s] are given (a TOA shard's basis takes the whole table's).
     """
-    t_ref = torch.min(t_s)
-    tspan = torch.clamp(torch.max(t_s) - t_ref, min=SECS_PER_DAY)
+    if t_ref is None:
+        t_ref = torch.min(t_s)
+        tspan = torch.clamp(torch.max(t_s) - t_ref, min=SECS_PER_DAY)
     f = torch.arange(1, nharm + 1, dtype=torch.float64, device=t_s.device) / tspan
     arg = 2.0 * np.pi * (t_s - t_ref)[:, None] * f[None, :]
     F = torch.stack([torch.sin(arg), torch.cos(arg)], dim=-1)
@@ -305,17 +363,18 @@ def powerlaw_phi(f: torch.Tensor, log10_amp, gamma, df) -> torch.Tensor:
             * (f / FYR_HZ) ** (-gamma) * df)
 
 
-def pl_bases(toas, specs: tuple[PLSpec, ...], pl_params: torch.Tensor
+def pl_bases(toas, specs: tuple[PLSpec, ...], pl_params: torch.Tensor,
+             t_ref=None, tspan=None
              ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Stacked Fourier blocks (n, k_F) and prior variances (k_F,) on the
     table's device. ``pl_params[i] = [log10_amp, gamma]`` pairs with
-    specs[i]."""
+    specs[i]; ``t_ref``/``tspan`` as :func:`fourier_design` takes them."""
     if not specs:
         return None, None
     t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
     blocks, phis = [], []
     for i, spec in enumerate(specs):
-        F, f, df = fourier_design(t_s, spec.nharm)
+        F, f, df = fourier_design(t_s, spec.nharm, t_ref, tspan)
         if spec.scale != "none":
             # PLDMNoise/PLChromNoise: (1400 MHz / f)^alpha per TOA
             ratio = (DM_FREF_MHZ / toas.freq_mhz)[:, None]
@@ -344,15 +403,64 @@ def segment_sum(x: torch.Tensor, idx, ne: int) -> torch.Tensor:
     return out.index_add_(0, idx, x)[:ne]
 
 
+def gls_sums(A: torch.Tensor, r: torch.Tensor, w: torch.Tensor, epochs,
+             ne: int) -> dict:
+    """The sums over rows of the seg-GLS solve, in float64: the Gram
+    ``A^T W A`` of the normalized columns `A`, ``A^T W r``, ``r^T W r``
+    and, with ``ne`` ECORR epochs, the segment sums of ``W A``, ``W r``
+    and ``w`` (`epochs` as :func:`segment_sum` takes them). Sums over
+    disjoint row blocks add up to the whole table's (a TOA-sharded step
+    adds them in shard order before :func:`gls_eliminate`)."""
+    Aw = A * w[:, None]
+    rw = r * w
+    sums = {"G": A.T @ Aw, "c": A.T @ rw, "quad": torch.sum(r * r * w)}
+    if ne > 0:
+        sums.update(dw=segment_sum(w, epochs, ne),
+                    C=segment_sum(Aw, epochs, ne),    # (ne, q) U^T W A
+                    ce=segment_sum(rw, epochs, ne))
+    return sums
+
+
+def column_norm(sq: torch.Tensor) -> torch.Tensor:
+    """The column scales from ``sum(B * B * w)`` over rows (a zero
+    column keeps scale 1)."""
+    norm = torch.sqrt(sq)
+    return torch.where(norm == 0.0, torch.ones_like(norm), norm)
+
+
+def gls_eliminate(sums: dict, norm: torch.Tensor, phiinv_B: torch.Tensor,
+                  phi_e: torch.Tensor) -> dict:
+    """The small Schur system from :func:`gls_sums` of the whole table:
+    the prior ``phiinv_B`` of each column (0 for a timing column) in
+    normalized units, and the diagonal epoch block (prior ``phi_e``)
+    eliminated. Returns what :func:`gls_finalize_seg` needs: S/rhs are
+    (q, q)/(q,), C is (ne, q)."""
+    G_BB = sums["G"] + torch.diag(phiinv_B / (norm * norm))
+    c_B = sums["c"]
+    q = G_BB.shape[0]
+    if phi_e.shape[0] > 0:
+        d = sums["dw"] + 1.0 / phi_e  # diagonal epoch block
+        C, c_e = sums["C"], sums["ce"]
+        S = G_BB - C.T @ (C / d[:, None])
+        rhs = c_B - C.T @ (c_e / d)
+    else:
+        f64 = dict(dtype=G_BB.dtype, device=G_BB.device)
+        d = torch.ones(0, **f64)
+        C = torch.zeros((0, q), **f64)
+        c_e = torch.zeros(0, **f64)
+        S, rhs = G_BB, c_B
+    return {"S": S, "rhs": rhs, "c_B": c_B, "norm": norm,
+            "quad0": sums["quad"], "C": C, "c_e": c_e, "d": d}
+
+
 def gls_gram_seg(M: torch.Tensor, r: torch.Tensor, sigma: torch.Tensor,
                  F: torch.Tensor | None, phi_F: torch.Tensor | None,
                  epoch_idx: torch.Tensor, phi_e: torch.Tensor) -> dict:
     """The O(n)/O(ne) reduction of the seg-GLS solve, in float64.
 
     Everything that touches the TOA axis: whitened Gram matrix, ECORR
-    segment sums, Schur elimination of the diagonal epoch block. Returns
-    the small Schur system plus the pieces :func:`gls_finalize_seg`
-    needs — S/rhs are (q, q)/(q,), C is (ne, q).
+    segment sums (:func:`gls_sums`), Schur elimination of the diagonal
+    epoch block (:func:`gls_eliminate`).
     """
     p = M.shape[1]
     zeros_p = torch.zeros(p, dtype=M.dtype, device=M.device)
@@ -362,29 +470,10 @@ def gls_gram_seg(M: torch.Tensor, r: torch.Tensor, sigma: torch.Tensor,
     else:
         B = M
         phiinv_B = zeros_p
-    q = B.shape[1]
     w = 1.0 / (sigma * sigma)
-
-    norm = torch.sqrt(torch.sum(B * B * w[:, None], dim=0))
-    norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
-    A = B / norm
-    G_BB = A.T @ (A * w[:, None]) + torch.diag(phiinv_B / (norm * norm))
-    c_B = A.T @ (r * w)
-
-    ne = phi_e.shape[0]
-    if ne > 0:
-        d = segment_sum(w, epoch_idx, ne) + 1.0 / phi_e  # diagonal epoch block
-        C = segment_sum(A * w[:, None], epoch_idx, ne)   # (ne, q) U^T W A
-        c_e = segment_sum(r * w, epoch_idx, ne)
-        S = G_BB - C.T @ (C / d[:, None])
-        rhs = c_B - C.T @ (c_e / d)
-    else:
-        d = torch.ones(0, dtype=M.dtype, device=M.device)
-        C = torch.zeros((0, q), dtype=M.dtype, device=M.device)
-        c_e = torch.zeros(0, dtype=M.dtype, device=M.device)
-        S, rhs = G_BB, c_B
-    return {"S": S, "rhs": rhs, "c_B": c_B, "norm": norm,
-            "quad0": torch.sum(r * r * w), "C": C, "c_e": c_e, "d": d}
+    norm = column_norm(torch.sum(B * B * w[:, None], dim=0))
+    return gls_eliminate(gls_sums(B / norm, r, w, epoch_idx, phi_e.shape[0]),
+                         norm, phiinv_B, phi_e)
 
 
 def gls_gram_whitened(A_M: torch.Tensor, rw: torch.Tensor, sw: torch.Tensor,
@@ -525,9 +614,11 @@ def gls_solve_seg(M: torch.Tensor, r: torch.Tensor, sigma: torch.Tensor,
 
 
 def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
-                  pl_specs: tuple[PLSpec, ...] = (),
-                  params: list[str] | None = None, device=None):
-    """Build ``step(base, deltas, toas, noise) -> (new_deltas, info)``.
+                  pl_specs: tuple[PLSpec, ...] = (), masked: bool = False,
+                  params: list[str] | None = None, traced_tzr: bool = False,
+                  device=None):
+    """Build ``step(base, deltas, toas, noise[, mask][, tzr_toas]) ->
+    (new_deltas, info)``.
 
     The GLS analogue of :func:`pint_tpu_torch.fitting.step.make_wls_step`:
     one call is a full Gauss-Newton GLS iteration — residuals, jacfwd
@@ -538,25 +629,28 @@ def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
     uncertainties and the noise coefficients. The TZR anchor (``tzr``,
     or the model's own built on `device`) pins the phase; without one
     (``abs_phase=False``) the residuals are re-centered on their circular
-    mean first.
+    mean first. ``masked``/``params``/``traced_tzr`` are the WLS step's
+    (a zero design column is exactly inert in this solve too).
     """
-    from pint_tpu_torch.fitting.step import _circular_recenter
+    from pint_tpu_torch.fitting.step import (_circular_recenter,
+                                             design_columns, fixed_arity,
+                                             phase_setup)
 
-    if tzr is None and abs_phase:
-        tzr = model.get_tzr_toas(device)
-    anchorless = tzr is None
-    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=not anchorless)
+    phase_fn, anchorless = phase_setup(model, tzr, abs_phase, traced_tzr,
+                                       device)
     names = params if params is not None else model.free_params
     # an explicit PHOFF replaces the implicit offset column + mean
     # subtraction (see TimingModel.designmatrix)
     has_phoff = model.has_component("PhaseOffset")
     off = 0 if has_phoff else 1
 
-    def step(base, deltas, toas, noise: NoiseStatics):
+    def step(base, deltas, toas, noise: NoiseStatics, *, mask=None,
+             tzr_toas=None):
         f0 = base["F0"].hi + base["F0"].lo
 
         def total_phase(d):
-            ph = phase_fn(base, d, toas)
+            ph = (phase_fn(base, d, toas, tzr_toas) if traced_tzr
+                  else phase_fn(base, d, toas))
             # one DD pass serves residual and jacobian via has_aux
             return (ph.int_part + (ph.frac.hi + ph.frac.lo),
                     ph.frac.hi + ph.frac.lo)
@@ -571,10 +665,8 @@ def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
         if not has_phoff:
             resid_turns = resid_turns - torch.sum(resid_turns * w) / torch.sum(w)
         r = resid_turns / f0
-
-        cols = [] if has_phoff else [torch.ones_like(r) / f0]
-        cols += [-J[k] / f0 for k in names]
-        M = torch.stack(cols, dim=1)
+        M = torch.stack(design_columns(J, names, f0, r, has_phoff, mask),
+                        dim=1)
 
         F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
         parts = gls_gram_seg(M, r, err, F, phi_F,
@@ -590,7 +682,7 @@ def make_gls_step(model, tzr=None, *, abs_phase: bool = True,
                             "fourier_coeffs": sol["fourier_coeffs"],
                             "ecorr_coeffs": sol["ecorr_coeffs"]}
 
-    return step
+    return fixed_arity(step, 4, masked, traced_tzr)
 
 
 def cached_gls_step(model, *, pl_specs: tuple[PLSpec, ...] = (),
@@ -617,8 +709,9 @@ def cached_gls_probe(model, *, pl_specs: tuple[PLSpec, ...] = (),
 
 
 def make_gls_probe(model, tzr=None, *, abs_phase: bool = True,
-                   pl_specs: tuple[PLSpec, ...] = (), device=None):
-    """Build ``probe(base, deltas, toas, noise) -> chi2`` — the
+                   pl_specs: tuple[PLSpec, ...] = (), traced_tzr: bool = False,
+                   device=None):
+    """Build ``probe(base, deltas, toas, noise[, tzr_toas]) -> chi2`` — the
     noise-marginal GLS chi2 at ``deltas`` without a design matrix.
 
     One residual-only phase pass (the shared
@@ -627,16 +720,19 @@ def make_gls_probe(model, tzr=None, *, abs_phase: bool = True,
     columns: the value :func:`noise_marginal_chi2` extracts from the full
     step's parts, to round-off.
     """
-    from pint_tpu_torch.fitting.step import make_resid_fn
+    from pint_tpu_torch.fitting.step import fixed_arity, make_resid_fn
 
-    resid = make_resid_fn(model, tzr, abs_phase=abs_phase, device=device)
+    resid = make_resid_fn(model, tzr, abs_phase=abs_phase,
+                          traced_tzr=traced_tzr, device=device)
 
-    def probe(base, deltas, toas, noise: NoiseStatics):
-        r, err, _w = resid(base, deltas, toas, err=noise.sigma)
+    def probe(base, deltas, toas, noise: NoiseStatics, *, mask=None,
+              tzr_toas=None):
+        r, err, _w = resid(base, deltas, toas, err=noise.sigma,
+                           tzr_toas=tzr_toas)
         F, phi_F = pl_bases(toas, pl_specs, noise.pl_params)
         M0 = torch.zeros((r.shape[0], 0), dtype=r.dtype, device=r.device)
         parts = gls_gram_seg(M0, r, err, F, phi_F,
                              noise.epochs, noise.ecorr_phi)
         return noise_marginal_chi2(parts, 0)
 
-    return probe
+    return fixed_arity(probe, 4, False, traced_tzr)

@@ -239,9 +239,12 @@ def _dm_errors(dm_scale_comps, noise, dm, toas):
 
 
 def make_wb_step(model, tzr=None, *, abs_phase: bool = True,
-                 pl_specs=(), params: list[str] | None = None, device=None):
-    """Build ``step(base, deltas, toas, noise, dm) -> (new_deltas, info)``,
-    one wideband Gauss-Newton iteration on the table's device.
+                 pl_specs=(), masked: bool = False,
+                 params: list[str] | None = None, traced_tzr: bool = False,
+                 device=None):
+    """Build ``step(base, deltas, toas, noise, dm[, mask][, tzr_toas]) ->
+    (new_deltas, info)``, one wideband Gauss-Newton iteration on the
+    table's device.
 
     The stacked system of :class:`WidebandTOAFitter` as one function:
     TOA rows (phase residuals, jacfwd design matrix) on top of DM rows
@@ -251,17 +254,18 @@ def make_wb_step(model, tzr=None, *, abs_phase: bool = True,
     basis the solve is the joint WLS. ``info["chi2_at_input"]`` is the
     stacked r^T C^-1 r that the damped loops judge trials by. ``dm`` is
     :func:`build_wb_data`'s block; ``noise.dm_sigma``, when present,
-    replaces the DMEFAC/DMEQUAD scaling of ``dm["errs"]``. The reference's
-    ``masked``/``params``-batched/``traced_tzr`` forms are not ported.
+    replaces the DMEFAC/DMEQUAD scaling of ``dm["errs"]``.
+    ``masked``/``params``/``traced_tzr`` are the WLS step's (a masked
+    parameter's TOA and DM columns are both zero).
     """
     from pint_tpu_torch.fitting.gls_step import (gls_finalize_seg, gls_gram_seg,
                                                  noise_marginal_chi2)
-    from pint_tpu_torch.fitting.step import _circular_recenter
+    from pint_tpu_torch.fitting.step import (_circular_recenter,
+                                             design_columns, fixed_arity,
+                                             phase_setup)
 
-    if tzr is None and abs_phase:
-        tzr = model.get_tzr_toas(device)
-    anchorless = tzr is None
-    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=not anchorless)
+    phase_fn, anchorless = phase_setup(model, tzr, abs_phase, traced_tzr,
+                                       device)
     names = params if params is not None else model.free_params
     has_phoff = model.has_component("PhaseOffset")
     off = 0 if has_phoff else 1
@@ -269,11 +273,12 @@ def make_wb_step(model, tzr=None, *, abs_phase: bool = True,
     dm_scale_comps = [c for c in model.components
                       if hasattr(c, "scale_dm_sigma")]
 
-    def step(base, deltas, toas, noise, dm):
+    def step(base, deltas, toas, noise, dm, *, mask=None, tzr_toas=None):
         f0 = base["F0"].hi + base["F0"].lo
 
         def joint(d):
-            ph = phase_fn(base, d, toas)
+            ph = (phase_fn(base, d, toas, tzr_toas) if traced_tzr
+                  else phase_fn(base, d, toas))
             dm_m = _dm_model(dm_comps, model.resolve(base, d), toas)
             # one evaluation serves the residuals and both Jacobians
             return ((ph.int_part + (ph.frac.hi + ph.frac.lo), dm_m),
@@ -294,10 +299,10 @@ def make_wb_step(model, tzr=None, *, abs_phase: bool = True,
 
         # the Offset column moves no DM measurement; parameter columns
         # are [-dphase/dp / f0 ; -d(resid_dm)/dp] = [-J_ph/f0 ; +J_dm]
-        cols_t = [] if has_phoff else [torch.ones_like(r_t) / f0]
+        cols_t = design_columns(J_ph, names, f0, r_t, has_phoff, mask)
         cols_dm = [] if has_phoff else [torch.zeros_like(r_t)]
-        cols_t += [-J_ph[k] / f0 for k in names]
-        cols_dm += [J_dm[k] for k in names]
+        cols_dm += [J_dm[k] if mask is None else J_dm[k] * mask[k]
+                    for k in names]
         M = torch.cat([torch.stack(cols_t, dim=1),
                        torch.stack(cols_dm, dim=1)], dim=0)
         r = torch.cat([r_t, r_dm])
@@ -315,25 +320,27 @@ def make_wb_step(model, tzr=None, *, abs_phase: bool = True,
                             "fourier_coeffs": sol["fourier_coeffs"],
                             "ecorr_coeffs": sol["ecorr_coeffs"]}
 
-    return step
+    return fixed_arity(step, 5, masked, traced_tzr)
 
 
 def make_wb_probe(model, tzr=None, *, abs_phase: bool = True,
-                  pl_specs=(), device=None):
-    """Build ``probe(base, deltas, toas, noise, dm) -> chi2``: the stacked
+                  pl_specs=(), traced_tzr: bool = False, device=None):
+    """Build ``probe(base, deltas, toas, noise, dm[, tzr_toas]) -> chi2``: the stacked
     wideband chi2 at ``deltas`` without a design matrix (one phase pass
     and one DM pass), the step's ``chi2_at_input`` through the
     zero-column Schur system."""
     from pint_tpu_torch.fitting.gls_step import gls_gram_seg, noise_marginal_chi2
-    from pint_tpu_torch.fitting.step import make_resid_fn
+    from pint_tpu_torch.fitting.step import fixed_arity, make_resid_fn
 
-    resid = make_resid_fn(model, tzr, abs_phase=abs_phase, device=device)
+    resid = make_resid_fn(model, tzr, abs_phase=abs_phase,
+                          traced_tzr=traced_tzr, device=device)
     dm_comps = [c for c in model.components if hasattr(c, "dm_value")]
     dm_scale_comps = [c for c in model.components
                       if hasattr(c, "scale_dm_sigma")]
 
-    def probe(base, deltas, toas, noise, dm):
-        r_t, err_t, _w = resid(base, deltas, toas, err=noise.sigma)
+    def probe(base, deltas, toas, noise, dm, *, mask=None, tzr_toas=None):
+        r_t, err_t, _w = resid(base, deltas, toas, err=noise.sigma,
+                               tzr_toas=tzr_toas)
         dm_m = _dm_model(dm_comps, model.resolve(base, deltas), toas)
         err_dm = _dm_errors(dm_scale_comps, noise, dm, toas)
         r = torch.cat([r_t, dm["vals"] - dm_m])
@@ -343,7 +350,7 @@ def make_wb_probe(model, tzr=None, *, abs_phase: bool = True,
         parts = gls_gram_seg(M0, r, err, F, phi_F, epochs, noise.ecorr_phi)
         return noise_marginal_chi2(parts, 0)
 
-    return probe
+    return fixed_arity(probe, 5, False, traced_tzr)
 
 
 def cached_wb_step(model, *, pl_specs=(), device=None):

@@ -5,8 +5,11 @@ wraps loguru with a ``setup()`` entry point and de-duplication filters so
 the per-TOA warning storms of big datasets don't flood the console). The
 same surface on stdlib logging: :func:`setup` configures the
 ``pint_tpu_torch`` logger tree, and :class:`DedupFilter` collapses
-repeated messages past a threshold. The reference's ``TELEMETRY`` level
-(its span mirroring) is not ported: the port has no spans.
+repeated messages past a threshold. ``TELEMETRY`` (15, between DEBUG
+and INFO) is the level at which :mod:`pint_tpu_torch.telemetry` mirrors
+span begin/end lines (``PINT_TORCH_TELEMETRY_LOG=1`` or
+``telemetry.configure(mirror_logs=True)``); ``setup(level="TELEMETRY")``
+shows them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ import sys
 
 LOG_FORMAT = "%(levelname)-9s %(name)s: %(message)s"
 ROOT = "pint_tpu_torch"
+
+# the span-mirroring level, between DEBUG and INFO
+TELEMETRY = 15
+logging.addLevelName(TELEMETRY, "TELEMETRY")
 
 
 def get_logger(name: str = ROOT) -> logging.Logger:
@@ -48,9 +55,11 @@ def setup(level: str = "INFO", *, dedup: bool = True,
           max_repeats: int = 3, stream=None) -> logging.Logger:
     """Configure the ``pint_tpu_torch`` logger (reference:
     pint.logging.setup) and return it. Repeated calls reconfigure (old
-    handlers are removed), so scripts can call it unconditionally."""
+    handlers are removed), so scripts can call it unconditionally.
+    ``level`` takes the stdlib names and ``"TELEMETRY"``."""
     logger = logging.getLogger(ROOT)
-    logger.setLevel(getattr(logging, level.upper(), logging.INFO))
+    logger.setLevel(TELEMETRY if level.upper() == "TELEMETRY"
+                    else getattr(logging, level.upper(), logging.INFO))
     for h in list(logger.handlers):
         logger.removeHandler(h)
     handler = logging.StreamHandler(stream or sys.stderr)

@@ -106,21 +106,22 @@ class ScaleToaError(NoiseComponent):
         return self
 
     def scale_sigma(self, sigma: torch.Tensor, toas) -> torch.Tensor:
-        def mask(p):
-            return torch.as_tensor(toa_mask(p.selector, toas), device=sigma.device)
-
+        """The scaled TOA uncertainties of `toas`; the selector masks are
+        the table's device tensors (no host copy, so a captured or
+        batched step reads them as it reads any column)."""
         var = sigma * sigma
         for name in self.equad_names:
             p = self.param(name)
             v = p.value_f64 * 1e-6
-            var = var + mask(p).to(var.dtype) * (v * v)
+            var = var + device_mask(p.selector, toas) * (v * v)
         for name in self.tneq_names:
             p = self.param(name)
-            var = var + mask(p).to(var.dtype) * 10.0 ** (2.0 * p.value_f64)
+            var = var + device_mask(p.selector, toas) * 10.0 ** (2.0 * p.value_f64)
         scale = torch.ones_like(sigma)
         for name in self.efac_names:
             p = self.param(name)
-            scale = torch.where(mask(p), p.value_f64, scale)
+            scale = torch.where(device_mask(p.selector, toas) != 0.0,
+                                p.value_f64, scale)
         return scale * torch.sqrt(var)
 
 

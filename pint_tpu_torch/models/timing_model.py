@@ -155,7 +155,7 @@ class TimingModel:
         """
         cache = self.__dict__.get("_fn_cache")
         if cache is None:
-            cache = self.__dict__["_fn_cache"] = LRUCache(_FN_CACHE_SIZE)
+            cache = self.__dict__["_fn_cache"] = LRUCache(_FN_CACHE_SIZE, name="fn_program")
         key = (key, self.structure_key())
         fn = cache.get_lru(key)
         if fn is None:
@@ -195,12 +195,24 @@ class TimingModel:
             ph = phase_mod.add(ph, c.phase(p, tt, delay, aux))
         return ph
 
-    def phase_fn_toas(self, *, tzr=None, abs_phase: bool = True, device=None):
+    def phase_fn_toas(self, *, tzr=None, abs_phase: bool = True, device=None,
+                      traced_tzr: bool = False):
         """Build ``fn(base, deltas, toas) -> Phase``.
 
         With ``abs_phase`` and no ``tzr`` given, the model's TZR anchor
         table is built here, on `device` (``None``: the CUDA card).
+        ``traced_tzr=True`` returns ``fn(base, deltas, toas, tzr_toas)``
+        instead, the anchor an argument: under ``torch.func.vmap`` each
+        batch member anchors at its own stacked one-row TZR table.
         """
+        if traced_tzr:
+            def fn_traced(base, deltas, toas, tzr_toas) -> phase_mod.Phase:
+                p = self.resolve(base, deltas)
+                ph = self._phase_at(p, toas)
+                return phase_mod.add(ph, phase_mod.neg(self._phase_at(
+                    p, tzr_toas, skip_categories=("phase_offset",))))
+
+            return fn_traced
         if tzr is None and abs_phase:
             tzr = self.get_tzr_toas(device)
 

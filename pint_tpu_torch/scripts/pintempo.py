@@ -33,10 +33,6 @@ def main(argv=None) -> int:
                         help="write a pre/post-fit residual plot (requires "
                              "matplotlib)")
     args = parser.parse_args(argv)
-    if args.fitter == "sharded":
-        raise SystemExit(
-            "pintempo --fitter sharded needs parallel/sharded_fit.py, which "
-            "is not ported yet (ROADMAP Queue 1 item 4); use --fitter hybrid")
     dev = script_init(args.log_level)
 
     from pint_tpu_torch.fitting import (Fitter, GLSFitter, HybridGLSFitter,
@@ -64,6 +60,13 @@ def main(argv=None) -> int:
         fitter = WLSFitter(toas, model)
     elif args.fitter == "gls":
         fitter = GLSFitter(toas, model)
+    elif args.fitter == "sharded":
+        from pint_tpu_torch.parallel import (ShardedGLSFitter,
+                                             ShardedWLSFitter, make_mesh)
+
+        cls = (ShardedGLSFitter if model.has_correlated_errors
+               else ShardedWLSFitter)
+        fitter = cls(toas, model, mesh=make_mesh(devices=[dev]))
     elif args.fitter == "hybrid":
         fitter = HybridGLSFitter(toas, model, device=dev)
     else:

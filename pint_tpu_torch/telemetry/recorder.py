@@ -24,21 +24,35 @@ authoritative re-check of a probe-accepted candidate. Fields:
   next full evaluation
 * ``probe_evals`` — probe evaluations in that window
 
+The batched loops record per-member vectors instead (every body is one
+batch-wide evaluation): ``chi2``/``lam``/``accepted`` of shape ``(B,)``
+per entry (:data:`BATCH_FIELDS`), where ``lam`` is the damping each
+member actually applied (0 for settled members and the init pass).
+
 The ring holds ``TRACE_LEN`` (64) entries; a fit that evaluates more
 wraps it, and the record counts the ``dropped`` (oldest) entries. Kill
-switch: ``PINT_TORCH_FLIGHT_RECORDER=0`` (default on). The reference's
-JSON-lines exporter is not ported: the most recent record is
-:func:`last_trace`.
+switch: ``PINT_TORCH_FLIGHT_RECORDER=0`` (default on). The most recent
+record is :func:`last_trace`; with telemetry on, each record is also a
+``type="trace"`` line of the JSON-lines artifact, a device trace adds
+one synthetic ``<kind>.iter`` span per entry (``kind="device"``,
+``dur_s`` 0: the evaluations ran inside graph replays), and
+:func:`capture_program` accounts each graph capture.
 """
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 
 from pint_tpu_torch import config
+from pint_tpu_torch.telemetry import core, counters, export, trace
 
 # scalar-loop entry fields, in emission order
 FIELDS = ("chi2", "lam", "accepted", "halvings", "probe_evals")
+# batched-loop entry fields (per-member vectors)
+BATCH_FIELDS = ("chi2", "lam", "accepted")
 
 # ring capacity in entries
 TRACE_LEN = 64
@@ -74,6 +88,21 @@ def emit_trace(kind: str, entries: dict, *, loop: str,
            "n": n + dropped, "recorded": n, "dropped": dropped}
     rec.update(entries)
     _LAST_TRACE = rec
+    if not core._enabled:
+        return rec
+    counters.inc("trace.emitted")
+    export.add_record(trace.stamp(dict(rec), trace.current()))
+    if loop == "device":
+        t, pid = time.time(), os.getpid()
+        for i in range(n):
+            span_rec = {"type": "span", "name": f"{kind}.iter", "t": t,
+                        "dur_s": 0.0, "seq": i, "depth": 1,
+                        "parent": f"{kind}.program", "kind": "device",
+                        "pid": pid}
+            for f in FIELDS:
+                if f in entries:
+                    span_rec[f] = entries[f][i]
+            export.add_span(span_rec)
     return rec
 
 
@@ -81,22 +110,26 @@ def emit_device_trace(kind: str, trace: dict) -> dict:
     """Re-emit a fetched device ring as an ordered trace record.
 
     ``trace`` is ``{"n": total entry count, <field>: ring array, ...}``
-    on the host. Entries beyond the ring's capacity wrapped; the oldest
+    on the host: (cap,) rings of the scalar loop, (cap, B) of the
+    batched one. Entries beyond the ring's capacity wrapped; the oldest
     are dropped and counted.
     """
     n = int(trace["n"])
     cap = int(np.shape(trace["chi2"])[0])
     kept = min(n, cap)
     idx = [(n - kept + j) % cap for j in range(kept)]
+    fields = FIELDS if np.ndim(trace["chi2"]) == 1 else BATCH_FIELDS
     entries = {}
-    for f in FIELDS:
+    for f in fields:
         vals = np.asarray(trace[f])[idx]
         if vals.dtype == bool:
-            entries[f] = [bool(v) for v in vals]
+            conv = bool
         elif np.issubdtype(vals.dtype, np.integer):
-            entries[f] = [int(v) for v in vals]
+            conv = int
         else:
-            entries[f] = [float(v) for v in vals]
+            conv = float
+        entries[f] = [conv(v) if vals.ndim == 1 else [conv(x) for x in v]
+                      for v in vals]
     return emit_trace(kind, entries, loop="device", dropped=n - kept)
 
 
@@ -142,3 +175,24 @@ class HostTrace:
 def host_trace() -> HostTrace | None:
     """A fresh :class:`HostTrace` when the recorder is on, else None."""
     return HostTrace() if enabled() else None
+
+
+def capture_program(kind: str, *, shape=None, fingerprint=None,
+                    **vals) -> None:
+    """Account one graph capture of fit program ``kind``: each value
+    (captured kernel launches, graph count, ...) lands in a
+    ``program.<kind>.<field>`` gauge and all of them, with the shape and
+    fingerprint, in one ``type="program"`` record. Nothing when telemetry
+    is off."""
+    if not core._enabled:
+        return
+    rec: dict = {"type": "program", "kind": kind}
+    if shape is not None:
+        rec["shape"] = repr(tuple(shape))
+    if fingerprint is not None:
+        rec["fingerprint"] = fingerprint
+    rec.update(vals)
+    counters.inc("program.captures")
+    for field, v in vals.items():
+        counters.set_gauge(f"program.{kind}.{field}", float(v))
+    export.add_record(trace.stamp(rec, trace.current()))

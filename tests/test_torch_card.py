@@ -414,3 +414,57 @@ def test_pintempo_hybrid_on_the_card_launches_the_kernel(cuda_device, tmp_path,
     assert "device cuda" in capsys.readouterr().out
     assert ds32_gram.launches > before
     assert get_model(str(tmp_path / "post.par"))["F0"].uncertainty > 0
+
+
+def _card_batch(device, n_members=3, n=512):
+    """bench.py's batch problem at a small size on `device`: the bench par
+    with RA stepped by 5 h and F0 by 0.3 Hz per member, F0 kicked."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.parallel import BatchedPulsarFitter
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+    from torch_parity import PAR_FULL, epoch_mjds
+
+    problems = []
+    for i in range(n_members):
+        par = PAR_FULL.replace("17:48:52.75", f"{(i * 5) % 24:02d}:48:52.75")
+        par = par.replace("61.485476554", f"{61.485476554 + 0.3 * i:.9f}")
+        rng = np.random.default_rng(40 + i)
+        mjds = epoch_mjds(n, rng)
+        toas = make_fake_toas_from_arrays(
+            DD(mjds, np.zeros(n)), get_model(par),
+            freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
+            error_us=1.0, obs="gbt", add_noise=True, seed=50 + i, niter=2,
+            device="cpu")
+        model = get_model(par)
+        model["F0"].add_delta(2e-10)
+        problems.append((toas, model))
+    return BatchedPulsarFitter(problems, device=device)
+
+
+def test_captured_batched_loop_replays_bit_for_bit(cuda_device, monkeypatch):
+    """The batched fused loop on the card: a second batch of the same
+    problems replays the first's capture and gives the same bits, and
+    both equal the host batched loop's eager evaluations on the card
+    (the same decisions, every chi2 within 1e-12 relative)."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.telemetry import recorder
+
+    device_loop.clear_cache()
+    out = []
+    for _ in range(2):
+        bf = _card_batch(cuda_device)
+        chi2 = bf.fit_toas(maxiter=10)
+        out.append((chi2, bf.converged.copy(),
+                    [{k: m[k].value for k in m.free_params} for m in bf.models],
+                    recorder.last_trace()["chi2"]))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert out[0][2] == out[1][2] and out[0][3] == out[1][3]
+    monkeypatch.setenv("PINT_TORCH_DEVICE_LOOP", "0")
+    bf = _card_batch(cuda_device)
+    chi2 = bf.fit_toas(maxiter=10)
+    assert (bf.converged == out[0][1]).all()
+    np.testing.assert_allclose(chi2, out[0][0], rtol=1e-12)
+    for m, fused in zip(bf.models, out[0][2]):
+        for k, v in fused.items():
+            assert abs(m[k].value_f64 - (v[0] + v[1])) <= 1e-9 * m[k].uncertainty, k

@@ -2,7 +2,7 @@
 tests/test_cli.py on pint_tpu_torch, with ``PINT_TORCH_DEVICE=cpu``).
 
 pintempo must fit with every fitter it offers and write a post-fit par
-(``--fitter sharded`` refuses until the sharded fitter is ported); zima
+(``--fitter sharded`` on a one-device mesh, WLS or GLS); zima
 must write a tim file that reloads with near-zero residuals, and with
 ``--addnoise`` the reference's noise for the same seed; tcb2tdb,
 compare_parfiles, pintbary and pintpublish match the reference's
@@ -91,11 +91,12 @@ def test_write_toa_file_roundtrip(par_tim):
     assert r.rms_weighted_s() < 10e-6
 
 
-@pytest.mark.parametrize("fitter", ["auto", "wls", "gls", "downhill", "hybrid"])
+@pytest.mark.parametrize("fitter", ["auto", "wls", "gls", "downhill", "hybrid",
+                                    "sharded"])
 def test_pintempo_fits_and_writes(par_tim, tmp_path, capsys, fitter):
     par, tim, _ = par_tim
     # perturb the model so pintempo has something to recover
-    extra = NOISE if fitter in ("gls", "hybrid") else ""
+    extra = NOISE if fitter in ("gls", "hybrid", "sharded") else ""
     pert = tmp_path / "pert.par"
     pert.write_text(PAR.replace("61.485476554", "61.485476555") + extra)
     out = tmp_path / "post.par"
@@ -132,10 +133,26 @@ def test_pintempo_matches_reference(par_tim, tmp_path):
         assert got[k].uncertainty == pytest.approx(ref[k].uncertainty, rel=1e-9), k
 
 
-def test_pintempo_sharded_fitter_waits_for_its_port(par_tim):
+def test_pintempo_sharded_fitter_waits_for_its_port(par_tim, tmp_path, capsys):
+    """``--fitter sharded`` no longer waits: on a model without
+    correlated noise it runs ShardedWLSFitter on a one-device mesh and
+    lands on WLSFitter's values (the reference's 0.01-sigma bar). The
+    name is the one the test had while the option exited unported."""
+    from pint_tpu_torch.fitting import WLSFitter
+
     par, tim, _ = par_tim
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        pintempo.main([par, tim, "--fitter", "sharded"])
+    pert = tmp_path / "pert.par"
+    pert.write_text(PAR.replace("61.485476554", "61.485476555"))
+    out = tmp_path / "post.par"
+    assert pintempo.main([str(pert), tim, "--outfile", str(out),
+                          "--fitter", "sharded", "--maxiter", "5"]) == 0
+    assert "Fitted with ShardedWLSFitter" in capsys.readouterr().out
+    post = get_model(str(out))
+    ref_model, toas = get_model_and_toas(str(pert), tim, device="cpu")
+    WLSFitter(toas, ref_model).fit_toas(maxiter=5)
+    for k in ref_model.free_params:
+        assert abs(post[k].value_f64 - ref_model[k].value_f64) \
+            < 0.01 * ref_model[k].uncertainty, k
 
 
 def test_pintempo_plot_without_matplotlib(par_tim, tmp_path, capsys,

@@ -492,3 +492,174 @@ def test_hybrid_diverged_fit_leaves_the_model(gls_problem, monkeypatch):
     assert f.diverged and not f.converged and not np.isfinite(chi2)
     assert {k: model[k].value for k in model.free_params} == values
     assert f.counters == dict.fromkeys(COUNTERS, 0)
+
+
+# ----------------------------------------------------------------------
+# the batched loop (tests/test_device_loop.py:146 and :484)
+# ----------------------------------------------------------------------
+
+B_SCALES = np.array([1.0, 3.2, 1e-3, 4.6])
+B_TARGET = np.array([3.0, -2.0, 5.0, 1.0])
+
+
+def _b_run(deltas, ops):
+    x = deltas["x"]
+    s, t = torch.as_tensor(B_SCALES), torch.as_tensor(B_TARGET)
+    return {"x": x + s * (t - x)}, {"chi2_at_input": (x - t) ** 2, "x_at": x}
+
+
+def _b_probe(deltas, ops):
+    return (deltas["x"] - torch.as_tensor(B_TARGET)) ** 2
+
+
+def _b_host_loop(maxiter, min_dec, max_halvings):
+    """The reference test's transcription of the pre-fusion host loop."""
+    B = len(B_SCALES)
+
+    def run(deltas):
+        x = deltas["x"]
+        return ({"x": x + B_SCALES * (B_TARGET - x)},
+                {"chi2_at_input": (x - B_TARGET) ** 2, "x_at": x})
+
+    deltas = {"x": np.zeros(B)}
+    new_deltas, info = run(deltas)
+    chi2 = np.asarray(info["chi2_at_input"]).copy()
+    converged = np.zeros(B, dtype=bool)
+    trial_info = None
+    for _ in range(max(1, maxiter)):
+        dx = {k: np.asarray(new_deltas[k]) - deltas[k] for k in deltas}
+        lam = np.ones(B)
+        active = ~converged
+        accepted = np.zeros(B, dtype=bool)
+        for _h in range(max_halvings):
+            lam_j = np.where(active & ~accepted, lam, 0.0)
+            trial = {k: deltas[k] + lam_j * dx[k] for k in deltas}
+            trial_new, trial_info = run(trial)
+            trial_chi2 = np.asarray(trial_info["chi2_at_input"])
+            newly = active & ~accepted & (trial_chi2 <= chi2 + 1e-12)
+            deltas = {k: np.where(newly, trial[k], deltas[k]) for k in deltas}
+            new_deltas = {k: np.where(newly, trial_new[k], new_deltas[k])
+                          for k in deltas}
+            decrease = chi2 - trial_chi2
+            chi2 = np.where(newly, trial_chi2, chi2)
+            converged |= newly & (decrease < min_dec)
+            accepted |= newly
+            if (accepted | ~active).all():
+                break
+            lam = np.where(active & ~accepted, lam * 0.5, lam)
+        converged |= active & ~accepted
+        last_kept = bool((accepted | ~active).all())
+        if converged.all():
+            break
+    info = trial_info if last_kept else run(deltas)[1]
+    return deltas, info, chi2, converged
+
+
+@pytest.mark.parametrize("probe", [False, True])
+def test_synthetic_batched_parity(probe):
+    """Per-member lam carry: the lockstep loop equals the host batched
+    loop and the reference's batched loop (every counter); the probe
+    flavor equals the reference's probe flavor counter for counter."""
+    B = len(B_SCALES)
+    for maxiter, mdec, mh in ((10, 1e-3, 8), (2, 1e-30, 8), (8, 1e-10, 2),
+                              (12, 1e-6, 3)):
+        dd, di, dc, dconv, dcnt = device_loop.run_damped_batched(
+            _b_run, {"x": torch.zeros(B, **F64)}, (),
+            key=("bsynth", probe), probe=_b_probe if probe else None,
+            maxiter=maxiter, min_chi2_decrease=mdec, max_step_halvings=mh,
+            kind="bsynth_loop")
+        jd, ji, jc, jconv, jcnt = jdevice_loop.run_damped_batched(
+            lambda d, ops: ({"x": d["x"] + B_SCALES * (B_TARGET - d["x"])},
+                            {"chi2_at_input": (d["x"] - B_TARGET) ** 2,
+                             "x_at": d["x"]}),
+            {"x": jnp.zeros(B)}, (), key=("bsynth", probe),
+            probe=(lambda d, ops: (d["x"] - B_TARGET) ** 2) if probe else None,
+            maxiter=maxiter, min_chi2_decrease=mdec, max_step_halvings=mh,
+            kind="bsynth_loop")
+        np.testing.assert_allclose(dd["x"].numpy(), np.asarray(jd["x"]),
+                                   atol=1e-12)
+        np.testing.assert_allclose(dc, np.asarray(jc), atol=1e-14)
+        assert (dconv == np.asarray(jconv)).all()
+        assert dcnt == {k: int(v) for k, v in jcnt.items()}
+        np.testing.assert_allclose(di["x_at"].numpy(), np.asarray(ji["x_at"]),
+                                   atol=1e-12)
+        if not probe:
+            hd, hi, hc, hconv = _b_host_loop(maxiter, mdec, mh)
+            np.testing.assert_allclose(dd["x"].numpy(), hd["x"], atol=1e-12)
+            np.testing.assert_allclose(dc, hc, atol=1e-14)
+            assert (dconv == hconv).all()
+            np.testing.assert_allclose(di["x_at"].numpy(),
+                                       np.asarray(hi["x_at"]), atol=1e-12)
+        # the batched flight recorder: per-member vectors, one entry per
+        # full body; the init pass applies lam 0 and accepts nobody
+        tr = recorder.last_trace()
+        assert tr["loop"] == "device" and tr["n"] >= 1
+        assert len(tr["chi2"][0]) == B and len(tr["lam"][0]) == B
+        assert tr["lam"][0] == [0.0] * B
+        assert tr["accepted"][0] == [False] * B
+        assert any(any(row) for row in tr["accepted"])
+
+
+def test_batched_flight_recorder_off_is_bit_identical(monkeypatch):
+    out = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PINT_TORCH_FLIGHT_RECORDER", mode)
+        recorder._reset()
+        out[mode] = device_loop.run_damped_batched(
+            _b_run, {"x": torch.zeros(4, **F64)}, (), key=("brec",),
+            probe=_b_probe, maxiter=10)
+        assert (recorder.last_trace() is None) == (mode == "0")
+    assert torch.equal(out["0"][0]["x"], out["1"][0]["x"])
+    assert (out["0"][2] == out["1"][2]).all() and out["0"][4] == out["1"][4]
+
+
+def test_batched_device_loop_parity(monkeypatch):
+    """BatchedPulsarFitter: the fused per-member lam carry equals the host
+    loop (chi2 vector within 1e-9 relative, converged flags, written-back
+    values within 1e-6 of each parameter's uncertainty and uncertainties
+    within 1e-9 relative; on the CPU the two measured equal bit for
+    bit), and the kill switch selects the path. The batched
+    fits against the reference's are tests/test_torch_parallel.py's."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.parallel import BatchedPulsarFitter
+
+    def problems():
+        out = []
+        for i in range(2):
+            par = PAR.replace("61.485476554", f"{61.485476554 + 0.3 * i:.9f}")
+            truth = jget_model(par)
+            toas = make_fake_toas_uniform(
+                53000, 56000, 60, truth, obs="gbt",
+                freq_mhz=np.array([1400.0, 430.0]), error_us=1.0,
+                add_noise=True, seed=31 + i)
+            jpert = jget_model(par)
+            jpert["F0"].add_delta(2e-10 * (1 + i))
+            pert, t = port_state(jpert, toas, par=par)
+            out.append((t, pert))
+        return out
+
+    res = {}
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    try:
+        for mode in ("0", "1"):
+            monkeypatch.setenv("PINT_TORCH_DEVICE_LOOP", mode)
+            bf = BatchedPulsarFitter(problems(), device="cpu")
+            before = telemetry.counters_snapshot()
+            chi2 = bf.fit_toas(maxiter=8)
+            res[mode] = (chi2, bf.converged.copy(),
+                         [{k: (m[k].value_f64, m[k].uncertainty)
+                           for k in m.free_params} for m in bf.models],
+                         telemetry.counters_delta(before))
+    finally:
+        telemetry.reset()
+    c0, conv0, v0, del0 = res["0"]
+    c1, conv1, v1, del1 = res["1"]
+    np.testing.assert_allclose(c1, c0, rtol=1e-9)
+    assert (conv0 == conv1).all()
+    for a, b in zip(v0, v1):
+        for k, (value, unc) in a.items():
+            assert abs(b[k][0] - value) <= 1e-6 * unc, k
+            assert b[k][1] == pytest.approx(unc, rel=1e-9), k
+    assert del0.get("fit.device_loop.launches", 0) == 0
+    assert del1.get("fit.device_loop.launches", 0) == 1

@@ -331,3 +331,33 @@ def test_sources_import_no_jax_or_the_reference():
         assert not _FORBIDDEN.search(text), path
         assert "__import__(\"jax" not in text and "import_module(\"jax" not in text
 
+
+
+TELEMETRY_AND_PARALLEL_MODULES = (
+    "pint_tpu_torch.telemetry", "pint_tpu_torch.telemetry.core",
+    "pint_tpu_torch.telemetry.counters", "pint_tpu_torch.telemetry.host",
+    "pint_tpu_torch.telemetry.export", "pint_tpu_torch.telemetry.spans",
+    "pint_tpu_torch.telemetry.trace", "pint_tpu_torch.bucketing",
+    "pint_tpu_torch.parallel", "pint_tpu_torch.parallel.mesh",
+    "pint_tpu_torch.parallel.batch", "pint_tpu_torch.parallel.sharded_fit")
+
+
+def test_telemetry_and_parallel_import_no_jax_or_the_reference():
+    """The telemetry core and the many-pulsar modules load without JAX or
+    the reference in the process, and import neither."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {TELEMETRY_AND_PARALLEL_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'pint_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in TELEMETRY_AND_PARALLEL_MODULES:
+        path = REPO / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = REPO / name.replace(".", "/") / "__init__.py"
+        assert not _FORBIDDEN.search(path.read_text()), path

@@ -342,3 +342,37 @@ def test_dense_wideband_fit_padded_equals_unpadded(wb, monkeypatch):
     for k in m.free_params:
         assert float(padded[0][k]) == pytest.approx(float(exact[0][k]),
                                                     rel=1e-10, abs=1e-24), k
+
+
+def test_batched_wideband_family_matches_reference(wb):
+    """Wideband members batch through the fused joint TOA+DM step (the
+    batched fitter's "wb" family); their different DMEFAC values ride the
+    stacked ``dm_sigma`` and their EFAC the stacked ``sigma``, so the
+    union carries neither. Member by member against the reference's
+    ``BatchedPulsarFitter``: values within 1e-4 of an uncertainty,
+    uncertainties within 1e-9 and chi2 within 1e-7 relative (its jitted
+    program against the port's eager one)."""
+    from pint_tpu.parallel import BatchedPulsarFitter as JBatched
+    from pint_tpu_torch.parallel import BatchedPulsarFitter
+
+    _, ref2 = simulate_reference(180, seed=41, par=PAR, site="@")
+    wb2 = _wideband(ref2, jget_model(PAR), seed=42)
+    pars = [PAR + WB_NOISE,
+            PAR + WB_NOISE.replace("DMEFAC -fe L 1.2", "DMEFAC -fe L 1.4")]
+    problems, jproblems = [], []
+    for par, table in zip(pars, (wb, wb2)):
+        jm, m, t = kicked(par, table, DM=3e-3, F0=1e-10)
+        problems.append((t, m))
+        jproblems.append((table, jm))
+    bf = BatchedPulsarFitter(problems, device="cpu")
+    assert bf.family == "wb" and bf._trace_sigma and bf._trace_dm_sigma
+    assert not any(hasattr(c, "scale_dm_sigma") for c in bf.union.components)
+    chi2 = bf.fit_toas(maxiter=6)
+    jbf = JBatched(jproblems)
+    jchi2 = np.asarray(jbf.fit_toas(maxiter=6))
+    np.testing.assert_allclose(chi2, jchi2, rtol=1e-7)
+    assert (bf.converged == jbf.converged).all()
+    for (_, m), (_, jm) in zip(problems, jproblems):
+        for k in jm.free_params:
+            assert abs(m[k].value_f64 - jm[k].value_f64) <= 1e-4 * jm[k].uncertainty, k
+            assert m[k].uncertainty == pytest.approx(jm[k].uncertainty, rel=1e-9), k
