@@ -173,7 +173,30 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    with ``PINT_TORCH_TELEMETRY=0`` the same fit writing nothing; zero
    ds32_gram launches in each of these sub-paths, counted from 0 before
    each (their Grams are float64);
-17. a ``{"kernels": [...]}`` line, then the last line
+17. the PTA joint fit, after the loop cache is cleared: the batched
+   ds32 Gram at (68, 8,824, 106), (68, 2,206, 106) and a q <= 64 shape
+   (each member bit for bit its 2-D launch, through ``torch.func.vmap``
+   too, and within 1e-12 of max|G| of the batched plain version; times,
+   bound, ``torch.bmm`` both ways); BASELINE.md config 5 from
+   ``generate_catalog`` (68 x 8,824 GBT TOAs, 600,032, ECORR + 30-harmonic
+   red noise, a 20-harmonic HD-correlated GW background; each table then
+   shifted by a draw of its par's noise; every model kicked by KICK)
+   fitted by ``PTAGLSFitter`` through the fused joint loop (the batched
+   Gram inside its captured graph, both kernel counts set to 0 before:
+   two batched launches per full evaluation, no 2-D one), cold and warm,
+   the host loop as witness (phase 6's gates), converged with joint
+   chi2/dof in [0.8, 1.25] and every fitted parameter within 5 sigma of
+   the truth, peak memory, the idle share of a warm fit, and the float64
+   route (``accel=False``) within 1e-3 sigma; 4 x 2,000 catalogs card
+   against CPU on both routes (one of them heterogeneous: 2-D launches
+   per pulsar); an 8 x 2,048 ``CatalogJob`` in 0.2 s slices, resumed
+   from its first slice's checkpoint bit for bit; a 4-point hypergrid on
+   one capture; ``generate_catalog`` twice, one manifest id; pintk's
+   controller (fit, reset, fit, select and delete, fit, 100 random
+   models, the par and tim written and read back) on phase 10's 20,000
+   TOAs against ``Fitter.auto`` on the same selection, and at 2,000 TOAs
+   card against CPU;
+18. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -1423,23 +1446,38 @@ def whitened(n, q, seed, device):
     return (A / torch.linalg.norm(A, dim=0)).contiguous()
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, kernels=(), tries=3):
     """Device time per call of fn, by kernel name, from a torch.profiler
-    trace of `calls` warm calls ({} where the trace holds no device time)."""
+    trace of `calls` warm calls. A trace counts only when it is whole:
+    each kernel name's event count a positive multiple of `calls`, and
+    each name fragment of `kernels` among the names. Up to `tries`
+    traces are taken; {} where none is whole (device time not
+    measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out: dict = {}
+        counts: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                out[e.name] = (out.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / calls)
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if counts and all(c % calls == 0 for c in counts.values()) and all(
+                any(k in name for name in counts) for k in kernels):
+            return out
+        print(f"  torch.profiler trace of {calls} calls not whole: "
+              f"{ {k[:60]: c for k, c in counts.items()} }",
+              flush=True)
+    return {}
 
 
 def fmt_ms(ms):
@@ -1507,7 +1545,8 @@ def check_gram(gram, dev, path_q):
             fail(f"ds32_gram gave non-finite values at {label}")
         if not torch.equal(G, gram.ds32_gram(A)):
             fail(f"ds32_gram is not deterministic at {label}")
-        by_name = device_ms(lambda: gram.ds32_gram(A))
+        by_name = device_ms(lambda: gram.ds32_gram(A),
+                            kernels=("ds32_gram_partials", "ds32_gram_reduce"))
         passes = {key: sum(ms for name, ms in by_name.items() if kernel in name)
                   or None
                   for key, kernel in (("partials_ms", "ds32_gram_partials"),
@@ -1526,6 +1565,9 @@ def check_gram(gram, dev, path_q):
             "shape": label, "n": n, "q": q, "path": path,
             "bn": bn, "nb": nb,
             "ms": median_ms(lambda: gram.ds32_gram(A)),
+            # the same launch through the torch.library op (the vmap
+            # route's dispatch)
+            "op_ms": median_ms(lambda: gram._ds32_gram_op(A)),
             "device_ms": (None if None in passes.values()
                           else passes["partials_ms"] + passes["reduce_ms"]),
             **passes,
@@ -1539,7 +1581,8 @@ def check_gram(gram, dev, path_q):
         })
         s = shapes[-1]
         print(f"  {label}: kernel {s['ms']:.4f} ms a call ({fmt_ms(s['device_ms'])}"
-              f" device), plain {s['plain_ms']:.4f} ms a call, A.T@A f64 (cuBLAS)"
+              f" device; {s['op_ms']:.4f} ms through the custom op), plain "
+              f"{s['plain_ms']:.4f} ms a call, A.T@A f64 (cuBLAS)"
               f" {s['library_ms']:.4f} ms a call ({fmt_ms(s['library_device_ms'])}"
               f" device), bound {bound_ms:.4f} ms ({s['bound_by']})", flush=True)
     return shapes
@@ -2623,10 +2666,9 @@ def simulate_member(i, n, seed, device):
     model: white noise to make up its EFAC, one ECORR offset per epoch
     and a power-law red-noise realization over its Fourier basis. Data
     that follow the model make a fit's chi2/dof ~1."""
-    from pint_tpu_torch.fitting.gls_step import build_noise_statics, pl_bases
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops.dd import DD
-    from pint_tpu_torch.simulation import _shift_toas, make_fake_toas_from_arrays
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
 
     rng = np.random.default_rng(seed)
     mjds = epoch_mjds(n, rng)
@@ -2635,18 +2677,30 @@ def simulate_member(i, n, seed, device):
         freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0),
         error_us=1.0, obs="gbt", add_noise=True,
         seed=int(rng.integers(2 ** 31)), niter=2, device=device)
-    model = get_model(member_par(i))
+    return with_model_noise(wls, get_model(member_par(i)), rng), wls
+
+
+def with_model_noise(toas, model, rng):
+    """`toas` (arrivals with 1 us white noise) shifted by a draw of the
+    rest of `model`'s noise: white noise to make up its EFAC, one ECORR
+    offset per epoch and (where it has red noise) a power-law realization
+    over its Fourier basis, all from numpy's `rng`."""
+    from pint_tpu_torch.fitting.gls_step import build_noise_statics, pl_bases
+    from pint_tpu_torch.simulation import _shift_toas
+
+    device, n = toas.device, len(toas)
     efac = model["EFAC1"].value_f64
-    noise, specs = build_noise_statics(model, wls)
+    noise, specs = build_noise_statics(model, toas)
     phi_e = noise.ecorr_phi.cpu().numpy()
     offsets = np.append(rng.standard_normal(phi_e.shape[0]) * np.sqrt(phi_e), 0.0)
     dt = (torch.as_tensor(offsets[noise.epoch_idx.cpu().numpy()], device=device)
           + torch.as_tensor(rng.standard_normal(n), device=device)
           * (np.sqrt(efac ** 2 - 1.0) * 1e-6))
-    F, phi = pl_bases(wls, specs, noise.pl_params)
-    dt = dt + F @ (torch.sqrt(phi) * torch.as_tensor(
-        rng.standard_normal(phi.shape[0]), device=device))
-    return _shift_toas(wls, dt / 86400.0), wls
+    F, phi = pl_bases(toas, specs, noise.pl_params)
+    if F is not None:
+        dt = dt + F @ (torch.sqrt(phi) * torch.as_tensor(
+            rng.standard_normal(phi.shape[0]), device=device))
+    return _shift_toas(toas, dt / 86400.0)
 
 
 def dd_sigma(a, b, sigma):
@@ -3066,6 +3120,488 @@ def many_pulsars(dev, toas, state6, cli_dir, n_psr=N_PSR, n_per=N_PER_PSR):
     return launches
 
 
+# Phase 17: BASELINE.md config 5 (the full-PTA correlated GLS with
+# Hellings-Downs GW) as the catalog generator makes it: 68 pulsars x
+# 8,824 TOAs (600,032), ECORR + 30-harmonic red noise, a 20-harmonic
+# HD-correlated GW background (q = 6 + 60 + 40 = 106 per pulsar, a
+# 2,720-dimensional GW core). The generator's tables carry 1 us white
+# noise and the injected background; the fit's tables add a draw of the
+# rest of each par's noise (with_model_noise), so chi2/dof ~1.
+PTA_SPEC = dict(n_pulsars=68, toas_per_pulsar=8_824, mix=("ecorr_red",),
+                red_nharm=30, gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=20,
+                seed=0)
+PTA_GW = dict(gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=20)
+# the batched kernel's shapes: G_BB (every TOA x q), the ECORR Schur term
+# (one row per 4-TOA epoch) and a q <= 64 case (the 64-column build)
+PTA_GRAM_SHAPES = (("G_BB", 68, 8_824, 106, True),
+                   ("Schur", 68, 2_206, 106, True),
+                   ("q46", 68, 2_206, 46, False))
+# the Gram-kernel route against the float64 route: the ds32 conditioning
+# trap (ROADMAP Queue 3; 1.45e-4 sigma measured in phase 16's sharded
+# fit), the sharded fit's bar
+PTA_DS32_SIGMA = SHARDED_SIGMA
+N_JOB_PSR, N_JOB_PER = 8, 2_048
+N_PINTK = N_DENSE
+PINTK_SELECT = 0.25        # the first quarter of the MJD range
+N_PINTK_RANDOM = 100
+
+
+def batched_whitened(P, n, q, seed, device):
+    """(P, n, q) f64 with unit columns per member."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn((P, n, q), generator=g, dtype=torch.float64, device=device)
+    return (A / torch.linalg.norm(A, dim=1, keepdim=True)).contiguous()
+
+
+def check_batched_gram(gram, dev):
+    """17a: the batched kernel at the PTA fit's shapes: each member bit
+    for bit the 2-D launch on that member, and ``torch.func.vmap`` over
+    the 2-D wrapper the same launch; within PLAIN_BAR of max|G| of the
+    batched plain version; times (CUDA events, device time), its bound
+    and ``torch.bmm(A.mT, A)`` in f64 both ways."""
+    shapes = []
+    for label, P, n, q, timed in PTA_GRAM_SHAPES:
+        A = batched_whitened(P, n, q, seed=n + q, device=dev)
+        before = (gram.ds32_gram.launches, gram.ds32_gram_batched.launches)
+        G = gram.ds32_gram_batched(A)
+        Gv = torch.func.vmap(gram.ds32_gram)(A)
+        singles = [gram.ds32_gram(A[p]) for p in range(P)]
+        torch.cuda.synchronize()
+        counts = (gram.ds32_gram.launches - before[0],
+                  gram.ds32_gram_batched.launches - before[1])
+        if counts != (P, 2):
+            fail(f"{label}: {counts} (2-D, batched) launches counted for P 2-D "
+                 f"calls and two batched ones")
+        same = torch.equal(G, Gv) and all(torch.equal(G[p], singles[p])
+                                          for p in range(P))
+        G_plain = gram.ds32_gram_batched_reference(A)
+        scale = float(torch.max(torch.abs(torch.bmm(A.mT, A))))
+        err = float(torch.max(torch.abs(G - G_plain)))
+        print(f"  batched {label} {P}x{n}x{q}: each member = its 2-D launch "
+              f"bit for bit: {same}; |kernel-plain|/max|G| = {err / scale:.3e} "
+              f"(bar {PLAIN_BAR:g})", flush=True)
+        if not same or not err <= PLAIN_BAR * scale \
+                or not torch.isfinite(G).all():
+            fail(f"the batched ds32_gram disagrees at {label} {P}x{n}x{q}")
+        del Gv, singles, G_plain
+        if not timed:
+            continue
+        by_name = device_ms(lambda: gram.ds32_gram_batched(A),
+                            kernels=("ds32_gram_partials", "ds32_gram_reduce"))
+        flops = P * 2.0 * n * (q * (q + 1) / 2 + q * q)
+        nbytes = P * 8.0 * (n * q + q * q)
+        bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+        shapes.append({
+            "shape": label, "P": P, "n": n, "q": q,
+            "ms": median_ms(lambda: gram.ds32_gram_batched(A)),
+            "device_ms": sum(ms for name, ms in by_name.items()
+                             if "ds32_gram" in name) or None,
+            "plain_ms": median_ms(lambda: gram.ds32_gram_batched_reference(A),
+                                  reps=3, warm=1),
+            "library_ms": median_ms(lambda: torch.bmm(A.mT, A)),
+            "library_device_ms": sum(device_ms(
+                lambda: torch.bmm(A.mT, A)).values()) or None,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / F32_FLOPS >= nbytes / HBM_BYTES_S
+            else "bytes",
+            "max_abs_err": err})
+        sh = shapes[-1]
+        print(f"  batched {label}: kernel {sh['ms']:.4f} ms a launch "
+              f"({fmt_ms(sh['device_ms'])} device), plain {sh['plain_ms']:.4f}"
+              f" ms, torch.bmm f64 {sh['library_ms']:.4f} ms "
+              f"({fmt_ms(sh['library_device_ms'])} device), bound "
+              f"{bound_ms:.4f} ms ({sh['bound_by']})", flush=True)
+        del A, G
+    return shapes
+
+
+def pta_problems(spec, device, kick=True):
+    """The catalog of `spec` (generated on `device`), its tables shifted
+    by a draw of each par's noise, each model kicked by KICK; returns
+    (problems, truth values, manifest id)."""
+    from pint_tpu_torch.catalog import generate_catalog
+
+    cat = generate_catalog(spec, device=device)
+    truth = [{k: m.model[k] for k in m.model.free_params} for m in cat.members]
+    truth = [{k: (p.value_f64, p.value) for k, p in t.items()} for t in truth]
+    problems = []
+    for i, m in enumerate(cat.members):
+        rng = np.random.default_rng((spec.seed, 2000 + i))
+        toas = with_model_noise(m.toas, m.model, rng)
+        if kick:
+            for k, d in KICK.items():
+                m.model[k].add_delta(d)
+        problems.append((toas, m.model))
+    return problems, truth, cat.manifest_id()
+
+
+def run_pta(f, starts=None, loop="1", maxiter=10):
+    """One joint fit of PTAGLSFitter `f` (each model set to `starts`
+    first, when given) through the fused loop or the host loop; the
+    run_fit record, the ds32_gram launches split into 2-D and batched
+    (both counts set to 0 just before the fit and read just after)."""
+    import os
+
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.telemetry import recorder
+
+    if starts is not None:
+        for m, st in zip(f.models, starts):
+            for k, v in st.items():
+                m[k].value = v
+    os.environ["PINT_TORCH_DEVICE_LOOP"] = loop
+    try:
+        torch.cuda.synchronize()
+        gram.ds32_gram.launches = 0
+        gram.ds32_gram_batched.launches = 0
+        t0 = time.perf_counter()
+        chi2 = f.fit_toas(maxiter=maxiter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PINT_TORCH_DEVICE_LOOP")
+    trace = recorder.last_trace()
+    return {"chi2": chi2, "wall": wall, "steps": trace["n"],
+            "probes": f.counters["probe_evals"],
+            "counters": {k: f.counters[k] for k in LOOP_COUNTERS},
+            "stats": dict(f.loop_stats), "trace": trace,
+            "launches": gram.ds32_gram.launches,
+            "batched": gram.ds32_gram_batched.launches,
+            "converged": f.converged}
+
+
+def pta_values(f):
+    return [{k: (m[k].value_f64, m[k].uncertainty) for k in m.free_params}
+            for m in f.models]
+
+
+def worst_sigma(a, b):
+    """The largest |a - b| over every fitted value, in b's uncertainties."""
+    return max(abs(x[k][0] - y[k][0]) / y[k][1]
+               for x, y in zip(a, b) for k in y)
+
+
+def pta_baseline(dev):
+    """17b: BASELINE config 5 at full size through the fused joint loop.
+    Returns (the launches of the main fit by kernel, its record)."""
+    from pint_tpu_torch.catalog import CatalogSpec
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    spec = CatalogSpec(**PTA_SPEC)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    problems, truth, mid = pta_problems(spec, dev)
+    torch.cuda.synchronize()
+    n_toas = sum(len(t) for t, _ in problems)
+    print(f"generated catalog {mid}: {len(problems)} pulsars x "
+          f"{spec.toas_per_pulsar} TOAs ({n_toas}), ECORR + {spec.red_nharm}"
+          f"-harmonic red noise, a {spec.gw_nharm}-harmonic HD GW background, "
+          f"on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    device_loop.clear_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = PTAGLSFitter(problems, **PTA_GW)
+    f._prepare()
+    torch.cuda.synchronize()
+    print(f"PTAGLSFitter: route {'Gram kernel' if f.accel else 'float64'}, "
+          f"stacked {f._stacked is not None}, q = "
+          f"{f._groups[0]['q']}, GW core {len(problems) * 2 * spec.gw_nharm}; "
+          f"prepared in {time.perf_counter() - t0:.2f} s", flush=True)
+    starts = [{k: m[k].value for k in m.free_params} for m in f.models]
+    # the main path: run_pta sets every kernel count to 0 just before the
+    # fit and reads it just after
+    cold = run_pta(f)
+    launches = {"ds32_gram": cold["launches"],
+                "ds32_gram_batched": cold["batched"]}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    vals = pta_values(f)
+    describe_fit("joint fit (cold, fused loop, with capture)", cold)
+    st = cold["stats"]
+    dof = n_toas - sum(len(m.free_params) + 1 for m in f.models)
+    print(f"  launches counted per replay: ds32_gram_batched "
+          f"{launches['ds32_gram_batched']}, ds32_gram (2-D) "
+          f"{launches['ds32_gram']}; recorded in the capture: batched "
+          f"{gram.ds32_gram_batched.captured}; chi2/dof {cold['chi2'] / dof:.6f} "
+          f"(dof {dof}); peak memory {peak_mb:.1f} MiB", flush=True)
+    if not (math.isfinite(cold["chi2"]) and f.converged and not f.diverged):
+        fail(f"the joint fit did not converge to a finite chi2 ({cold['chi2']})")
+    if not 0.8 <= cold["chi2"] / dof <= 1.25:
+        fail(f"joint chi2/dof {cold['chi2'] / dof} outside [0.8, 1.25]")
+    if launches["ds32_gram"] != 0 or launches["ds32_gram_batched"] \
+            != 2 * cold["steps"]:
+        fail(f"{launches} for {cold['steps']} full evaluations (two batched "
+             f"launches each, no 2-D one)")
+    if not (st["captures"] == 1 and st["replays"] == cold["steps"] - 1):
+        fail(f"the joint fit did not run as graph replays: {st}")
+    pulls = sorted(((v[k][0] - t[k][0]) / v[k][1], i, k)
+                   for i, (v, t) in enumerate(zip(vals, truth)) for k in t)
+    worst = max(pulls, key=lambda x: abs(x[0]))
+    print(f"  {sum(len(t) for t in truth)} fitted parameters; largest pull "
+          f"from the truth {worst[0]:+.3f} sigma (pulsar {worst[1]}, "
+          f"{worst[2]})", flush=True)
+    if not abs(worst[0]) < TRUTH_SIGMA:
+        fail(f"pulsar {worst[1]}'s {worst[2]} {worst[0]:.2f} sigma from the "
+             "truth")
+    warm = run_pta(f, starts)
+    describe_fit("joint fit (warm, fused loop)", warm)
+    if not (warm["stats"]["captures"] == 0
+            and warm["stats"]["replays"] == warm["steps"]
+            and same_loop(cold, warm) and warm["batched"] == 2 * warm["steps"]):
+        fail("the warm joint fit is not the cold one replayed")
+    host = run_pta(f, starts, loop="0")
+    describe_fit("joint fit (host loop, the witness)", host)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
+                                                   host["trace"]["chi2"]))
+    print(f"  fused - host loop: largest relative gap of a full evaluation's "
+          f"chi2 {gap:.3e} (bar {LOOP_RTOL:g}); values "
+          f"{worst_sigma(pta_values(f), vals):.3e} sigma", flush=True)
+    if not same_loop(cold, host) or host["stats"]:
+        fail("the fused joint fit disagrees with the host loop")
+    fused_ms = host_ms(lambda: run_pta(f, starts), reps=3)
+    by_name = profile_step("one warm fused joint fit",
+                           lambda: run_pta(f, starts), fused_ms)
+    traced = sum(c for name, (_, c) in by_name.items()
+                 if "ds32_gram_partials" in name)
+    print(f"  the trace holds {traced} ds32_gram partials kernels for "
+          f"{warm['batched']} batched launches counted per replay", flush=True)
+    # the float64 route on the same models and starts (its own capture)
+    f64 = PTAGLSFitter([(t, m) for t, m in zip(f.toas_list, f.models)],
+                       **PTA_GW, accel=False)
+    r64 = run_pta(f64, starts)
+    describe_fit("joint fit, float64 route (accel=False; cold)", r64)
+    ds32_gap = worst_sigma(pta_values(f64), vals)
+    print(f"  Gram-kernel route - float64 route: chi2 "
+          f"{cold['chi2'] - r64['chi2']:+.6f}, values {ds32_gap:.3e} sigma "
+          f"(bar {PTA_DS32_SIGMA:g}), batched launches {r64['batched']}",
+          flush=True)
+    if not ds32_gap <= PTA_DS32_SIGMA or r64["batched"] or r64["launches"]:
+        fail("the Gram-kernel joint fit is not the float64 route's")
+    del f, f64, problems
+    device_loop.clear_cache()
+    return launches, cold, warm, fused_ms
+
+
+def pta_card_vs_cpu(dev):
+    """17c: a 4 x 2,000 catalog on the card and on the CPU, on both Gram
+    routes, and a heterogeneous one (2-D launches per pulsar)."""
+    import copy
+
+    from pint_tpu_torch.catalog import CatalogSpec
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    for mix in (("ecorr_red",), ("ecorr_red", "ecorr")):
+        spec = CatalogSpec(**dict(PTA_SPEC, n_pulsars=4,
+                                  toas_per_pulsar=N_SMALL, mix=mix))
+        problems, _truth, _mid = pta_problems(spec, "cpu")
+        for accel in (True, False):
+            out = {}
+            for d in (dev, torch.device("cpu")):
+                probs = [(t.to(d), copy.deepcopy(m)) for t, m in problems]
+                f = PTAGLSFitter(probs, **PTA_GW, device=d, accel=accel)
+                out[d.type] = (run_pta(f), pta_values(f),
+                               f._stacked is not None)
+            (card, vcard, stacked), (cpu, vcpu, _) = out["cuda"], out["cpu"]
+            gap = abs(card["chi2"] - cpu["chi2"]) / cpu["chi2"]
+            worst = worst_sigma(vcard, vcpu)
+            print(f"catalog {mix} 4 x {N_SMALL}, "
+                  f"{'Gram kernel' if accel else 'float64'} route "
+                  f"({'stacked' if stacked else 'per pulsar'}): card - CPU "
+                  f"chi2 {gap:.3e} relative (bar {CARD_CHI2_RTOL:g}), values "
+                  f"{worst:.3e} sigma (bar {CARD_VALUE_SIGMA:g}); card "
+                  f"launches 2-D {card['launches']}, batched {card['batched']};"
+                  f" converged {card['converged']}/{cpu['converged']}",
+                  flush=True)
+            if gap > CARD_CHI2_RTOL or worst > CARD_VALUE_SIGMA \
+                    or card["converged"] != cpu["converged"]:
+                fail(f"the {mix} joint fit on the card disagrees with the CPU")
+            want = ((0, 2 * card["steps"]) if stacked
+                    else (2 * len(probs) * card["steps"], 0)) if accel \
+                else (0, 0)
+            if (card["launches"], card["batched"]) != want \
+                    or stacked != (len(mix) == 1):
+                fail(f"the {mix} joint fit launched {card['launches']} 2-D and "
+                     f"{card['batched']} batched Grams, not {want}")
+
+
+def catalog_job_checks(dev):
+    """17d: an 8 x 2,048 catalog job in budgeted slices, resumed from its
+    first slice's checkpoint bit for bit; a 4-point hypergrid sharing one
+    capture; the generator's manifest twice."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.catalog import (CatalogFitRequest, CatalogJob,
+                                        CatalogSpec, generate_catalog)
+    from pint_tpu_torch.catalog.hypergrid import run_grid
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    spec = CatalogSpec(**dict(PTA_SPEC, n_pulsars=N_JOB_PSR,
+                              toas_per_pulsar=N_JOB_PER))
+    ids = [generate_catalog(spec, device=dev).manifest_id() for _ in range(2)]
+    print(f"generate_catalog twice on the card: manifest ids {ids}", flush=True)
+    if ids[0] != ids[1]:
+        fail("two catalogs of one spec differ")
+    req = CatalogFitRequest(spec=spec, maxiter=8, min_chi2_decrease=0.0,
+                            **PTA_GW)
+    t0 = time.perf_counter()
+    ctrl = CatalogJob(req, "ctrl", device=dev)
+    slices = 1
+    while not ctrl.advance(0.2):
+        slices += 1
+    ctrl_s = time.perf_counter() - t0
+    victim = CatalogJob(req, "victim", device=dev)
+    victim.advance(0.0)
+    ck = victim.checkpoint()
+    del victim
+    resumed = CatalogJob.from_checkpoint(ck, device=dev)
+    while not resumed.advance(0.2):
+        pass
+    same = (resumed.chi2 == ctrl.chi2 and resumed.iterations == ctrl.iterations
+            and all(a["F0"].value == b["F0"].value for (_, a), (_, b) in zip(
+                ctrl.catalog.joint_problems(), resumed.catalog.joint_problems())))
+    print(f"catalog job {N_JOB_PSR} x {N_JOB_PER}: {ctrl.state} in {slices} "
+          f"slices of 0.2 s ({ctrl_s:.2f} s), {ctrl.iterations} iterations, "
+          f"chi2 {ctrl.chi2:.9f}; resumed from the checkpoint after "
+          f"{ck['iterations']} iteration(s): chi2 {resumed.chi2:.9f}, "
+          f"{resumed.iterations} iterations, resume evaluations "
+          f"{resumed.resume_evals}; bit for bit {same}", flush=True)
+    if not (ctrl.state == "done" and same and resumed.resumes == 1):
+        fail("the resumed catalog job is not the uninterrupted one")
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    try:
+        f = PTAGLSFitter(generate_catalog(spec, device=dev).joint_problems(),
+                         **PTA_GW)
+        points = [(-13.8, 3.0), (-13.6, 3.1), (-13.4, 3.2), (-14.0, 3.6)]
+        t0 = time.perf_counter()
+        grid = run_grid(f, points, maxiter=6)
+        grid_s = time.perf_counter() - t0
+        miss = telemetry.counter_value("cache.fit_program.miss")
+        hit = telemetry.counter_value("cache.fit_program.hit")
+    finally:
+        telemetry.reset()
+    print(f"hypergrid of {len(points)} points in {grid_s:.2f} s: chi2 "
+          + ", ".join(f"{r.point} {r.chi2:.3f}" for r in grid)
+          + f"; captures (cache.fit_program.miss) {miss}, replayed fits "
+          f"(hit) {hit}", flush=True)
+    if miss != 1 or hit != len(points) - 1 \
+            or not all(math.isfinite(r.chi2) for r in grid):
+        fail("the hypergrid did not share one capture")
+
+
+def pintk_actions(ctrl, select):
+    """pintk's actions on `ctrl`: fit, reset, fit; select the first
+    `select` of the MJD range, delete it, fit again (and the same fit
+    by Fitter.auto directly); random models; the par and tim files
+    written and read back. Returns the records."""
+    import copy
+
+    from pint_tpu_torch.fitting import Fitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toas import get_TOAs
+
+    out = {"fit1": ctrl.fit()}
+    ctrl.reset()
+    out["fit2"] = ctrl.fit()
+    mjds = ctrl.all_toas.get_mjds()
+    lo, hi = mjds.min(), mjds.min() + select * (mjds.max() - mjds.min())
+    out["selected"] = ctrl.select_range(lo, hi)
+    out["remain"] = ctrl.delete_selected()
+    start = copy.deepcopy(ctrl.postfit_model)
+    out["fit3"] = ctrl.fit()
+    direct = Fitter.auto(ctrl.active_toas(), start)
+    out["direct_chi2"] = float(direct.fit_toas(maxiter=4))
+    out["values"] = {k: (ctrl.postfit_model[k].value_f64,
+                         ctrl.postfit_model[k].uncertainty)
+                     for k in ctrl.postfit_model.free_params}
+    out["direct"] = {k: (start[k].value_f64, start[k].uncertainty)
+                     for k in start.free_params}
+    t0 = time.perf_counter()
+    out["random"] = ctrl.random_models(N_PINTK_RANDOM, seed=0)
+    out["random_s"] = time.perf_counter() - t0
+    work = pathlib.Path(tempfile.mkdtemp(prefix="pintk_"))
+    try:
+        ctrl.write_par(str(work / "out.par"))
+        ctrl.write_tim(str(work / "out.tim"))
+        back = get_model(str(work / "out.par"))
+        out["par_back"] = max(abs(back[k].value_f64 - v[0]) / v[1]
+                              for k, v in out["values"].items())
+        out["tim_back"] = len(get_TOAs(str(work / "out.tim"), ephem=back.ephem,
+                                       device=ctrl.all_toas.device))
+    finally:
+        shutil.rmtree(work)
+    return out
+
+
+def pintk_checks(dev, dense):
+    """17e: pintk's controller, headless, on phase 10's 20,000-TOA table
+    (Fitter.auto takes the dense GLS there) and card against CPU at
+    2,000 TOAs."""
+    from pint_tpu_torch.pintk import PintkController
+
+    t0 = time.perf_counter()
+    r = pintk_actions(PintkController(dense, kicked(PAR_FULL)), PINTK_SELECT)
+    wall = time.perf_counter() - t0
+    gap = max(abs(r["values"][k][0] - v[0]) / v[1] for k, v in r["direct"].items())
+    refit = abs(r["fit1"]["chi2"] - r["fit2"]["chi2"]) / r["fit1"]["chi2"]
+    direct = abs(r["fit3"]["chi2"] - r["direct_chi2"]) / r["direct_chi2"]
+    print(f"pintk on {len(dense)} TOAs in {wall:.2f} s: fits "
+          f"{r['fit1']['fitter']} chi2 {r['fit1']['chi2']:.6f} / after reset "
+          f"{r['fit2']['chi2']:.6f} / {r['remain']} TOAs after deleting "
+          f"{r['selected']} {r['fit3']['chi2']:.6f} (Fitter.auto directly "
+          f"{r['direct_chi2']:.6f}, values {gap:.3e} sigma apart); "
+          f"{N_PINTK_RANDOM} random models {r['random'].shape} in "
+          f"{r['random_s']:.2f} s; par read back {r['par_back']:.3e} sigma, tim "
+          f"read back {r['tim_back']} TOAs; chi2 gaps: refit after reset "
+          f"{refit:.3e}, against the direct fit {direct:.3e} (bar "
+          f"{LOOP_RTOL:g})", flush=True)
+    if not (refit <= LOOP_RTOL and direct <= LOOP_RTOL and gap <= 1e-9
+            and r["tim_back"] == r["remain"] and r["par_back"] < 1e-6
+            and np.all(np.isfinite(r["random"]))):
+        fail("pintk's actions on the card disagree with a direct fit")
+    small = simulate(PAR_FULL, N_SMALL, seed=9, device="cpu")
+    recs = {d: pintk_actions(PintkController(small.to(d), kicked(PAR_FULL)),
+                             PINTK_SELECT) for d in ("cuda", "cpu")}
+    card, cpu = recs["cuda"], recs["cpu"]
+    gaps = [abs(card[k]["chi2"] - cpu[k]["chi2"]) / cpu[k]["chi2"]
+            for k in ("fit1", "fit2", "fit3")]
+    worst = max(abs(card["values"][k][0] - v[0]) / v[1]
+                for k, v in cpu["values"].items())
+    rnd = float(np.max(np.abs(card["random"] - cpu["random"]))
+                / np.max(np.abs(cpu["random"])))
+    print(f"pintk at {N_SMALL} TOAs, card - CPU: chi2 {max(gaps):.3e} relative "
+          f"(bar {CARD_CHI2_RTOL:g}), values {worst:.3e} sigma (bar "
+          f"{CARD_VALUE_SIGMA:g}), random models {rnd:.3e} of their scale (bar "
+          f"{CARD_VALUE_SIGMA:g})", flush=True)
+    if max(gaps) > CARD_CHI2_RTOL or worst > CARD_VALUE_SIGMA \
+            or card["remain"] != cpu["remain"] or rnd > CARD_VALUE_SIGMA:
+        fail("pintk on the card disagrees with the CPU")
+
+
+def pta_catalogs_pintk(dev, dense):
+    """Phase 17 (see the module docstring). Returns the batched kernel's
+    shapes and the main fit's launches and records."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.ops import gram
+
+    t_phase = time.perf_counter()
+    device_loop.clear_cache()
+    shapes = check_batched_gram(gram, dev)
+    print(f"17a in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches, cold, warm, fused_ms = pta_baseline(dev)
+    print(f"17b at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    pta_card_vs_cpu(dev)
+    print(f"17c at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    device_loop.clear_cache()
+    catalog_job_checks(dev)
+    print(f"17d at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    device_loop.clear_cache()
+    pintk_checks(dev, dense)
+    device_loop.clear_cache()
+    print(f"phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return shapes, launches, {"cold": cold, "warm": warm, "warm_ms": fused_ms}
+
+
 def main() -> None:
     if not (ROOT / "pint_tpu_torch" / "ops" / "gram.py").is_file():
         fail("pint_tpu_torch/ is not beside this script: run it from a checkout")
@@ -3437,7 +3973,15 @@ def main() -> None:
     launches_by_path.update(many_pulsars(dev, toas, state6, cli_dir))
     shutil.rmtree(cli_dir)
 
-    phase("17 result")
+    phase(f"17 the PTA joint fit (BASELINE config 5: {PTA_SPEC['n_pulsars']} x "
+          f"{PTA_SPEC['toas_per_pulsar']} TOAs, Hellings-Downs GW) on batched "
+          f"ds32 Gram launches, card against CPU, the catalog job, pintk")
+    pta_shapes, pta_launches, pta_fits = pta_catalogs_pintk(dev, dense)
+    launches_by_path[f"PTA joint fit {PTA_SPEC['n_pulsars']} x "
+                     f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)"] = \
+        pta_launches["ds32_gram"]
+
+    phase("18 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)
@@ -3462,10 +4006,34 @@ def main() -> None:
         "noise_path_per_step": per_step(per_path["noise"]),
         "launches_by_path": launches_by_path,
         "shapes": shapes,
+    }, {
+        "name": "ds32_gram_batched", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/ds32_gram.cu",
+        "replaces": "pint_tpu/ops/pallas_gram.py:47",
+        "launches": pta_launches["ds32_gram_batched"],
+        "max_abs_err": max(s["max_abs_err"] for s in pta_shapes),
+        **{k: (None if any(s[k] is None for s in pta_shapes)
+               else sum(s[k] for s in pta_shapes))
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "library_device_ms", "bound_ms")},
+        "bound_by": ("operations" if all(s["bound_by"] == "operations"
+                                         for s in pta_shapes) else "bytes"),
+        "timing": "per joint evaluation of phase 17's 68-pulsar fit: its "
+                  "batched G_BB + Schur launches summed; library_ms is "
+                  "torch.bmm(A.mT, A) in float64",
+        "launches_by_path": {
+            f"PTA joint fit {PTA_SPEC['n_pulsars']} x "
+            f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)":
+                pta_launches["ds32_gram_batched"],
+            "PTA joint fit (fused, warm)": pta_fits["warm"]["batched"]},
+        "shapes": pta_shapes,
     }]
     print("kernels: [ds32_gram: ok, " + ", ".join(
         f"{s['shape']} {s['n']}x{s['q']} {s['ms']:.4f} ms" for s in shapes)
-        + f", {launches} launches]")
+        + f", {launches} launches; ds32_gram_batched: ok, " + ", ".join(
+        f"{s['shape']} {s['P']}x{s['n']}x{s['q']} {s['ms']:.4f} ms"
+        for s in pta_shapes)
+        + f", {pta_launches['ds32_gram_batched']} launches]")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

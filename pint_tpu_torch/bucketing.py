@@ -25,8 +25,10 @@ The batched fits add the member and basis buckets
 solvers (:func:`pad_solve_rows`). :func:`note_program` accounts each
 dispatch of a fused-loop program in telemetry: a graph capture (the
 port's counterpart of an XLA compile) is a ``cache.fit_program.miss``,
-a dispatch that only replays a ``.hit``; :func:`note_batch_occupancy`
-counts a batch's real and padding members.
+a dispatch that only replays a ``.hit``; the PTA joint fit's host loop
+notes each eager evaluation as a ``pta_stage2`` hit (nothing is
+captured); :func:`note_batch_occupancy` counts a batch's real and
+padding members.
 
 ``FIT_BUCKETING = False`` keeps exact shapes everywhere (and makes the
 member, append and basis buckets exact counts).

@@ -151,6 +151,11 @@ declare("PINT_TORCH_TELEMETRY_MAX_MB", 16.0, "float",
 declare("PINT_TORCH_PROFILE_DIR", None, "str",
         "Directory that telemetry.profile_span writes a torch.profiler "
         "trace into; unset, profile_span is a plain span.")
+declare("PINT_TORCH_CATALOG_SLICE_S", 5.0, "float",
+        "Wall budget [s] of one slice of a catalog job (CatalogJob."
+        "advance); a slice always runs at least one iteration.")
+declare("PINT_TORCH_SLO_LONGJOB_S", 3600.0, "float",
+        "Latency objective [s] of catalog jobs, start to terminal state.")
 
 
 @dataclasses.dataclass

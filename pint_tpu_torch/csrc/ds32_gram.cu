@@ -40,14 +40,22 @@
 //     warps 0-3 hold only those, warps 5-7 only lower patches (C alone,
 //     16 FFMAs a row instead of 32), and only warp 4 is mixed.
 //
-//   pass 1 (ds32_gram_partials): grid = (row block) x (tile pair). Writes
-//     the f32 partial p_b, upper triangle packed row by row, to the
-//     scratch P (nb, q(q+1)/2).
+//   pass 1 (ds32_gram_partials): grid = (row block) x (tile pair) x
+//     (batch member). Writes the f32 partial p_b, upper triangle packed
+//     row by row, to the scratch P (batch, nb, q(q+1)/2).
 //   pass 2 (ds32_gram_reduce): one thread per upper element walks
 //     b = 0 .. nb-1 in order with TwoSum into (hi, lo) and writes
 //     G[i, j] = G[j, i] = f64 hi + lo. Deterministic: no atomics. The
 //     chain is serial, so each thread first stages its partials into
 //     shared memory with every copy in flight.
+//
+// The batched form (the PTA joint fit's stage 2, one Gram per pulsar of
+// a catalog; Pallas's batching rule turns the reference's vmap into a
+// grid axis the same way) puts the member index on blockIdx.z of both
+// passes: A is (batch, n, q), each member's partials and output are
+// offset by its index, and nothing else changes, so each member's G is
+// bit for bit what a launch on that member alone gives. The 2-D
+// wrapper (ops/gram.py::ds32_gram) launches it with batch = 1.
 //
 // Measured on an H100 SXM at 700 W (PERF.md): the partials pass takes
 // about twice the cycles its busiest sub-partition has instructions to
@@ -340,6 +348,9 @@ __global__ void __launch_bounds__(kThreads, kCols == kTile ? 2 : 1)
     ds32_gram_partials(const double* __restrict__ A, float* __restrict__ P,
                        int n, int q, int bn) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // this block's batch member (blockIdx.z): its rows and its partials
+  A += (size_t)blockIdx.z * n * q;
+  P += (size_t)blockIdx.z * gridDim.x * ((size_t)q * (q + 1) / 2);
   const int row_begin = blockIdx.x * bn;
   const int row_end = min(row_begin + bn, n);
   if constexpr (kCols == kTile) {
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, kCols == kTile ? 2 : 1)
   }
 }
 
-// grid (ceil(q / 64), q): block row i, thread j >= i. Only q(q+1)/2
+// grid (ceil(q / 64), q, batch): block row i, thread j >= i. Only q(q+1)/2
 // threads (2,080 at q = 64: fewer warps than SMs), each a chain of nb
 // dependent steps, so load latency would set the pace: each thread
 // stages its partials kStage at a time into shared memory, every copy
@@ -372,7 +383,9 @@ __global__ void __launch_bounds__(kReduceThreads)
   const int j = i + blockIdx.x * kReduceThreads + threadIdx.x;
   if (j >= q) return;  // no barrier below: each thread reads what it copied
   const size_t nup = (size_t)q * (q + 1) / 2;
-  const float* p = P + upper_index(i, j, q);
+  // this block's batch member (blockIdx.z)
+  G += (size_t)blockIdx.z * q * q;
+  const float* p = P + (size_t)blockIdx.z * nb * nup + upper_index(i, j, q);
   float hi = 0.f;
   float lo = 0.f;
   for (int b0 = 0; b0 < nb; b0 += kStage) {
@@ -420,20 +433,21 @@ cudaError_t launch_partials(dim3 grid, cudaStream_t s, const double* A,
 
 }  // namespace
 
-// A: (n, q) f64 row-major on the card; P: (nb, q(q+1)/2) f32 scratch;
-// G: (q, q) f64 output. Launches both passes on `stream` (a
-// cudaStream_t passed as a pointer) and returns cudaGetLastError().
-extern "C" int ds32_gram_launch(const double* A, float* P, double* G,
-                                int n, int q, int bn, int nb, int device,
-                                void* stream) {
+// A: (batch, n, q) f64 row-major on the card; P: (batch, nb, q(q+1)/2)
+// f32 scratch; G: (batch, q, q) f64 output. Launches both passes on
+// `stream` (a cudaStream_t passed as a pointer) and returns
+// cudaGetLastError().
+extern "C" int ds32_gram_batched_launch(const double* A, float* P, double* G,
+                                        int batch, int n, int q, int bn,
+                                        int nb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(nb, tile_pairs(q));
+  const dim3 grid1(nb, tile_pairs(q), batch);
   err = q <= kTile ? launch_partials<kTile>(grid1, s, A, P, n, q, bn)
                    : launch_partials<2 * kTile>(grid1, s, A, P, n, q, bn);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((q + kReduceThreads - 1) / kReduceThreads, q);
+  const dim3 grid2((q + kReduceThreads - 1) / kReduceThreads, q, batch);
   ds32_gram_reduce<<<grid2, kReduceThreads, 0, s>>>(P, G, q, nb);
   return (int)cudaGetLastError();
 }

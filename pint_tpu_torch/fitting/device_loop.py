@@ -64,7 +64,7 @@ _EPS = 1e-12
 
 # kernel wrappers whose launches a graph replay repeats: each counts the
 # launches it records under capture in ``captured`` (ops/gram.py)
-_KERNELS = (gram.ds32_gram,)
+_KERNELS = (gram.ds32_gram, gram.ds32_gram_batched)
 
 # captured loops keyed by the caller's key, the recorder setting and the
 # arguments' structure, shapes and device; an entry holds its step and
@@ -206,9 +206,11 @@ class DampedLoop:
                 out["trace"]["halvings"] = torch.where(
                     slot, found.long(), out["trace"]["halvings"])
             out["halvings"] = c["halvings"] + found.long()
+            # (h0 = 0: without a probe no rejection contradicts one)
             out.update(self._settle(out, p_init, p_acc, p_rej, bad, conv_now,
-                                    exhausted, c["h"], found, rej_exh,
-                                    c["lam"] * 0.5, c["h"] + 1))
+                                    exhausted, torch.zeros_like(c["h"]),
+                                    found, rej_exh, c["lam"] * 0.5,
+                                    c["h"] + 1))
             return out
         # a rejected full step opens a halving run (probe bodies) from
         # h + 1; the verdict waits in the carry until the run ends

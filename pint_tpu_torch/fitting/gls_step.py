@@ -528,14 +528,16 @@ def gls_gram_whitened(A_M: torch.Tensor, rw: torch.Tensor, sw: torch.Tensor,
 
 
 def cholesky(S: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of S, read from its lower triangle.
+    """Lower Cholesky factor of S (or of each of a batch), read from its
+    lower triangle.
 
     A matrix that is not positive definite gives a NaN factor, as JAX's
     ``cho_factor`` does, so a solve's chi2 comes out NaN and the damped
     loops flag the fit diverged (no host sync here).
     """
     L, info = torch.linalg.cholesky_ex(S)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
 
 
 def cho_factor(S: torch.Tensor) -> torch.Tensor:

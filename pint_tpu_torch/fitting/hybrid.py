@@ -50,23 +50,26 @@ from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
 
 
-def make_whiten_stage1(model, tzr=None):
+def make_whiten_stage1(model, tzr=None, *, traced_tzr: bool = False):
     """Stage-1 builder: DD phase -> whitened, column-normalized design.
 
-    ``stage1(base, deltas, toas, sigma) -> (A_M, rw, sw, norm_M)`` with
-    ``A_M = M sqrt(w) / ||M sqrt(w)||`` (unit columns), ``rw = r sqrt(w)``
-    and ``sw = sqrt(w)``, ``w = 1 / sigma^2`` (``sigma``: the scaled
-    uncertainties, a static).
+    ``stage1(base, deltas, toas, sigma[, tzr_toas]) -> (A_M, rw, sw,
+    norm_M)`` with ``A_M = M sqrt(w) / ||M sqrt(w)||`` (unit columns),
+    ``rw = r sqrt(w)`` and ``sw = sqrt(w)``, ``w = 1 / sigma^2``
+    (``sigma``: the scaled uncertainties, a static). ``traced_tzr``
+    takes the TZR anchor table as ``tzr_toas`` (a vmapped member's own).
     """
-    phase_fn = model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None)
+    phase_fn = (model.phase_fn_toas(traced_tzr=True) if traced_tzr else
+                model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None))
     names = model.free_params
     has_phoff = model.has_component("PhaseOffset")
 
-    def stage1(base, deltas, toas, sigma):
+    def stage1(base, deltas, toas, sigma, tzr_toas=None):
         f0 = base["F0"].hi + base["F0"].lo
 
         def total_phase(d):
-            ph = phase_fn(base, d, toas)
+            ph = (phase_fn(base, d, toas, tzr_toas) if traced_tzr
+                  else phase_fn(base, d, toas))
             # aux carries the wrapped fractional phase from the SAME
             # primal evaluation: one DD pass serves residual and jacobian
             return (ph.int_part + (ph.frac.hi + ph.frac.lo),
@@ -104,31 +107,50 @@ def make_resid_stage1(model, tzr=None, device=None):
     return stage1r
 
 
-def pl_basis_arrays(toas, specs, pl_params
-                    ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """The hybrid fitter's noise block: the stacked Fourier bases (n, k_F)
-    with their chromatic scaling, and their prior variances (k_F,).
+def pl_basis_blocks(t_s: torch.Tensor, inv_f2: torch.Tensor, specs
+                    ) -> tuple[torch.Tensor | None, tuple]:
+    """The hybrid fitter's Fourier noise block from the TDB times [s] and
+    ``inv_f2 = (1400 MHz / f)^2``: the stacked bases (n, k_F) with their
+    chromatic scaling and each spec's harmonic frequencies (the grids
+    :func:`pl_phi` evaluates the priors on).
 
-    Counterpart of the reference hybrid's ``_accel_pl_basis_arrays`` and
-    ``_accel_pl_phi``, which scale a chromatic basis by
-    ``inv_f2 ** (alpha / 2)`` with ``inv_f2 = (1400 MHz / f)^2`` (not by
-    ``ratio ** alpha``, as ``gls_step.pl_bases`` does), and take each bin
-    width from the first harmonic.
+    Counterpart of the reference hybrid's ``_accel_pl_basis_arrays``,
+    which scales a chromatic basis by ``inv_f2 ** (alpha / 2)`` (not by
+    ``ratio ** alpha``, as ``gls_step.pl_bases`` does).
     """
     if not specs:
-        return None, None
-    t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
-    inv_f2 = torch.square(DM_FREF_MHZ / toas.freq_mhz)
-    blocks, phis = [], []
-    for i, spec in enumerate(specs):
+        return None, ()
+    blocks, fs = [], []
+    for spec in specs:
         F, f, _df = fourier_design(t_s, spec.nharm)
         if spec.scale != "none":
             sc = inv_f2[:, None]
             F = F * (sc if spec.alpha == 2.0 else sc ** (spec.alpha / 2.0))
         blocks.append(F)
-        phis.append(torch.repeat_interleave(
-            powerlaw_phi(f, pl_params[i, 0], pl_params[i, 1], f[0]), 2))
-    return torch.cat(blocks, dim=1), torch.cat(phis)
+        fs.append(f)
+    return torch.cat(blocks, dim=1), tuple(fs)
+
+
+def pl_phi(fs, pl_params: torch.Tensor) -> torch.Tensor:
+    """Prior variances (k_F,) of :func:`pl_basis_blocks`'s columns:
+    spec i's power law at ``pl_params[i] = [log10_amp, gamma]`` on its
+    grid ``fs[i]``, each bin as wide as its first harmonic (the reference
+    hybrid's ``_accel_pl_phi``)."""
+    return torch.cat([torch.repeat_interleave(
+        powerlaw_phi(f, pl_params[i, 0], pl_params[i, 1], f[0]), 2)
+        for i, f in enumerate(fs)])
+
+
+def pl_basis_arrays(toas, specs, pl_params
+                    ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The hybrid fitter's noise block on `toas`: :func:`pl_basis_blocks`
+    and their prior variances (:func:`pl_phi`) at ``pl_params``."""
+    if not specs:
+        return None, None
+    t_s = (toas.tdb.hi + toas.tdb.lo) * SECS_PER_DAY
+    inv_f2 = torch.square(DM_FREF_MHZ / toas.freq_mhz)
+    F, fs = pl_basis_blocks(t_s, inv_f2, specs)
+    return F, pl_phi(fs, pl_params)
 
 
 class HybridGLSFitter(Fitter):

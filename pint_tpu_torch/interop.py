@@ -77,3 +77,20 @@ def state_from_numpy(params: dict, toa_columns: dict, *, model,
         aux_columns={k: torch.as_tensor(np.array(v, np.float64), device=dev)
                      for k, v in (toa_columns.get("aux_columns") or {}).items()},
     )
+
+
+def problems_from_numpy(problems, *, device=None) -> list:
+    """The port's ``(toas, model)`` list of a PTA problem set carried
+    over as numpy data: each entry of ``problems`` is ``(par, params,
+    toa_columns)``, the pulsar's par text, its parameter values as
+    :func:`state_from_numpy` takes them and its TOA columns. Each model
+    is built from its par text and set to those values; each table holds
+    the columns as they are. ``device=None`` means the CUDA card."""
+    from pint_tpu_torch.models import get_model
+
+    out = []
+    for par, params, columns in problems:
+        model = get_model(par)
+        toas = state_from_numpy(params, columns, model=model, device=device)
+        out.append((toas, model))
+    return out

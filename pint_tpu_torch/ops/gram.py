@@ -18,6 +18,14 @@ tensor on the card and runs :func:`ds32_gram_reference`, the same
 arithmetic in PyTorch operators, for a tensor on the CPU. The kernel is
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at
 the root of the checkout and loaded with ``ctypes``.
+
+:func:`ds32_gram_batched` is the (P, n, q) -> (P, q, q) form: one launch
+computes P Grams (the batch index is the kernel grid's third axis), each
+bit for bit the 2-D call on its member. Under ``torch.func.vmap``,
+``ds32_gram`` goes through a ``torch.library`` custom op with a vmap
+rule, so a map over code that calls it (the PTA joint fit's stage 2)
+lands in one batched launch instead of failing on the ctypes call; a
+plain tensor is launched directly.
 """
 
 from __future__ import annotations
@@ -104,24 +112,88 @@ def build(source: Path = SOURCE) -> tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     path, _log = build()
     lib = ctypes.CDLL(str(path))
-    fn = lib.ds32_gram_launch
+    fn = lib.ds32_gram_batched_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(A) -> None:
+def _check(A, rank: int = 2, name: str = "ds32_gram") -> None:
     if not isinstance(A, torch.Tensor):
-        raise TypeError(f"ds32_gram takes a torch.Tensor, got {type(A).__name__}")
+        raise TypeError(f"{name} takes a torch.Tensor, got {type(A).__name__}")
     if A.dtype != torch.float64:
-        raise TypeError(f"ds32_gram takes float64, got {A.dtype}")
-    if A.dim() != 2:
-        raise ValueError(f"ds32_gram takes a 2-D (n, q) tensor, got shape "
+        raise TypeError(f"{name} takes float64, got {A.dtype}")
+    if A.dim() != rank:
+        shape = "(n, q)" if rank == 2 else "(P, n, q)"
+        raise ValueError(f"{name} takes a {rank}-D {shape} tensor, got shape "
                          f"{tuple(A.shape)}")
-    if A.shape[0] == 0 or A.shape[1] == 0:
-        raise ValueError(f"ds32_gram needs n, q >= 1, got {tuple(A.shape)}")
+    if min(A.shape) == 0:
+        raise ValueError(f"{name} needs non-empty dimensions, got "
+                         f"{tuple(A.shape)}")
+
+
+def _launch(A: torch.Tensor, counter) -> torch.Tensor:
+    """One launch of both passes over (P, n, q) `A` on the card: (P, q, q).
+    Counts the launch on `counter` (the wrapper the caller called)."""
+    if A.device.type != "cuda":
+        raise ValueError(f"{counter.__name__} runs on cuda or cpu, not "
+                         f"{A.device}")
+    if not A.is_contiguous():
+        raise ValueError(f"{counter.__name__} needs a contiguous (row-major) "
+                         "tensor")
+    batch, n, q = A.shape
+    if q > MAX_COLUMNS:
+        raise ValueError(f"{counter.__name__} supports q <= {MAX_COLUMNS} "
+                         f"columns, got {q}")
+    bn, nb = _block_rows(n)
+    # each member's per-block f32 partials, upper triangle packed row by
+    # row
+    partial = torch.empty((batch, nb, q * (q + 1) // 2), dtype=torch.float32,
+                          device=A.device)
+    G = torch.empty((batch, q, q), dtype=torch.float64, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = _library().ds32_gram_batched_launch(
+        A.data_ptr(), partial.data_ptr(), G.data_ptr(), batch, n, q, bn, nb,
+        A.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: "
+                           f"cudaError {rc}")
+    if torch.cuda.is_current_stream_capturing():
+        counter.captured += 1
+    else:
+        counter.launches += 1
+    return G
+
+
+def _gram_2d(A: torch.Tensor) -> torch.Tensor:
+    if A.device.type == "cpu":
+        return ds32_gram_reference(A)
+    return _launch(A[None], ds32_gram)[0]
+
+
+@torch.library.custom_op("pint_tpu_torch::ds32_gram", mutates_args=())
+def _ds32_gram_op(A: torch.Tensor) -> torch.Tensor:
+    return _gram_2d(A)
+
+
+@_ds32_gram_op.register_fake
+def _(A):
+    return A.new_empty((A.shape[1], A.shape[1]))
+
+
+def _ds32_gram_vmap(info, in_dims, A):
+    """``torch.func.vmap`` over :func:`ds32_gram`: the mapped axis becomes
+    the batch of one :func:`ds32_gram_batched` launch (nested maps fold
+    into it one level at a time)."""
+    (dim,) = in_dims
+    if dim is None:
+        return _ds32_gram_op(A), None
+    return ds32_gram_batched(A.movedim(dim, 0).contiguous()), 0
+
+
+torch.library.register_vmap("pint_tpu_torch::ds32_gram", _ds32_gram_vmap)
 
 
 def ds32_gram(A: torch.Tensor) -> torch.Tensor:
@@ -133,41 +205,52 @@ def ds32_gram(A: torch.Tensor) -> torch.Tensor:
     into the graph: it counts in ``ds32_gram.captured`` instead, and
     whoever replays the graph adds the launches it recorded to
     ``launches`` at each replay (:mod:`pint_tpu_torch.fitting.device_loop`).
+    Under ``torch.func.vmap`` the call becomes one
+    :func:`ds32_gram_batched` launch, counted there.
     """
     _check(A)
-    if A.device.type == "cpu":
-        return ds32_gram_reference(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"ds32_gram runs on cuda or cpu, not {A.device}")
-    if not A.is_contiguous():
-        raise ValueError("ds32_gram needs a contiguous (row-major) tensor")
-    n, q = A.shape
-    if q > MAX_COLUMNS:
-        raise ValueError(f"ds32_gram supports q <= {MAX_COLUMNS} columns, got {q}")
-    bn, nb = _block_rows(n)
-    # each block's f32 partial, upper triangle packed row by row
-    partial = torch.empty((nb, q * (q + 1) // 2), dtype=torch.float32,
-                          device=A.device)
-    G = torch.empty((q, q), dtype=torch.float64, device=A.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.ds32_gram_launch(A.data_ptr(), partial.data_ptr(), G.data_ptr(),
-                              n, q, bn, nb, A.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"ds32_gram kernel launch failed: cudaError {rc}")
-    if torch.cuda.is_current_stream_capturing():
-        ds32_gram.captured += 1
-    else:
-        ds32_gram.launches += 1
-    return G
+    if torch._C._functorch.is_functorch_wrapped_tensor(A):
+        # under a torch.func transform: the custom op, whose vmap rule
+        # makes the batched launch
+        return _ds32_gram_op(A)
+    # a plain tensor skips the op's dispatch
+    return _gram_2d(A)
 
 
 ds32_gram.launches = 0
 ds32_gram.captured = 0
 
 
+def ds32_gram_batched(A: torch.Tensor) -> torch.Tensor:
+    """The Grams of a (P, n, q) batch, (P, q, q), in one launch.
+
+    Member p's Gram is bit for bit ``ds32_gram(A[p])``: the same row
+    blocks and summation order, with the member index on the kernel
+    grid's third axis. A CPU tensor goes to
+    :func:`ds32_gram_batched_reference`. Its own counts:
+    ``ds32_gram_batched.launches`` and ``.captured``, one per batched
+    launch, as :func:`ds32_gram` counts its own.
+    """
+    _check(A, 3, "ds32_gram_batched")
+    if A.device.type == "cpu":
+        return ds32_gram_batched_reference(A)
+    return _launch(A, ds32_gram_batched)
+
+
+ds32_gram_batched.launches = 0
+ds32_gram_batched.captured = 0
+
+
 def ds32_gram_reference(A: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch operators (its plain version).
+    """The kernel's arithmetic in PyTorch operators (its plain version):
+    :func:`ds32_gram_batched_reference` of the one-member batch."""
+    _check(A)
+    return ds32_gram_batched_reference(A[None])[0]
+
+
+def ds32_gram_batched_reference(A: torch.Tensor) -> torch.Tensor:
+    """The batched kernel's arithmetic in PyTorch operators, (P, n, q) ->
+    (P, q, q): each member as the kernel sums it.
 
     The same split, the same blocks (:func:`_block_rows`), the same zero
     padding of the rows to whole blocks (padded columns would only add
@@ -178,16 +261,16 @@ def ds32_gram_reference(A: torch.Tensor) -> torch.Tensor:
     TwoSum reduction across blocks, and the upper triangle mirrored
     into the lower. Runs on whatever device A lies on.
     """
-    _check(A)
-    n, q = A.shape
+    _check(A, 3, "ds32_gram_batched")
+    batch, n, q = A.shape
     bn, nb = _block_rows(n)
     nc = bn // CHUNK_ROWS
 
     def chunks(x):
-        # (n, q) -> (nb, nc, CHUNK_ROWS, q), zero rows padding the last
-        # block
+        # (P, n, q) -> (P, nb, nc, CHUNK_ROWS, q), zero rows padding the
+        # last block
         x = torch.nn.functional.pad(x, (0, 0, 0, nb * bn - n))
-        return x.reshape(nb, nc, CHUNK_ROWS, q)
+        return x.reshape(batch, nb, nc, CHUNK_ROWS, q)
 
     a1 = A.to(torch.float32)
     a2 = (A - a1.to(torch.float64)).to(torch.float32)
@@ -195,21 +278,21 @@ def ds32_gram_reference(A: torch.Tensor) -> torch.Tensor:
     a1t = a1.transpose(-1, -2)
     c11, c12 = a1t @ a1, a1t @ a2
     # per block, the chunks' products summed in chunk order
-    s11, s12 = c11[:, 0], c12[:, 0]
+    s11, s12 = c11[:, :, 0], c12[:, :, 0]
     for c in range(1, nc):
-        s11 = s11 + c11[:, c]
-        s12 = s12 + c12[:, c]
+        s11 = s11 + c11[:, :, c]
+        s12 = s12 + c12[:, :, c]
     p = s11 + (s12 + s12.transpose(-1, -2))
-    hi = p[0]
+    hi = p[:, 0]
     lo = torch.zeros_like(hi)
     for b in range(1, nb):
         a = hi
-        s = a + p[b]
+        s = a + p[:, b]
         bv = s - a
-        lo = lo + ((a - (s - bv)) + (p[b] - bv))
+        lo = lo + ((a - (s - bv)) + (p[:, b] - bv))
         hi = s
     G = hi.to(torch.float64) + lo.to(torch.float64)
-    return torch.triu(G) + torch.triu(G, 1).transpose(0, 1)
+    return torch.triu(G) + torch.triu(G, 1).transpose(-1, -2)
 
 
 def gram_error_bound(n: int, block: int = 1024) -> float:

@@ -15,16 +15,17 @@ Counterpart of ``pint_tpu.telemetry``'s core:
   artifact and the end-of-run summary (:mod:`.export`);
 * :mod:`.recorder`: the flight recorder, per-evaluation traces of the
   damped fits;
-* :mod:`.trace`: the request-trace context spans are stamped with.
+* :mod:`.trace`: the request-trace context spans are stamped with;
+* :mod:`.slo`: per-class latency objectives and their burn counters.
 
 Off (the default unless ``PINT_TORCH_TELEMETRY=1`` or an entry point
 calls :func:`configure`), every hook is a boolean check and return, so
 the fit loops stay instrumented. ``PINT_TORCH_TELEMETRY=0`` is a kill
 switch that beats ``configure(enabled=True)``. No hook runs inside a
 captured graph: the fused loop bumps its counters on the host, from the
-flags and results it fetches anyway. The reference's report CLI, SLO
-ledger, live ``top`` view and fleet hops wait for the serving tier
-(ROADMAP Queue 1 item 6); its backend probe has no counterpart.
+flags and results it fetches anyway. The reference's report CLI, live
+``top`` view and fleet hops wait for the serving tier (ROADMAP Queue 1
+item 6); its backend probe has no counterpart.
 
 The telemetry modules import only the standard library at import time.
 """
@@ -42,12 +43,12 @@ from pint_tpu_torch.telemetry.host import polluted as host_polluted
 from pint_tpu_torch.telemetry.host import sample as host_sample
 from pint_tpu_torch.telemetry.spans import (graph_span, profile_span, span,
                                             traced)
-from pint_tpu_torch.telemetry import trace
+from pint_tpu_torch.telemetry import slo, trace
 
 __all__ = [
     "add_record", "configure", "counter_value", "counters_delta",
     "counters_snapshot", "enabled", "flush", "gauges_snapshot",
     "graph_span", "host_polluted", "host_sample", "inc", "jsonl_path",
     "max_gauge", "profile_span", "reset", "rollup", "set_gauge", "span",
-    "span_stats", "trace", "traced", "write_rollup",
+    "slo", "span_stats", "trace", "traced", "write_rollup",
 ]

@@ -1,0 +1,60 @@
+"""SLO ledger: per-class latency objectives and burn counters.
+
+Counterpart of ``pint_tpu.telemetry.slo``. Each request class has a
+latency objective declared as a knob. The port serves one class so far:
+``longjob`` (catalog fit, start to terminal state;
+``PINT_TORCH_SLO_LONGJOB_S``). The reference's ``read``, ``fit`` and
+``session`` classes belong to its serving tier and come with its port.
+Callers call :func:`observe` where they already measure latency (the
+catalog job does at its terminal state), so the ledger costs one
+counter pair per request and nothing when telemetry is off.
+
+``slo.<cls>.total`` counts observed requests; ``slo.<cls>.burn``
+counts the ones that missed the objective (latency above target, or an
+explicit miss such as a failed job). :func:`snapshot` folds both into
+per-class burn rates.
+"""
+
+from __future__ import annotations
+
+from pint_tpu_torch import config
+from pint_tpu_torch.telemetry import core, counters
+
+#: request classes with a declared latency objective (one knob each).
+CLASSES = ("longjob",)
+
+
+def target_s(cls: str) -> float:
+    """The declared latency objective [s] for a request class."""
+    # literal knob names, so the knob-registry scan can verify them
+    if cls == "longjob":
+        return config.env_float("PINT_TORCH_SLO_LONGJOB_S")
+    raise KeyError(cls)
+
+
+def observe(cls: str, latency_s: float, *, missed: bool = False) -> None:
+    """Ledger one served request of class ``cls``: it counts toward
+    ``slo.<cls>.total``, and burns when its latency exceeded the class
+    objective or the caller knows it missed. No-op when telemetry is
+    off."""
+    if not core._enabled:
+        return
+    counters.inc(f"slo.{cls}.total")
+    if missed or latency_s > target_s(cls):
+        counters.inc(f"slo.{cls}.burn")
+
+
+def snapshot() -> dict:
+    """Per-class ledger state: target, totals, burns, burn rate."""
+    snap = counters.counters_snapshot()
+    out = {}
+    for cls in CLASSES:
+        total = snap.get(f"slo.{cls}.total", 0)
+        burn = snap.get(f"slo.{cls}.burn", 0)
+        out[cls] = {
+            "target_s": target_s(cls),
+            "total": int(total),
+            "burn": int(burn),
+            "burn_rate": round(burn / total, 6) if total else 0.0,
+        }
+    return out

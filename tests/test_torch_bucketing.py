@@ -306,3 +306,34 @@ def test_note_batch_occupancy_and_program():
     assert telemetry.gauges_snapshot()["batch.occupancy.last"] == 0.75
     assert c["cache.fit_program.miss"] == 1 and c["cache.fit_program.hit"] == 1
     assert telemetry.gauges_snapshot()["program.k.graphs"] == 2.0
+
+
+def test_pta_gram_pad_invariant():
+    """Zero-weight padding rows through the PTA joint evaluation
+    (tests/test_bucketing.py's case): the noise-marginalized joint chi2
+    at zero deltas is unchanged (1e-8, the reference's bar), on both
+    Gram routes, and equals the reference's (1e-7: its jitted phase,
+    ROADMAP Queue 3)."""
+    from pint_tpu.models import get_model as jget_model
+    from pint_tpu.parallel.pta import PTAGLSFitter as JPTA
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    par = PAR + NOISE
+    jm, jt = simulate_reference(60, seed=7, par=par, site="gbt")
+    jt = with_flag(jt)
+    gw = dict(gw_log10_amp=-13.9, gw_gamma=4.33, gw_nharm=3)
+
+    def chi2_at_zero(pad, accel):
+        model, toas = port_state(jm, jt, par=par)
+        if pad:
+            toas = bucketing.pad_toas(toas, 64)
+        f = PTAGLSFitter([(toas, model)], **gw, device="cpu", accel=accel)
+        return f.step(f.zero_flat())[1]["chi2_at_input"]
+
+    for accel in (False, True):
+        a = chi2_at_zero(False, accel)
+        np.testing.assert_allclose(chi2_at_zero(True, accel), a, rtol=1e-8)
+    jf = JPTA([(jt, jget_model(par))], **gw)
+    np.testing.assert_allclose(chi2_at_zero(False, False),
+                               jf.step(jf.zero_flat())[1]["chi2_at_input"],
+                               rtol=1e-7)

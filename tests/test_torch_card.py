@@ -468,3 +468,55 @@ def test_captured_batched_loop_replays_bit_for_bit(cuda_device, monkeypatch):
     for m, fused in zip(bf.models, out[0][2]):
         for k, v in fused.items():
             assert abs(m[k].value_f64 - (v[0] + v[1])) <= 1e-9 * m[k].uncertainty, k
+
+
+def test_batched_kernel_is_the_2d_launches_bit_for_bit(cuda_device):
+    """One batched launch over P members gives each member's 2-D launch
+    bit for bit, at the PTA fit's width and a q <= 64 one, also through
+    ``torch.func.vmap`` (the custom op's rule); launches are counted on
+    each wrapper, one per launch."""
+    from pint_tpu_torch.ops.gram import ds32_gram_batched
+
+    g = torch.Generator().manual_seed(12)
+    for P, n, q in ((6, 2206, 106), (5, 1000, 40)):
+        A = torch.randn((P, n, q), generator=g, dtype=torch.float64)
+        A = (A / torch.linalg.norm(A, dim=1, keepdim=True)).to(cuda_device)
+        before = (ds32_gram.launches, ds32_gram_batched.launches)
+        G = ds32_gram_batched(A)
+        Gv = torch.func.vmap(ds32_gram)(A)
+        singles = [ds32_gram(A[p].contiguous()) for p in range(P)]
+        torch.cuda.synchronize()
+        assert (ds32_gram.launches - before[0],
+                ds32_gram_batched.launches - before[1]) == (P, 2)
+        assert torch.equal(G, Gv)
+        for p in range(P):
+            assert torch.equal(G[p], singles[p]), p
+
+
+def test_pta_fit_on_the_card_equals_the_cpus(cuda_device):
+    """A 4 x 512-TOA catalog's joint fit through the fused loop on the
+    card (batched Gram launches) against the CPU (the kernel's plain
+    version), on the same tables: chi2 within 1e-9 relative, values
+    within 1e-6 of an uncertainty (phase 16's bars)."""
+    from pint_tpu_torch.catalog import CatalogSpec, generate_catalog
+    from pint_tpu_torch.ops.gram import ds32_gram_batched
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    spec = CatalogSpec(n_pulsars=4, toas_per_pulsar=512, seed=3,
+                       red_nharm=10, gw_nharm=5)
+    gw = dict(gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=5)
+    cpu = generate_catalog(spec, device="cpu")
+    f_cpu = PTAGLSFitter(cpu.joint_problems(), **gw, device="cpu", accel=True)
+    c_cpu = f_cpu.fit_toas(maxiter=6)
+    card = [(t.to(cuda_device), m) for t, m in
+            generate_catalog(spec, device="cpu").joint_problems()]
+    before = ds32_gram_batched.launches
+    f = PTAGLSFitter(card, **gw)
+    c = f.fit_toas(maxiter=6)
+    assert f.accel and f._stacked is not None
+    assert ds32_gram_batched.launches > before
+    assert c == pytest.approx(c_cpu, rel=1e-9)
+    for (_, ma), (_, mb) in zip(cpu.joint_problems(), card):
+        for k in ma.free_params:
+            assert abs(mb[k].value_f64 - ma[k].value_f64) \
+                <= 1e-6 * ma[k].uncertainty, k

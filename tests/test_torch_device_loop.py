@@ -663,3 +663,85 @@ def test_batched_device_loop_parity(monkeypatch):
             assert b[k][1] == pytest.approx(unc, rel=1e-9), k
     assert del0.get("fit.device_loop.launches", 0) == 0
     assert del1.get("fit.device_loop.launches", 0) == 1
+
+
+def test_pta_device_loop_parity(monkeypatch):
+    """The PTA joint fit (tests/test_device_loop.py's case: two GBT
+    pulsars of the noise par at 3 red-noise harmonics, a 2-harmonic GW
+    background): the fused loop against the host loop over the same
+    joint evaluation, on both Gram routes. The same decisions, counters,
+    chi2 (1e-12 relative), values and uncertainties (bit for bit: one
+    evaluation function serves both loops); the kill switch selects
+    the loop; and against the reference's fused PTA loop (jitted, so
+    chi2 1e-7, values 1e-4 sigma, uncertainties 1e-7; ROADMAP Queue 3)."""
+    from pint_tpu.parallel.pta import PTAGLSFitter as JPTA
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    refs = []
+    for i in range(2):
+        par = PAR.replace("17:48:52.75",
+                          f"{(i * 7) % 24:02d}:48:52.75") + NOISE
+        par = par.replace("TNREDC 10", "TNREDC 3")
+        truth = jget_model(par)
+        toas = make_fake_toas_uniform(
+            53000, 56000, 40, truth, obs="gbt",
+            freq_mhz=np.array([1400.0, 430.0]), error_us=1.0,
+            add_noise=True, seed=41 + i)
+        toas = dataclasses.replace(
+            toas, flags=Flags(dict(d, f="fake") for d in toas.flags))
+        refs.append((par, truth, toas))
+
+    def problems():
+        out = []
+        for par, truth, toas in refs:
+            model, t = port_state(truth, toas, par=par)
+            model["F0"].add_delta(2e-10)
+            out.append((t, model))
+        return out
+
+    gw = dict(gw_log10_amp=-13.9, gw_gamma=4.33, gw_nharm=2)
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    res = {}
+    try:
+        for accel in (False, True):
+            for mode in ("0", "1"):
+                monkeypatch.setenv("PINT_TORCH_DEVICE_LOOP", mode)
+                f = PTAGLSFitter(problems(), **gw, device="cpu", accel=accel)
+                before = telemetry.counters_snapshot()
+                chi2 = f.fit_toas(maxiter=4)
+                res[accel, mode] = (
+                    chi2, f.converged, f.gw_coeffs.copy(), dict(f.counters),
+                    [{k: (m[k].value_f64, m[k].uncertainty)
+                      for k in m.free_params} for m in f.models],
+                    telemetry.counters_delta(before))
+    finally:
+        telemetry.reset()
+    for accel in (False, True):
+        c0, conv0, gw0, cnt0, v0, del0 = res[accel, "0"]
+        c1, conv1, gw1, cnt1, v1, del1 = res[accel, "1"]
+        assert c1 == pytest.approx(c0, rel=1e-12)
+        assert conv0 == conv1
+        assert {k: cnt0[k] for k in COUNTERS} == {k: cnt1[k] for k in COUNTERS}
+        np.testing.assert_array_equal(gw1, gw0)
+        assert v1 == v0
+        assert del0.get("fit.device_loop.launches", 0) == 0
+        assert del1.get("fit.device_loop.launches", 0) == 1
+
+    for mode in ("0", "1"):
+        monkeypatch.setenv("PINT_TPU_DEVICE_LOOP", mode)
+        jprob = []
+        for par, truth, toas in refs:
+            jm = jget_model(par)
+            jm["F0"].add_delta(2e-10)
+            jprob.append((toas, jm))
+        jf = JPTA(jprob, **gw)
+        jchi2 = jf.fit_toas(maxiter=4)
+        c, conv, _gw, _cnt, v, _d = res[False, mode]
+        assert c == pytest.approx(jchi2, rel=1e-7)
+        assert conv == jf.converged
+        for vals, jm in zip(v, jf.models):
+            for k, (value, unc) in vals.items():
+                assert abs(value - jm[k].value_f64) <= 1e-4 * jm[k].uncertainty, k
+                assert unc == pytest.approx(jm[k].uncertainty, rel=1e-7), k

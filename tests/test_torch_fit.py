@@ -339,12 +339,18 @@ TELEMETRY_AND_PARALLEL_MODULES = (
     "pint_tpu_torch.telemetry.export", "pint_tpu_torch.telemetry.spans",
     "pint_tpu_torch.telemetry.trace", "pint_tpu_torch.bucketing",
     "pint_tpu_torch.parallel", "pint_tpu_torch.parallel.mesh",
-    "pint_tpu_torch.parallel.batch", "pint_tpu_torch.parallel.sharded_fit")
+    "pint_tpu_torch.parallel.batch", "pint_tpu_torch.parallel.sharded_fit",
+    "pint_tpu_torch.telemetry.slo", "pint_tpu_torch.parallel.pta",
+    "pint_tpu_torch.catalog", "pint_tpu_torch.catalog.generate",
+    "pint_tpu_torch.catalog.hypergrid", "pint_tpu_torch.catalog.job",
+    "pint_tpu_torch.pintk", "pint_tpu_torch.pintk.controller",
+    "pint_tpu_torch.pintk.app")
 
 
 def test_telemetry_and_parallel_import_no_jax_or_the_reference():
-    """The telemetry core and the many-pulsar modules load without JAX or
-    the reference in the process, and import neither."""
+    """The telemetry core, the many-pulsar modules, the PTA joint fit,
+    the catalogs and pintk load without JAX or the reference in the
+    process, and import neither."""
     code = (
         "import importlib, sys\n"
         f"for name in {TELEMETRY_AND_PARALLEL_MODULES!r}:\n"

@@ -164,3 +164,59 @@ def test_library_path_is_keyed_by_source_content(tmp_path):
     assert gram.library_path(src) != first
     assert first.parent == gram.BUILD_DIR and first.name.startswith("libk-")
 
+
+
+# ----------------------------------------------------------------------
+# the batched form (the PTA joint fit's stage 2)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,n,q,block", [(3, 640, 20, 128), (4, 137, 5, 64),
+                                         (2, 2206, 106, 1024)])
+def test_batched_plain_version_matches_vmapped_tpu_kernel(P, n, q, block):
+    """The batched plain version against the Pallas kernel under
+    ``jax.vmap`` in interpret mode (Pallas's batching rule makes the
+    member axis a grid axis), member by member at the 2-D test's bar
+    (1e-6 of max|G|); q = 106 is the PTA fit's width."""
+    import jax
+
+    rng = np.random.default_rng(P * n + q)
+    A = rng.standard_normal((P, n, q)) / np.sqrt(n)
+    G_ref = np.asarray(jax.vmap(lambda a: ds32_gram_pallas(
+        a, interpret=True, block=block))(jnp.asarray(A)))
+    G = gram.ds32_gram_batched(torch.as_tensor(A)).numpy()
+    assert G.shape == (P, q, q)
+    for p in range(P):
+        scale = np.max(np.abs(A[p].T @ A[p]))
+        assert np.max(np.abs(G[p] - G_ref[p])) / scale <= 1e-6, p
+
+
+@pytest.mark.parametrize("P,n,q", [(5, 137, 5), (3, 4096, 64), (2, 3001, 100),
+                                   (68, 300, 12)])
+def test_batched_plain_version_is_the_2d_calls_bit_for_bit(P, n, q):
+    """One batched call, ``torch.func.vmap`` over ``ds32_gram`` (the
+    custom op's vmap rule, on any mapped axis) and P 2-D calls give the
+    same bits, and the CPU route launches no kernel."""
+    rng = np.random.default_rng(q)
+    A = torch.as_tensor(rng.standard_normal((P, n, q)) / np.sqrt(n))
+    before = (ds32_gram.launches, gram.ds32_gram_batched.launches)
+    G = gram.ds32_gram_batched(A)
+    assert torch.equal(G, gram.ds32_gram_batched_reference(A))
+    for p in range(P):
+        assert torch.equal(G[p], ds32_gram(A[p])), p
+    assert torch.equal(torch.func.vmap(ds32_gram)(A), G)
+    At = A.transpose(0, 1).contiguous()
+    assert torch.equal(torch.func.vmap(ds32_gram, in_dims=1)(At), G)
+    assert (ds32_gram.launches, gram.ds32_gram_batched.launches) == before
+
+
+@pytest.mark.parametrize("bad", [
+    torch.ones((2, 8, 3), dtype=torch.float32),
+    torch.ones((8, 3), dtype=torch.float64),
+    torch.ones((2, 2, 8, 3), dtype=torch.float64),
+    torch.ones((0, 8, 3), dtype=torch.float64),
+    torch.ones((2, 0, 3), dtype=torch.float64),
+    np.ones((2, 8, 3)),
+])
+def test_batched_rejects_wrong_dtype_rank_or_type(bad):
+    with pytest.raises((TypeError, ValueError)):
+        gram.ds32_gram_batched(bad)

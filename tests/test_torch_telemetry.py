@@ -584,3 +584,41 @@ def test_telemetry_log_level_and_mirror(caplog):
         logger.handlers.clear()
         logger.propagate = True
         logger.setLevel(stdlog.NOTSET)
+
+
+# ----------------------------------------------------------------------
+# SLO ledger (tests/test_tracing.py's two cases, beside the reference's)
+# ----------------------------------------------------------------------
+
+def test_slo_ledger_counts_and_burns(monkeypatch):
+    """The same observations in both packages give the same ledger for
+    the port's one class: the target from the class's knob, an
+    over-target latency and an explicit miss each burn; an unknown class
+    (the reference's serving classes included) has no target."""
+    from pint_tpu.telemetry import slo as jslo
+    from pint_tpu_torch.telemetry import slo
+
+    monkeypatch.setenv("PINT_TORCH_SLO_LONGJOB_S", "0.5")
+    monkeypatch.setenv("PINT_TPU_SLO_LONGJOB_S", "0.5")
+    telemetry.configure(enabled=True)
+    jtelemetry.configure(enabled=True)
+    for mod in (slo, jslo):
+        mod.observe("longjob", 0.1)
+        mod.observe("longjob", 0.9)                # over target -> burn
+        mod.observe("longjob", 0.1, missed=True)   # explicit miss -> burn
+    led = slo.snapshot()
+    assert led == {"longjob": jslo.snapshot()["longjob"]}
+    assert led["longjob"] == {"target_s": 0.5, "total": 3, "burn": 2,
+                              "burn_rate": round(2 / 3, 6)}
+    assert telemetry.counter_value("slo.longjob.burn") == 2
+    for cls in ("batch", "read"):
+        with pytest.raises(KeyError):
+            slo.target_s(cls)
+
+
+def test_slo_observe_is_noop_when_off():
+    from pint_tpu_torch.telemetry import slo
+
+    slo.observe("longjob", 1e9, missed=True)
+    telemetry.configure(enabled=True)
+    assert slo.snapshot()["longjob"]["total"] == 0
