@@ -196,7 +196,38 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    models, the par and tim written and read back) on phase 10's 20,000
    TOAs against ``Fitter.auto`` on the same selection, and at 2,000 TOAs
    card against CPU;
-18. a ``{"kernels": [...]}`` line, then the last line
+18. the serving tier, after the loop cache is cleared, with telemetry
+   on and both kernel counts set to 0 before: (a) bench.py's 64-fit
+   stream (``_throughput_problems``: plain, FD, JUMP+EFAC and PHOFF
+   structures x 50-61 and 90-119 GBT TOAs, per-request F0) through
+   ``ThroughputScheduler`` against the same fits one after another
+   through ``dense_wls_fit``, every member on its standalone fit (chi2
+   within 1e-6 relative, parameters within 1e-9 relative or 5% of sigma,
+   the same converged flag), cold and warm walls, one capture per plan
+   key, replays and fetches per batch, the idle share of a warm drain;
+   (b) bench.py's mixed frontier (``_mixed_problems``: WLS, GLS with
+   ECORR, GLS with red noise, wideband) all batched, each member on its
+   standalone fused fit; (c) a converged 100,000-TOA WLS session
+   (bench.py's incremental problem) and a GLS session on phase 6's table,
+   8 appends of 8 TOAs each through the scheduler (after one that
+   captures; the sessions' own drift gates may choose a full refit),
+   update p50/p95 against a warm-started fused refit over the
+   accumulated table, the chi2 drift against it inside
+   ``DRIFT_CHI2_REL``, replays and fetches per update,
+   and a forced drift-gate trip bit for bit a cold populate; (d) reads of
+   256 queries from the 100,000-TOA session: predictions/s, p50/p99 with
+   and without a fit drain in flight, phase within 1e-7 cycles of the host
+   ``Polycos`` and ``dense_predict``, frequency within 1e-9, the kill
+   switch's host route; (e) a stream with a NaN member (quarantined), a
+   singular member (ok, as the reference resolves it) and a transient
+   device error per batch (retried); (f) 8 requests of (a)'s structures
+   and a 2,000-TOA session with two appends, barycentric (at GBT the
+   card's and the CPU's sin and cos part a converged chi2 by ~1e-8), on
+   the card and on the CPU: the same plans, statuses and routes, chi2
+   within 1e-9 relative; (g) zero
+   ds32_gram launches in (a)-(f) (the serving tier's Grams are float64,
+   as the reference's);
+19. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
@@ -207,6 +238,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import pathlib
 import re
@@ -3602,6 +3634,660 @@ def pta_catalogs_pintk(dev, dense):
     return shapes, launches, {"cold": cold, "warm": warm, "warm_ms": fused_ms}
 
 
+# ----------------------------------------------------------------------
+# phase 18: the serving tier
+# ----------------------------------------------------------------------
+
+N_SERVE_FITS = 64          # bench.py's _throughput_problems / _mixed_problems
+N_SESSION = 100_000        # bench.py's incremental and read problems
+K_APPEND = 8
+N_APPENDS = 8
+N_READ_Q = 256             # bench.py's PINT_TPU_BENCH_READ_Q default
+N_SERVE_CARD_CPU = 8
+N_SESSION_SMALL = 2_000
+SERVE_HYPER = dict(maxiter=20, min_chi2_decrease=1e-3)
+# bench.py:624-640's parity bar of a scheduled member against its
+# standalone fused fit
+SERVE_CHI2_RTOL = 1e-6
+SERVE_VALUE_RTOL = 1e-9
+SERVE_VALUE_SIGMA = 0.05
+CARD_CPU_CHI2_RTOL = 1e-9
+
+
+def strip_par(par: str, names: tuple) -> str:
+    """`par` without the lines whose first token is in `names` (bench.py's
+    ``_strip_par_lines``)."""
+    return "".join(line for line in par.splitlines(keepends=True)
+                   if not line.split()[:1] or line.split()[0] not in names)
+
+
+PAR_SERVE = strip_par(PAR_FULL, ("EFAC", "ECORR", "TNREDAMP", "TNREDGAM",
+                                 "TNREDC"))
+# its barycentric form (18f): at GBT the card's and the CPU's libm sin
+# and cos part a converged chi2 by up to ~1e-8 (ROADMAP Queue 3, traps)
+PAR_SERVE_BARY = strip_par(PAR_BARY, ("EFAC", "ECORR", "TNREDAMP",
+                                      "TNREDGAM", "TNREDC"))
+
+
+def sim_flagged(model, n, freqs, seed, dev, obs="gbt"):
+    """bench.py's ``_sim_flagged``: n TOAs uniform over MJD 53000-56000 at
+    `obs` at the given frequencies, simulated on the CPU, moved to `dev`."""
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    t = make_fake_toas_uniform(53000, 56000, n, model, obs=obs,
+                               freq_mhz=np.asarray(freqs), error_us=1.0,
+                               add_noise=True, seed=seed, device="cpu")
+    return t if dev.type == "cpu" else t.to(dev)
+
+
+def throughput_problems(n_fits, dev, base=PAR_SERVE, obs="gbt"):
+    """bench.py's ``_throughput_problems``: (par, table) per fit, four
+    structures (plain, FD, JUMP+EFAC, PHOFF) x two TOA buckets (50-61 and
+    90-119 TOAs), per-request F0 (from `base`, observed at `obs`)."""
+    from pint_tpu_torch.models import get_model
+
+    variants = [base, base + "FD1 1.0e-5 1\n",
+                base + "JUMP FREQ 300 500 1.0e-4 1\nEFAC FREQ 300 500 1.2\n",
+                base + "PHOFF 0.0 1\n"]
+    rng = np.random.default_rng(9)
+    out = []
+    for i in range(n_fits):
+        par = variants[i % 4].replace(
+            "61.485476554", f"{61.485476554 + 0.05 * (i // 4):.9f}")
+        n = int(rng.integers(50, 62) if i % 2 == 0 else rng.integers(90, 120))
+        k = np.arange(n) % 3
+        freqs = np.where(k == 0, 430.0, np.where(k == 1, 1400.0, 800.0))
+        out.append((par, sim_flagged(get_model(par), n, freqs,
+                                     int(rng.integers(2 ** 31)), dev, obs)))
+    return out
+
+
+def mixed_problems(n_fits, dev):
+    """bench.py's ``_mixed_problems``: (family, par, table) per fit, WLS,
+    GLS with ECORR (duplicated arrivals, flagged), GLS with red noise and
+    wideband, with per-request F0 and noise values."""
+    import dataclasses
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toas import Flags, merge_TOAs
+
+    rng = np.random.default_rng(12)
+    out = []
+    for i in range(n_fits):
+        fam = ("wls", "gls_ecorr", "gls_red", "wb")[i % 4]
+        par = PAR_SERVE.replace("61.485476554",
+                                f"{61.485476554 + 0.05 * (i // 4):.9f}")
+        if fam == "gls_ecorr":
+            par += f"EFAC -f fake 1.2\nECORR -f fake 1.{1 + (i // 4) % 4}\n"
+        elif fam == "gls_red":
+            par += f"TNREDAMP -13.{5 + (i // 4) % 4}\nTNREDGAM 3.5\nTNREDC 6\n"
+        truth = get_model(par)
+        n = int(rng.integers(25, 32) if fam == "gls_ecorr"
+                else rng.integers(50, 62))
+        k = np.arange(n) % 3
+        freqs = np.where(k == 0, 430.0, np.where(k == 1, 1400.0, 800.0))
+        t = sim_flagged(truth, n, freqs, int(rng.integers(2 ** 31)), dev)
+        if fam == "gls_ecorr":
+            t = merge_TOAs([t, t])
+            t = dataclasses.replace(t, flags=Flags(dict(d, f="fake")
+                                                   for d in t.flags))
+        elif fam == "wb":
+            dm = truth.total_dm(t).cpu().numpy()
+            t = dataclasses.replace(t, flags=Flags(
+                dict(d, pp_dm=str(float(v)), pp_dme="1e-4")
+                for d, v in zip(t.flags, dm)))
+        out.append((fam, par, t))
+    return out
+
+
+def fresh_requests(problems, tagged=True):
+    """One FitRequest per problem, its model's F0 moved by 2e-10."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import FitRequest
+
+    reqs = []
+    for i, prob in enumerate(problems):
+        par, t = prob[-2], prob[-1]
+        m = get_model(par)
+        m["F0"].add_delta(2e-10)
+        reqs.append(FitRequest(t, m, tag=i if tagged else None, **SERVE_HYPER))
+    return reqs
+
+
+def drain_stream(reqs, devices):
+    """Submit `reqs` to a fresh scheduler over `devices` and drain it:
+    (results, drain record, wall s, counter deltas, plans)."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.serve import ThroughputScheduler
+
+    s = ThroughputScheduler(devices=devices, max_queue=max(len(reqs), 1))
+    before = telemetry.counters_snapshot()
+    if devices[0].type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        s.submit(r)
+    plans = s.plan()
+    res = s.drain()
+    wall = time.perf_counter() - t0
+    return res, s.last_drain, wall, telemetry.counters_delta(before), plans
+
+
+def standalone(problems, fit=None):
+    """Each problem fitted alone through the fused dense loop of its
+    family: [(chi2, converged, {param: value})]; the models are kept (a
+    second call replays their captures)."""
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.models import get_model
+
+    out = []
+    for prob in problems:
+        fam = prob[0] if len(prob) == 3 else "wls"
+        if fit is None or len(fit) < len(problems):
+            m = get_model(prob[-2])
+            m["F0"].add_delta(2e-10)
+            if fit is not None:
+                fit.append(m)
+        else:
+            m = fit[len(out)]
+        dense = {"wls": device_loop.dense_wls_fit,
+                 "gls_ecorr": device_loop.dense_gls_fit,
+                 "gls_red": device_loop.dense_gls_fit,
+                 "wb": device_loop.dense_wideband_fit}[fam]
+        d, _info, chi2, conv, _cnt = dense(prob[-1], m, **SERVE_HYPER)
+        out.append((float(chi2), bool(conv),
+                    {k: m[k].value_f64 + float(d[k]) for k in m.free_params}))
+    return out
+
+
+def member_parity(res, reqs, alone, label):
+    """bench.py's bar: every scheduled member on its standalone fit (chi2
+    within 1e-6 relative, parameters within 1e-9 relative or 5% of
+    sigma, the same converged flag)."""
+    worst, bad = 0.0, []
+    for r, q, (chi2, conv, vals) in zip(res, reqs, alone):
+        rel = abs(r.chi2 - chi2) / abs(chi2)
+        worst = max(worst, rel)
+        m = q.model
+        p_ok = all(abs(m[k].value_f64 - vals[k])
+                   <= max(SERVE_VALUE_RTOL * abs(vals[k]),
+                          SERVE_VALUE_SIGMA * m[k].uncertainty)
+                   for k in m.free_params)
+        if not (r.status in ("ok", "nonconverged") and rel <= SERVE_CHI2_RTOL
+                and r.converged == conv and p_ok):
+            bad.append((r.tag, r.status, r.chi2, chi2, r.converged, conv))
+    print(f"  {label}: {len(res)} members against their standalone fits, "
+          f"worst chi2 gap {worst:.3e} relative (bar {SERVE_CHI2_RTOL:g})",
+          flush=True)
+    if bad:
+        fail(f"{label}: members off their standalone fits: {bad[:4]}")
+
+
+def serve_throughput(dev, card):
+    """18a: bench.py's 64-fit stream through the scheduler against the
+    same fits one after another through ``dense_wls_fit``."""
+    from pint_tpu_torch.fitting import device_loop
+
+    problems = throughput_problems(N_SERVE_FITS, dev)
+    # the sequential side's 64 fits each hold a capture (one model each):
+    # the loop cache keeps them all, so its warm pass replays
+    device_loop._LOOP_CACHE.maxsize = 4 * N_SERVE_FITS
+    seq_models = []
+    try:
+        t0 = time.perf_counter()
+        alone = standalone(problems, seq_models)
+        torch.cuda.synchronize()
+        seq_cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = standalone(problems, seq_models)
+        torch.cuda.synchronize()
+        seq_warm = time.perf_counter() - t0
+    finally:
+        device_loop._LOOP_CACHE.maxsize = 8
+        device_loop.clear_cache()
+    reqs = fresh_requests(problems)
+    res, rec, cold, d_cold, plans = drain_stream(reqs, [dev])
+    member_parity(res, reqs, alone, "scheduled (cold)")
+    reqs = fresh_requests(problems)
+    res, rec, warm, d_warm, plans = drain_stream(reqs, [dev])
+    member_parity(res, reqs, alone, "scheduled (warm)")
+    keys = len({(p.group, p.toa_bucket) for p in plans})
+    n_b = len(plans)
+    print(f"{card}: {N_SERVE_FITS} fits in {n_b} batches over {keys} plan "
+          f"keys (members {[p.n_members for p in plans]}, occupancy "
+          f"{rec['occupancy']}); scheduled cold {cold:.3f} s, warm {warm:.3f} "
+          f"s ({N_SERVE_FITS / warm:.1f} fits/s); one after another through "
+          f"dense_wls_fit cold {seq_cold:.3f} s, warm {seq_warm:.3f} s "
+          f"({N_SERVE_FITS / seq_warm:.1f} fits/s); warm speedup "
+          f"{seq_warm / warm:.2f}x", flush=True)
+    caps_cold = int(d_cold.get("fit.device_loop.captures", 0))
+    caps_warm = int(d_warm.get("fit.device_loop.captures", 0))
+    replays = int(d_warm.get("fit.device_loop.replays", 0))
+    fetches = int(d_warm.get("fit.device_loop.fetches", 0))
+    print(f"  captures cold {caps_cold} ({caps_cold // 2} loops: one per plan "
+          f"key), warm {caps_warm}; warm replays {replays / n_b:.1f} and "
+          f"fetches {fetches / n_b:.1f} per batch; statuses "
+          f"{rec['statuses']}; overlap efficiency "
+          f"{rec['overlap_efficiency']}", flush=True)
+    # a capture is two graphs (full body, probe); the CPU captures none
+    want = 2 * keys if dev.type == "cuda" else 0
+    if not (caps_cold == want and caps_warm == 0
+            and rec["statuses"] == {"ok": N_SERVE_FITS}):
+        fail(f"18a: {caps_cold} captures cold for {keys} plan keys, "
+             f"{caps_warm} warm, statuses {rec['statuses']}")
+    profile_step("one warm drain of the 64-fit stream",
+                 lambda: drain_stream(fresh_requests(problems), [dev]),
+                 warm * 1e3)
+    return problems
+
+
+def serve_mixed(dev, card):
+    """18b: bench.py's mixed frontier (WLS, GLS with ECORR, GLS with red
+    noise, wideband) batched through the union loop."""
+    problems = mixed_problems(N_SERVE_FITS, dev)
+    alone = standalone(problems)
+    reqs = fresh_requests(problems)
+    res, rec, wall, delta, plans = drain_stream(reqs, [dev])
+    member_parity(res, reqs, alone, "mixed frontier")
+    print(f"{card}: {N_SERVE_FITS} mixed fits in {len(plans)} batches "
+          f"({[(p.kind, p.n_members, p.basis_bucket) for p in plans]}) in "
+          f"{wall:.3f} s cold; passthrough {rec['passthrough']}; statuses "
+          f"{rec['statuses']}", flush=True)
+    if rec["passthrough"]["requests"] or any(p.kind != "batched"
+                                             for p in plans):
+        fail(f"18b: mixed requests left the batched path: "
+             f"{rec['passthrough']}")
+    device_loop_clear()
+
+
+def device_loop_clear():
+    from pint_tpu_torch.fitting import device_loop
+
+    device_loop.clear_cache()
+
+
+def session_appends(dev, k, count, seed, par=PAR_SERVE, obs="gbt"):
+    """`count` append tables of `k` TOAs (bench.py's: uniform over 15 days
+    from MJD 58010 + 20 i, 1400 MHz, 1 us) from `par` at `obs`,
+    simulated on the CPU."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    rng = np.random.default_rng(seed)
+    truth = get_model(par)
+    out = []
+    for i in range(count):
+        mjds = np.sort(rng.uniform(58010 + 20 * i, 58025 + 20 * i, size=k))
+        t = make_fake_toas_from_arrays(
+            DD(mjds, np.zeros(k)), truth, freq_mhz=np.full(k, 1400.0),
+            error_us=1.0, obs=obs, add_noise=True,
+            seed=int(rng.integers(2 ** 31)), niter=2, device="cpu")
+        out.append(t.to(dev) if dev.type == "cuda" else t)
+    return out
+
+
+def run_session(s, sid, table, model, appends, label):
+    """Populate session `sid`, then append each table in its own drain.
+    Every append must resolve ok through the incremental route, or
+    through a full refit that the session's own drift gates chose (the
+    reference's rule). Returns the populate wall, the update walls, the
+    replays and fetches per update, the results and the gate trips."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.serve import FitRequest
+
+    t0 = time.perf_counter()
+    s.submit(FitRequest(table, model, session_id=sid, **SERVE_HYPER))
+    r0 = s.drain()[0]
+    populate_s = time.perf_counter() - t0
+    if r0.status != "ok" or r0.session != "populate":
+        fail(f"{label}: populate {r0.status} {r0.error}")
+    walls, replays, fetches, res, trips = [], [], [], [], 0
+    for app in appends:
+        before = telemetry.counters_snapshot()
+        t0 = time.perf_counter()
+        s.submit(FitRequest(app, None, session_id=sid, **SERVE_HYPER))
+        r = s.drain()[0]
+        walls.append(time.perf_counter() - t0)
+        delta = telemetry.counters_delta(before)
+        replays.append(int(delta.get("fit.device_loop.replays", 0)))
+        fetches.append(int(delta.get("fit.device_loop.fetches", 0)))
+        res.append(r)
+        gated = sum(int(delta.get(f"serve.session.refit.{g}", 0))
+                    for g in ("drift_gate", "append_gate"))
+        trips += gated
+        if r.status != "ok" or not (r.session == "incremental"
+                                    or (r.session == "full_refit" and gated)):
+            fail(f"{label}: append {len(res)} took {r.session} ({r.status}, "
+                 f"{r.error}; {delta})")
+    return populate_s, walls, replays, fetches, res, trips
+
+
+def serve_sessions(dev, card, toas6):
+    """18c: a converged 100,000-TOA WLS session (bench.py's incremental
+    problem) and a GLS session on phase 6's table, 8 appends of 8 TOAs
+    each, against warm-started full fused refits; a forced drift-gate
+    trip repopulates bit for bit."""
+    import copy
+    import os
+
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import (DRIFT_CHI2_REL, FitRequest,
+                                      ThroughputScheduler)
+    from pint_tpu_torch.toas import merge_TOAs
+
+    rng = np.random.default_rng(13)
+    truth = get_model(PAR_SERVE)
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    mjds = np.sort(rng.uniform(50000.0, 58000.0, size=N_SESSION))
+    t0 = time.perf_counter()
+    table = make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(N_SESSION)), truth,
+        freq_mhz=np.where(rng.random(N_SESSION) < 0.5, 1400.0, 430.0),
+        error_us=1.0, obs="gbt", add_noise=True,
+        seed=int(rng.integers(2 ** 31)), niter=2, device=dev)
+    torch.cuda.synchronize()
+    print(f"simulated the {N_SESSION}-TOA session table on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    appends = session_appends(dev, K_APPEND, N_APPENDS + 2, 14)
+    results = {}
+    for kind, par, tab in (("WLS", PAR_SERVE, table),
+                           ("GLS", PAR_FULL, toas6)):
+        s = ThroughputScheduler(devices=[dev], max_queue=8)
+        m = get_model(par)
+        m["F0"].add_delta(2e-10)
+        apps = appends if kind == "WLS" else session_appends(
+            dev, K_APPEND, N_APPENDS + 2, 15)
+        # the first append captures the update's loop (not timed, as
+        # bench.py warms its program on append 0)
+        populate_s, walls, replays, fetches, res, trips = run_session(
+            s, "s", tab, m, apps[:N_APPENDS + 1], f"18c {kind}")
+        walls, replays, fetches = walls[1:], replays[1:], fetches[1:]
+        incr = [w for w, r in zip(walls, res[1:])
+                if r.session == "incremental"]
+        if not incr:
+            fail(f"18c: no {kind} append took the incremental route")
+        entry = s.sessions.entries[s.sessions._by_sid["s"]]
+        if entry.family != kind.lower():
+            fail(f"18c: the {kind} session holds a {entry.family} state")
+        # the warm-started fused refit over the same accumulated table
+        dense = (device_loop.dense_wls_fit if kind == "WLS"
+                 else device_loop.dense_gls_fit)
+        merged = merge_TOAs([tab] + apps[:N_APPENDS + 1])
+        warm_walls = []
+        for _ in range(3):
+            mw = copy.deepcopy(entry.model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _d, _i, chi2_full, conv, _c = dense(merged, mw, **SERVE_HYPER)
+            warm_walls.append(time.perf_counter() - t0)
+        drift = abs(res[-1].chi2 - chi2_full) / chi2_full
+        p50, p95 = np.percentile(incr, 50), np.percentile(incr, 95)
+        print(f"{card}: {kind} session over {len(tab)} TOAs: populate "
+              f"{populate_s:.3f} s; {N_APPENDS} timed appends of {K_APPEND} "
+              f"TOAs (after one that captures): routes "
+              f"{[r.session for r in res[1:]]} ({trips} drift-gate trips); "
+              f"incremental update p50 {p50 * 1e3:.2f} ms, p95 "
+              f"{p95 * 1e3:.2f} ms (scheduler submit + drain); warm-started "
+              f"fused refit over the {len(merged)}-TOA accumulated table "
+              f"{np.median(warm_walls) * 1e3:.2f} ms (median of 3), "
+              f"{np.median(warm_walls) / p50:.1f}x the update; chi2 drift "
+              f"against it {drift:.3e} (gate {DRIFT_CHI2_REL:g}); replays per "
+              f"update {replays}, fetches {fetches}", flush=True)
+        if not (conv and drift < DRIFT_CHI2_REL):
+            fail(f"18c: the {kind} session drifted {drift} from its refit")
+        results[kind] = (s, entry, apps)
+    # a forced drift-gate trip: the refit's committed state is bit for
+    # bit a cold populate from the same warm values over the same table
+    s, entry, apps = results["WLS"]
+    warm = copy.deepcopy(entry.model)
+    os.environ["PINT_TORCH_SESSION_MAX_APPENDS"] = "0"
+    try:
+        s.submit(FitRequest(apps[N_APPENDS + 1], None, session_id="s",
+                            **SERVE_HYPER))
+        r = s.drain()[0]
+    finally:
+        os.environ.pop("PINT_TORCH_SESSION_MAX_APPENDS", None)
+    s2 = ThroughputScheduler(devices=[dev], max_queue=8)
+    s2.submit(FitRequest(entry.toas, warm, session_id="cold", **SERVE_HYPER))
+    r2 = s2.drain()[0]
+    e2 = s2.sessions.entries[s2.sessions._by_sid["cold"]]
+    same = (r.session == "full_refit" and r.chi2 == r2.chi2
+            and all(torch.equal(entry.state[f], e2.state[f])
+                    for f in ("L", "norm", "mu", "chi2"))
+            and all(entry.model[k].value == e2.model[k].value
+                    for k in entry.model.free_params))
+    print(f"  forced drift-gate trip: route {r.session}, chi2 {r.chi2!r}; a "
+          f"cold populate from the same values {r2.chi2!r}; bit for bit "
+          f"{same}", flush=True)
+    if not same:
+        fail("18c: the gate-tripped refit is not the cold populate")
+    return results["WLS"][0]
+
+
+def serve_reads(dev, card, s):
+    """18d: reads from the fitted 100,000-TOA session: the window warmed,
+    batched predictions with and without a fit drain in flight, parity
+    against the host Polycos and dense_predict, the kill switch."""
+    import os
+
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.parallel.batch import BatchedPulsarFitter
+    from pint_tpu_torch.polycos import Polycos
+    from pint_tpu_torch.predict import (FREQ_PARITY_REL, PHASE_PARITY_CYCLES,
+                                        dense_predict, engine)
+    from pint_tpu_torch.serve import PredictRequest
+
+    rng = np.random.default_rng(17)
+
+    def q_batch():
+        return np.sort(rng.uniform(54000.0005, 54000.9995, N_READ_Q))
+
+    first = s.predict(PredictRequest(q_batch(), session_id="s"))
+    hit = s.predict(PredictRequest(q_batch(), session_id="s"))
+    if not (first.source == "dense" and hit.cache_hit
+            and hit.source == "cheb"):
+        fail(f"18d: the read ladder served {first.source} then {hit.source}")
+    qp = q_batch()
+    rp = s.predict(PredictRequest(qp, session_id="s"))
+    model = s.sessions.lookup_for_read("s")[1].model
+    dpi, dpf, _ = dense_predict(model, qp, device=dev)
+    w = engine.window_days()
+    pcs = Polycos.generate_polycos(
+        model, np.floor(qp[0] / w) * w, np.floor(qp[0] / w) * w + w,
+        obs="@", segment_length_min=engine.segment_minutes(),
+        ncoeff=engine.read_ncoeff(), device=dev)
+    hpi, hpf = pcs.eval_abs_phase(qp)
+    gap_dense = float(np.max(np.abs((rp.phase_int - dpi)
+                                    + (rp.phase_frac - dpf))))
+    gap_host = float(np.max(np.abs((rp.phase_int - hpi)
+                                   + (rp.phase_frac - hpf))))
+    gap_freq = float(np.max(np.abs(rp.freq_hz / pcs.eval_spin_freq(qp) - 1)))
+    before = telemetry.counters_snapshot()
+    lats, t0 = [], time.perf_counter()
+    while len(lats) < 400 and time.perf_counter() - t0 < 2.0:
+        r = s.predict(PredictRequest(q_batch(), session_id="s"))
+        if not (r.status == "ok" and r.cache_hit):
+            fail(f"18d: a warm read {r.status} from {r.source}")
+        lats.append(r.latency_s)
+    wall = time.perf_counter() - t0
+    fit_launches = int(telemetry.counters_delta(before).get(
+        "fit.device_loop.launches", 0))
+    # reads while a fit drain is in flight on the same card
+    from pint_tpu_torch.models import get_model
+
+    table = s.sessions.lookup_for_read("s")[1].accumulated()
+    lats_c = []
+    for rep in range(2):
+        m = get_model(PAR_SERVE)
+        m["F0"].add_delta(2e-10 * (1 + rep))
+        bf = BatchedPulsarFitter([(table, m)], device=dev)
+        h = bf.dispatch_fit(**SERVE_HYPER)
+        while not h.ready() and len(lats_c) < 2000:
+            r = s.predict(PredictRequest(q_batch(), session_id="s"))
+            lats_c.append(r.latency_s)
+        h.finish()
+    os.environ["PINT_TORCH_READ_PATH"] = "0"
+    try:
+        kill = s.predict(PredictRequest(qp, session_id="s"))
+    finally:
+        os.environ.pop("PINT_TORCH_READ_PATH", None)
+    gap_kill = float(np.max(np.abs((kill.phase_int - rp.phase_int)
+                                   + (kill.phase_frac - rp.phase_frac))))
+
+    def pct(v, p):
+        return float(np.percentile(v, p)) * 1e3 if v else float("nan")
+
+    print(f"{card}: {len(lats)} reads of {N_READ_Q} queries in {wall:.3f} s: "
+          f"{len(lats) * N_READ_Q / wall:.1f} predictions/s; read p50 "
+          f"{pct(lats, 50):.3f} ms, p99 {pct(lats, 99):.3f} ms; with a fit "
+          f"drain in flight ({len(lats_c)} reads) p50 {pct(lats_c, 50):.3f} "
+          f"ms, p99 {pct(lats_c, 99):.3f} ms; fit loops launched by the "
+          f"reads {fit_launches}", flush=True)
+    print(f"  phase against dense_predict {gap_dense:.3e} cycles, against "
+          f"the host Polycos {gap_host:.3e} (bar {PHASE_PARITY_CYCLES:g}); "
+          f"frequency {gap_freq:.3e} (bar {FREQ_PARITY_REL:g}); the kill "
+          f"switch served {kill.source}, {gap_kill:.3e} cycles from the "
+          f"engine", flush=True)
+    if not (gap_dense < PHASE_PARITY_CYCLES and gap_host < PHASE_PARITY_CYCLES
+            and gap_freq < FREQ_PARITY_REL and fit_launches == 0
+            and kill.source == "host_polycos"
+            and gap_kill < PHASE_PARITY_CYCLES):
+        fail("18d: the read path is off its parity bars")
+
+
+def serve_faults(dev, card, problems):
+    """18e: a stream with a NaN member, a singular member and one
+    transient device error: quarantined, ok (as the reference resolves
+    it: the solve's eps floor absorbs the duplicate column) and retried;
+    the drain returns."""
+    import dataclasses
+
+    from pint_tpu_torch.serve import ThroughputScheduler, faults
+
+    reqs = fresh_requests([p for p in problems[:16:4]] * 2)
+    t = reqs[1].toas
+    err = t.error_us.clone()
+    err[3] = float("nan")
+    reqs[1].toas = dataclasses.replace(t, error_us=err)
+    plan = faults.FaultPlan(seed=0, device_err=1.0)
+    reqs[2].model = plan._singular_model(reqs[2].model)
+    faults.configure(plan)
+    try:
+        s = ThroughputScheduler(devices=[dev], max_queue=16,
+                                retry_backoff_s=0.0)
+        for r in reqs:
+            s.submit(r)
+        res = s.drain()
+    finally:
+        faults.configure(None)
+    statuses = [(r.status, r.attempts) for r in res]
+    print(f"{card}: injected NaN (member 1), singular (member 2) and one "
+          f"transient device error per batch: statuses and attempts "
+          f"{statuses}; failed batches {s.last_drain['failed_batches']}",
+          flush=True)
+    if not (res[1].status == "quarantined" and res[1].trace is not None
+            and res[2].status == "ok"
+            and all(r.status == "ok" and r.attempts == 2
+                    for i, r in enumerate(res) if i != 1)):
+        fail(f"18e: {statuses}")
+
+
+def serve_card_vs_cpu(dev, card):
+    """18f: 8 requests of 18a's stream and a 2,000-TOA session with two
+    appends, on the card and on the CPU: the same plans, statuses and
+    routes, chi2 within 1e-9 relative. Barycentric: at GBT the card's and
+    the CPU's sin and cos part a converged chi2 by up to ~1e-8."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import ThroughputScheduler
+
+    cpu = torch.device("cpu")
+    out = []
+    problems = throughput_problems(N_SERVE_CARD_CPU, cpu, base=PAR_SERVE_BARY,
+                                   obs="@")
+    small = simulate(PAR_BARY, N_SESSION_SMALL, seed=21, device="cpu")
+    apps = session_appends(cpu, K_APPEND, 2, 22, par=PAR_SERVE_BARY, obs="@")
+    for d in (dev, cpu):
+        probs = [(p, t.to(d)) for p, t in problems]
+        res, _rec, _w, _delta, plans = drain_stream(fresh_requests(probs),
+                                                    [d])
+        s = ThroughputScheduler(devices=[d], max_queue=8)
+        m = get_model(PAR_SERVE_BARY)
+        m["F0"].add_delta(2e-10)
+        tab = small.to(d) if d.type == "cuda" else small
+        _p, _w, _r, _f, sres, _t = run_session(
+            s, "x", tab, m, [a.to(d) for a in apps], "18f")
+        out.append((res, [(p.kind, p.group, p.toa_bucket, p.n_members)
+                          for p in plans], sres))
+    (gres, gplans, gsres), (cres, cplans, csres) = out
+    worst = max(abs(a.chi2 - b.chi2) / abs(b.chi2)
+                for a, b in zip(gres + gsres, cres + csres))
+    same = ([r.status for r in gres] == [r.status for r in cres]
+            and [(r.status, r.session) for r in gsres]
+            == [(r.status, r.session) for r in csres] and gplans == cplans)
+    print(f"{card}: {N_SERVE_CARD_CPU} scheduled fits of 18a's structures "
+          f"and a {N_SESSION_SMALL}-TOA session with 2 appends, barycentric, "
+          f"card against CPU: plans, statuses and routes the same {same}; "
+          f"worst chi2 gap {worst:.3e} relative (bar {CARD_CPU_CHI2_RTOL:g})",
+          flush=True)
+    if not (same and worst <= CARD_CPU_CHI2_RTOL):
+        fail("18f: the serving tier on the card disagrees with the CPU")
+
+
+def serving_tier(dev, toas6):
+    """Phase 18: the serving tier on the card (18a-18g). Returns its
+    ds32_gram launches, counted from 0 (the reference's serving tier
+    reaches no Pallas kernel: its batched and incremental Grams are
+    float64)."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.ops import gram
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    device_loop_clear()
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    # the per-table notices (no clock files, the analytic ephemeris) of
+    # the ~300 tables built here are printed once, by the earlier phases
+    quiet = [logging.getLogger(f"pint_tpu_torch.{m}")
+             for m in ("observatory", "ephemeris")]
+    levels = [lg.level for lg in quiet]
+    for lg in quiet:
+        lg.setLevel(logging.ERROR)
+    gram.ds32_gram.launches = gram.ds32_gram_batched.launches = 0
+    try:
+        phase("18a throughput: bench.py's 64-fit stream")
+        problems = serve_throughput(dev, card)
+        phase("18b the mixed frontier: bench.py's _mixed_problems")
+        serve_mixed(dev, card)
+        phase(f"18c sessions: {N_SESSION}-TOA WLS and GLS sessions, "
+              f"{N_APPENDS} appends of {K_APPEND} TOAs")
+        s = serve_sessions(dev, card, toas6)
+        phase(f"18d reads: batched predictions of {N_READ_Q} queries")
+        serve_reads(dev, card, s)
+        phase("18e failure domains on the card")
+        serve_faults(dev, card, problems)
+        phase("18f card against CPU")
+        serve_card_vs_cpu(dev, card)
+    finally:
+        telemetry.reset()
+        for lg, level in zip(quiet, levels):
+            lg.setLevel(level)
+    launches = gram.ds32_gram.launches + gram.ds32_gram_batched.launches
+    phase("18g ds32_gram launches in the serving tier")
+    print(f"{card}: ds32_gram launches in 18a-18f: {gram.ds32_gram.launches}, "
+          f"ds32_gram_batched {gram.ds32_gram_batched.launches} (the serving "
+          f"tier's Grams are float64, as the reference's)", flush=True)
+    if launches:
+        fail(f"18g: the serving tier launched ds32_gram {launches} times")
+    device_loop_clear()
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "pint_tpu_torch" / "ops" / "gram.py").is_file():
         fail("pint_tpu_torch/ is not beside this script: run it from a checkout")
@@ -3981,7 +4667,13 @@ def main() -> None:
                      f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)"] = \
         pta_launches["ds32_gram"]
 
-    phase("18 result")
+    phase(f"18 the serving tier: {N_SERVE_FITS} scheduled fits, the mixed "
+          f"frontier, {N_SESSION}-TOA sessions, reads, failure domains, card "
+          f"against CPU")
+    launches_by_path["serving tier 18a-18f (counted from 0)"] = \
+        serving_tier(dev, toas)
+
+    phase("19 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)

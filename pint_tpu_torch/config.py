@@ -156,6 +156,51 @@ declare("PINT_TORCH_CATALOG_SLICE_S", 5.0, "float",
         "advance); a slice always runs at least one iteration.")
 declare("PINT_TORCH_SLO_LONGJOB_S", 3600.0, "float",
         "Latency objective [s] of catalog jobs, start to terminal state.")
+declare("PINT_TORCH_SLO_READ_S", 0.05, "float",
+        "Latency objective [s] of read-class (predict) requests.")
+declare("PINT_TORCH_SLO_FIT_S", 30.0, "float",
+        "Latency objective [s] of sessionless fit requests (submit to "
+        "result).")
+declare("PINT_TORCH_SLO_SESSION_S", 30.0, "float",
+        "Latency objective [s] of sessionful fit requests.")
+declare("PINT_TORCH_BATCH_NOISE", True, "bool",
+        "Kill switch for batching correlated-noise and wideband fits in "
+        "the serving tier; 0 serves each of them as a per-request "
+        "passthrough fit.")
+declare("PINT_TORCH_SESSION_BYTES", 67108864, "int",
+        "Session-cache device-byte budget; admission beyond it evicts "
+        "LRU unpinned states, then raises SessionCacheFull.")
+declare("PINT_TORCH_SESSION_MAX_APPENDS", 16, "int",
+        "Append-count drift gate: a session full-refits after this many "
+        "rank-k updates.")
+declare("PINT_TORCH_SESSION_DRIFT_SIGMA", 1.0, "float",
+        "Cumulative parameter-motion drift gate [posterior sigmas] before "
+        "a session's incremental state forces a full refit.")
+declare("PINT_TORCH_SESSION_BATCH", True, "bool",
+        "Kill switch for batching many sessions' appends into one vmapped "
+        "rank-k loop; 0 gives every append its own update.")
+declare("PINT_TORCH_SESSION_BATCH_MAX", 64, "int",
+        "Largest member count of one batched session update.")
+declare("PINT_TORCH_SESSION_GLS", True, "bool",
+        "Gate for the GLS (Schur rank-k) incremental session path; 0 "
+        "makes correlated-noise sessions full-refit every append.")
+declare("PINT_TORCH_FAULTS", None, "str",
+        "Seed-driven fault-injection plan for the serving tier, e.g. "
+        "'nan_toas=0.2,seed=7'; unset, the injector is inert.")
+declare("PINT_TORCH_READ_PATH", True, "bool",
+        "Kill switch for the device Chebyshev read path; 0 serves "
+        "predictions through the host Polycos.")
+declare("PINT_TORCH_READ_SEGMENT_MIN", 60.0, "float",
+        "Chebyshev segment span [minutes] of the read path's windows.")
+declare("PINT_TORCH_READ_WINDOW_SEGMENTS", 24, "int",
+        "Segments per read-path cache window.")
+declare("PINT_TORCH_READ_NCOEFF", 12, "int",
+        "Polynomial coefficients per read-path segment.")
+declare("PINT_TORCH_READ_CACHE_BYTES", 33554432, "int",
+        "Read-path segment-cache byte budget (LRU beyond it).")
+declare("PINT_TORCH_READ_MAX_WINDOWS", 16, "int",
+        "Fresh cache windows one predict request may generate; rows "
+        "beyond them are served dense (counted).")
 
 
 @dataclasses.dataclass

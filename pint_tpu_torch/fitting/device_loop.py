@@ -427,7 +427,8 @@ class InFlightFit:
     fetches (flags and the result) and evaluations by kind.
     """
 
-    __slots__ = ("_cap", "_kind", "_done", "_result", "stats")
+    __slots__ = ("_cap", "_kind", "_done", "_result", "stats", "keep",
+                 "kept")
 
     def __init__(self, cap: _Captured, kind: str, stats: dict):
         self._cap = cap
@@ -435,6 +436,11 @@ class InFlightFit:
         self._done = False
         self._result = None
         self.stats = stats
+        # info leaves to keep on the device at the fetch (``kept``): the
+        # incremental updates' replacement state, which must survive a
+        # later dispatch reusing the capture's statics
+        self.keep = ()
+        self.kept = None
 
     def _launch(self, body: str) -> None:
         self._cap.replay(body)
@@ -468,6 +474,9 @@ class InFlightFit:
                 while not self._done:
                     self._advance()
                 cap, self._cap = self._cap, None
+                if self.keep:
+                    info = cap.carry["info"]
+                    self.kept = {k: info[k].clone() for k in self.keep}
                 # the fit's result, copied out of the statics that the
                 # next dispatch reuses
                 deltas, info, chi2, converged, counters, trace = _tensors(
@@ -922,6 +931,15 @@ def run_damped_batched(run, deltas0, operands, *, key, probe=None,
 # ----------------------------------------------------------------------
 # dense single-pulsar fits
 # ----------------------------------------------------------------------
+
+def fingerprint_id(model) -> str:
+    """Stable 8-hex id of a model's structure (the same in every process:
+    a digest, not ``hash``), for program fingerprints in the telemetry
+    counters (reference: ``device_loop.fingerprint_id``)."""
+    from pint_tpu_torch.serve.fingerprint import short_id
+
+    return short_id(model._fn_fingerprint())
+
 
 def dense_wls_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
                   max_step_halvings=8, stats: dict | None = None):

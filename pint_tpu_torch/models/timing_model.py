@@ -28,6 +28,16 @@ from pint_tpu_torch.utils.cache import LRUCache
 _FN_CACHE_SIZE = 128
 
 
+def _nan_safe(v):
+    """NaN floats of a nested fingerprint tuple replaced by a marker, so
+    that fingerprints of unset parameters compare equal."""
+    if isinstance(v, tuple):
+        return tuple(_nan_safe(x) for x in v)
+    if isinstance(v, float) and v != v:
+        return "__nan__"
+    return v
+
+
 def _order_key(comp: Component) -> int:
     try:
         return DEFAULT_ORDER.index(comp.category)
@@ -111,6 +121,31 @@ class TimingModel:
         self._refresh_noise()
         return tuple((type(c).__name__, tuple(p.name for p in c.params),
                       c.trace_facts()) for c in self.components)
+
+    def _fn_fingerprint(self, *, value_traced: frozenset = frozenset()
+                        ) -> tuple:
+        """Hashable identity of everything the composed functions read
+        from the model besides the values that flow through ``base``
+        (reference: ``TimingModel._fn_fingerprint``): the components and
+        their trace facts, every parameter's name and selector, and the
+        value of each parameter that is frozen or not fittable (free
+        fittable values ride ``base``), and the header keys that select a
+        code path. ``value_traced`` names parameters whose values ride
+        another operand (the serving tier's noise values): their values
+        are replaced by a marker. Equal fingerprints mean one step (and
+        one capture) serves both models."""
+        self._refresh_noise()
+        header = self.header or {}
+        return _nan_safe(
+            (tuple((type(c).__name__, c.trace_facts())
+                   for c in self.components),
+             tuple((p.name,
+                    "__traced__" if p.name in value_traced
+                    else (p.value if (p.frozen or not p.fittable) else None),
+                    tuple(p.selector) if p.selector else None)
+                   for p in self.params.values()),
+             tuple((k, str(header[k])) for k in
+                   ("EPHEM", "CLK", "CLOCK", "UNITS") if k in header)))
 
     def _refresh_noise(self) -> None:
         for c in self.components:

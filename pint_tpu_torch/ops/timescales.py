@@ -56,20 +56,42 @@ def utc_to_tt(mjd_utc: DD) -> DD:
     return tai_to_tt(utc_to_tai(mjd_utc))
 
 
+# torch's intra-op grain (at::internal::GRAIN_SIZE): an elementwise op
+# or reduction over fewer elements runs on the calling thread
+_GRAIN = 32768
+
+
+def _fb_block(t: torch.Tensor) -> torch.Tensor:
+    """The series at a 1-D block of times [millennia]."""
+    total = torch.zeros_like(t)
+    for power, table in enumerate(_FB_TABLES):
+        amp, freq, phase = torch.as_tensor(table, device=t.device)
+        terms = amp * torch.sin(freq * t[:, None] + phase)
+        total = total + (t ** power) * torch.sum(terms, dim=-1)
+    return total * 1e-6
+
+
 def _fb_eval(t_millennia: torch.Tensor) -> torch.Tensor:
     """Fairhead-Bretagnon harmonic series: TDB-TT in seconds (float64).
 
     Sum over groups g of T^g * sum_i A_i sin(w_i T + phi_i), amplitudes
     in microseconds. The result is ~1.7e-3 s and needs ~1e-9 s, so no DD
     inside the series.
+
+    On the CPU the times are taken in blocks whose (rows x terms)
+    matrices hold fewer elements than torch's intra-op grain, so every
+    ``sin``, product and row sum runs on the calling thread, never on a
+    worker of the intra-op pool (a worker's share was once seen ~6.5e-9
+    off in a long test process). Each row's arithmetic is the one
+    call's. A CUDA tensor takes the one call.
     """
-    T = t_millennia[..., None]  # broadcast against the term axis
-    total = torch.zeros_like(t_millennia)
-    for power, table in enumerate(_FB_TABLES):
-        amp, freq, phase = torch.as_tensor(table, device=t_millennia.device)
-        terms = amp * torch.sin(freq * T + phase)
-        total = total + (t_millennia ** power) * torch.sum(terms, dim=-1)
-    return total * 1e-6
+    flat = t_millennia.reshape(-1)
+    if flat.device.type != "cpu":
+        return _fb_block(flat).reshape(t_millennia.shape)
+    step = max(1, (_GRAIN - 1) // max(len(t[0]) for t in _FB_TABLES))
+    blocks = [_fb_block(flat[i:i + step])
+              for i in range(0, flat.shape[0], step)]
+    return (torch.cat(blocks) if blocks else flat).reshape(t_millennia.shape)
 
 
 def tdb_minus_tt(mjd_tt: DD) -> torch.Tensor:

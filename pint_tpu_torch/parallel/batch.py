@@ -449,15 +449,27 @@ class BatchedPulsarFitter:
     member); a copy converges with the member it copies, and results are
     sliced to the real members. ``basis_bucket`` fixes the ECORR epoch
     bucket (by default :func:`~pint_tpu_torch.bucketing.basis_bucket_size`
-    of the largest member). The batch runs on ``device`` (the card unless
-    the caller asks for the CPU); the reference's ``mesh=``, which splits
-    the members over a ``"psr"`` axis of devices, is not ported.
+    of the largest member).
+
+    The batch runs on ``device`` (the card unless the caller asks for the
+    CPU), or over ``mesh`` (a :class:`~pint_tpu_torch.parallel.mesh.Mesh`;
+    ``psr_axis`` without a mesh makes one of that many rows over the
+    cards, or over ``device`` repeated): the members split into one
+    stacked group per ``"psr"`` row, each on its row's first device, in
+    member order, and each vmapped evaluation gathers the groups' results
+    on the mesh's first device, where the loop's state lives. The member
+    count (after padding) must divide into the rows. A group's TOA axis
+    is not sharded over the row's ``"toa"`` devices. On one device the
+    fused loop runs as for one group; a mesh over several CUDA cards
+    cannot be one graph capture and runs the host batched loop.
     """
 
-    def __init__(self, problems, pad_members: int | None = None,
+    def __init__(self, problems, mesh=None, psr_axis: int | None = None,
+                 pad_members: int | None = None,
                  basis_bucket: int | None = None, device=None):
         from pint_tpu_torch.fitting.gls_step import (dm_sigma_traceable,
                                                      sigma_traceable)
+        from pint_tpu_torch.parallel.mesh import make_mesh
 
         if not problems:
             raise ValueError("no problems given")
@@ -467,7 +479,23 @@ class BatchedPulsarFitter:
             problems = list(problems) + [
                 (last_t, copy.deepcopy(last_m))
                 for _ in range(pad_members - len(problems))]
-        dev = resolve_device(device)
+        if mesh is None and psr_axis is not None and psr_axis > 1:
+            mesh = make_mesh(psr_axis=psr_axis, devices=None if device is None
+                             else [device] * psr_axis)
+        self.mesh = mesh
+        B = len(problems)
+        if mesh is None:
+            rows = [resolve_device(device)]
+        else:
+            rows = [mesh.devices[r, 0] for r in range(mesh.shape["psr"])]
+            if B % len(rows):
+                raise ValueError(f"{B} members do not split over the mesh's "
+                                 f"{len(rows)} psr rows")
+        step = B // len(rows)
+        # (first member, end, device) of each stacked group
+        self.groups = [(r * step, (r + 1) * step, d)
+                       for r, d in enumerate(rows)]
+        dev = rows[0]
         self.device = dev
         self.toas_list = [t if t.device == dev else t.to(dev)
                           for t, _ in problems]
@@ -579,83 +607,108 @@ class BatchedPulsarFitter:
         return out
 
     def _stack(self, owners, basis_bucket) -> None:
-        """The stacked tables, TZR tables and family statics, built on the
-        device before any capture."""
-        from pint_tpu_torch.fitting.gls_step import (
-            build_noise_statics, scaled_dm_sigma_np, scaled_sigma_np,
-            stack_noise_statics)
+        """Each group's stacked tables, TZR tables and family statics,
+        built on its device before any capture (the first group's are
+        also ``self.toas``, ``self.tzr``, ``self.sigma``, ``self.noise``
+        and ``self.dm``)."""
+        from pint_tpu_torch.fitting.gls_step import build_noise_statics
 
-        union, dev = self.union, self.device
         n_max = bucketing.bucket_size(max(len(t) for t in self.toas_list))
-        padded = []
-
-        def prepare(i, t):
-            # a copy with no device data: the caller's table keeps its
-            # own, and the batch's keys come in this batch's order
-            t = _materialize_for_pulsar(dataclasses.replace(t), i, union,
-                                        owners)
-            padded.append(t)
-            return t
-
-        self.toas = stack_toas(self.toas_list, n_max, prepare=prepare)
-        self.noise = self.dm = self.sigma = None
-        self.pl_specs = ()
-        self.basis_bucket = 0
-        if self.family == "wls":
-            self.sigma = torch.stack([union.scaled_toa_uncertainty(t)
-                                      for t in padded])
-        else:
-            statics, specs = [], []
-            for i, (t, m) in enumerate(zip(self.toas_list, self.models)):
-                s, sp = build_noise_statics(m, t)
-                if self._trace_sigma:
-                    sigma = torch.as_tensor(scaled_sigma_np(m, t, n_max),
-                                            device=dev)
-                else:
-                    sigma = union.scaled_toa_uncertainty(padded[i])
-                s = s._replace(sigma=sigma)
-                if self._trace_dm_sigma:
-                    s = s._replace(dm_sigma=torch.as_tensor(
-                        scaled_dm_sigma_np(m, t, n_max), device=dev))
-                elif self.family == "wb" and _has(
-                        union, lambda c: hasattr(c, "scale_dm_sigma")):
-                    s = s._replace(
-                        dm_sigma=union.scaled_dm_uncertainty(padded[i]))
-                statics.append(s)
+        statics, specs = [], []
+        if self.family != "wls":
+            for t, m in zip(self.toas_list, self.models):
+                st, sp = build_noise_statics(m, t)
+                statics.append(st)
                 specs.append(sp)
             if any(sp != specs[0] for sp in specs[1:]):
                 raise ValueError("noise-basis specs differ across the batch "
                                  "(components, harmonic counts, chromatic "
                                  "index); split the batch")
-            self.pl_specs = specs[0]
-            ne_max = max(int(s.ecorr_phi.shape[0]) for s in statics)
+            ne_max = max(int(st.ecorr_phi.shape[0]) for st in statics)
             ne_target = (basis_bucket if basis_bucket is not None
                          else bucketing.basis_bucket_size(ne_max))
             if ne_target < ne_max:
                 raise ValueError(f"basis_bucket {ne_target} < largest member "
                                  f"epoch count {ne_max}")
-            self.basis_bucket = ne_target
-            self.noise = stack_noise_statics(statics, n_max, ne_target)
+        self.pl_specs = specs[0] if specs else ()
+        self.basis_bucket = ne_target if specs else 0
+        self._group_data = [
+            self._stack_group(lo, hi, dev, owners, n_max, statics[lo:hi],
+                              self.basis_bucket if specs else None)
+            for lo, hi, dev in self.groups]
+        g0 = self._group_data[0]
+        self.toas, self.tzr = g0["toas"], g0["tzr"]
+        self.sigma, self.noise, self.dm = g0["sigma"], g0["noise"], g0["dm"]
+        self._build_steps()
+
+    def _stack_group(self, lo, hi, dev, owners, n_max, statics,
+                     ne_target) -> dict:
+        """Members ``lo:hi`` (their noise statics `statics`) stacked on
+        `dev`."""
+        from pint_tpu_torch.fitting.gls_step import (
+            scaled_dm_sigma_np, scaled_sigma_np, stack_noise_statics)
+
+        union = self.union
+        tables = [t if t.device == dev else t.to(dev)
+                  for t in self.toas_list[lo:hi]]
+        models = self.models[lo:hi]
+        padded = []
+
+        def prepare(i, t):
+            # a copy with no device data: the caller's table keeps its
+            # own, and the batch's keys come in this batch's order
+            t = _materialize_for_pulsar(dataclasses.replace(t), lo + i,
+                                        union, owners)
+            padded.append(t)
+            return t
+
+        out = {"toas": stack_toas(tables, n_max, prepare=prepare),
+               "noise": None, "dm": None, "sigma": None}
+        if self.family == "wls":
+            out["sigma"] = torch.stack([union.scaled_toa_uncertainty(t)
+                                        for t in padded])
+        else:
+            on_dev = []
+            for i, (t, m, st) in enumerate(zip(tables, models, statics)):
+                st = pytree.tree_map(
+                    lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                    st)
+                if self._trace_sigma:
+                    sigma = torch.as_tensor(scaled_sigma_np(m, t, n_max),
+                                            device=dev)
+                else:
+                    sigma = union.scaled_toa_uncertainty(padded[i])
+                st = st._replace(sigma=sigma)
+                if self._trace_dm_sigma:
+                    st = st._replace(dm_sigma=torch.as_tensor(
+                        scaled_dm_sigma_np(m, t, n_max), device=dev))
+                elif self.family == "wb" and _has(
+                        union, lambda c: hasattr(c, "scale_dm_sigma")):
+                    st = st._replace(
+                        dm_sigma=union.scaled_dm_uncertainty(padded[i]))
+                on_dev.append(st)
+            out["noise"] = stack_noise_statics(on_dev, n_max, ne_target)
             if self.family == "wb":
                 from pint_tpu_torch.fitting.wideband import build_wb_data
 
-                blocks = [build_wb_data(t, n_max) for t in self.toas_list]
-                self.dm = {k: torch.stack([b[k] for b in blocks])
-                           for k in ("vals", "errs")}
+                blocks = [build_wb_data(t, n_max) for t in tables]
+                out["dm"] = {k: torch.stack([b[k] for b in blocks])
+                             for k in ("vals", "errs")}
         # each member anchored at its own TZR table when all have one
         # (the anchorless form re-centers wrapped residuals instead)
         tzrs = [m.get_tzr_toas(dev) for m in self.models]
-        self.tzr = None
+        out["tzr"] = None
         if all(t is not None for t in tzrs):
             # copies: TZR tables are shared process-wide
-            self.tzr = stack_toas(
-                [dataclasses.replace(t) for t in tzrs], 1,
-                prepare=lambda i, t: _materialize_for_pulsar(t, i, union,
-                                                             owners))
-        self._build_steps()
+            out["tzr"] = stack_toas(
+                [dataclasses.replace(t) for t in tzrs[lo:hi]], 1,
+                prepare=lambda i, t: _materialize_for_pulsar(
+                    t, lo + i, union, owners))
+        return out
 
     def _build_steps(self) -> None:
-        """The vmapped full step and probe of the family."""
+        """The vmapped full step and probe of the family, one pair per
+        group (each reads its group's table layout)."""
         from pint_tpu_torch.fitting.gls_step import make_gls_probe, make_gls_step
         from pint_tpu_torch.fitting.step import make_wls_probe, make_wls_step
         from pint_tpu_torch.fitting.wideband import make_wb_probe, make_wb_step
@@ -674,56 +727,99 @@ class BatchedPulsarFitter:
             step = make_step(self.union, masked=True,
                              params=self.free_params, **kw)
             probe = make_probe(self.union, **kw)
-        layout, tzr_layout = self.toas, self.tzr
         wls = self.family == "wls"
 
-        def member_step(base, d, leaves, extra, mask, tzr_leaves):
-            # the reference's argument order: (fixed..., mask, tzr) with
-            # the WLS forms' sigma last
-            args = [base, d, layout.member(leaves)]
-            args += [] if wls else list(extra)
-            args.append(mask)
-            if tzr_layout is not None:
-                args.append(tzr_layout.member(tzr_leaves))
-            return step(*args, *(extra if wls else ()))
+        def fns(layout, tzr_layout):
+            def member_step(base, d, leaves, extra, mask, tzr_leaves):
+                # the reference's argument order: (fixed..., mask, tzr)
+                # with the WLS forms' sigma last
+                args = [base, d, layout.member(leaves)]
+                args += [] if wls else list(extra)
+                args.append(mask)
+                if tzr_layout is not None:
+                    args.append(tzr_layout.member(tzr_leaves))
+                return step(*args, *(extra if wls else ()))
 
-        def member_probe(base, d, leaves, extra, tzr_leaves):
-            args = [base, d, layout.member(leaves)]
-            args += [] if wls else list(extra)
-            if tzr_layout is not None:
-                args.append(tzr_layout.member(tzr_leaves))
-            return probe(*args, *(extra if wls else ()))
+            def member_probe(base, d, leaves, extra, tzr_leaves):
+                args = [base, d, layout.member(leaves)]
+                args += [] if wls else list(extra)
+                if tzr_layout is not None:
+                    args.append(tzr_layout.member(tzr_leaves))
+                return probe(*args, *(extra if wls else ()))
 
-        self._run = _vmap(member_step)
-        self._probe = _vmap(member_probe)
+            return _vmap(member_step), _vmap(member_probe)
 
-    def _extra(self) -> tuple:
-        """The family's operands between the table and the mask:
+        self._fns = [fns(g["toas"], g["tzr"]) for g in self._group_data]
+
+    def _extra(self, g: dict) -> tuple:
+        """A group's family operands between the table and the mask:
         ``(sigma,)`` (wls), ``(noise,)`` (gls), ``(noise, dm)`` (wb)."""
         if self.family == "wls":
-            return (self.sigma,)
+            return (g["sigma"],)
         if self.family == "gls":
-            return (self.noise,)
-        return (self.noise, self.dm)
+            return (g["noise"],)
+        return (g["noise"], g["dm"])
 
     def operands(self) -> tuple:
         """What the fused loop copies into its capture's statics at each
-        dispatch: ``(base, table leaves, family extra, mask, TZR
-        leaves)``."""
+        dispatch: ``(base, mask, groups)``, the (B,) linearization point
+        and masks on the first device, and each group's ``(table leaves,
+        family extra, TZR leaves)``."""
         mask = {k: torch.as_tensor(v, device=self.device)
                 for k, v in self.param_mask.items()}
-        return (self.base, self.toas.leaves, self._extra(), mask,
-                None if self.tzr is None else self.tzr.leaves)
+        groups = tuple((g["toas"].leaves, self._extra(g),
+                        None if g["tzr"] is None else g["tzr"].leaves)
+                       for g in self._group_data)
+        return (self.base, mask, groups)
+
+    def _per_group(self, fn_index, deltas, ops):
+        """Evaluate every group on its device and gather the (B, ...)
+        results on the first device, in member order."""
+        base, mask, groups = ops
+        if len(self.groups) == 1:
+            leaves, extra, tzr = groups[0]
+            fn = self._fns[0][fn_index]
+            with _cusolver(self.device):
+                if fn_index == 0:
+                    return fn(base, deltas, leaves, extra, mask, tzr)
+                return fn(base, deltas, leaves, extra, tzr)
+        outs = []
+        for (lo, hi, dev), fns, (leaves, extra, tzr) in zip(
+                self.groups, self._fns, groups):
+            def part(tree):
+                return pytree.tree_map(
+                    lambda t: t[lo:hi].to(dev)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+            with _cusolver(dev):
+                if fn_index == 0:
+                    outs.append(fns[0](part(base), part(deltas), leaves,
+                                       extra, part(mask), tzr))
+                else:
+                    outs.append(fns[1](part(base), part(deltas), leaves,
+                                       extra, tzr))
+        first = self.device
+        return pytree.tree_map(
+            lambda *xs: torch.cat([x.to(first) for x in xs]), *outs)
 
     def run(self, deltas, ops):
         """The vmapped full step at (B,) ``deltas`` over ``ops``."""
-        with _cusolver(self.device):
-            return self._run(ops[0], deltas, ops[1], ops[2], ops[3], ops[4])
+        return self._per_group(0, deltas, ops)
 
     def probe(self, deltas, ops):
         """The vmapped residual-only chi2 at (B,) ``deltas``."""
-        with _cusolver(self.device):
-            return self._probe(ops[0], deltas, ops[1], ops[2], ops[4])
+        return self._per_group(1, deltas, ops)
+
+    def device_bytes(self) -> list[int]:
+        """Bytes of each group's placed tables and statics, by ``"psr"``
+        row (the serving tier's per-device accounting)."""
+        from pint_tpu_torch.parallel.mesh import per_device_bytes
+
+        return [sum(per_device_bytes((g["toas"].leaves, g["sigma"],
+                                      g["noise"], g["dm"],
+                                      None if g["tzr"] is None
+                                      else g["tzr"].leaves)).values())
+                for g in self._group_data]
 
     def zero_deltas(self) -> dict:
         B = len(self.models)
@@ -738,10 +834,18 @@ class BatchedPulsarFitter:
         ``data{j}`` leaf of the tables holds. Batches equal in all of
         these share one capture."""
         layouts = tuple(tuple(map(repr, t.data_keys))
-                        for t in (self.toas, self.tzr) if t is not None)
+                        for g in self._group_data
+                        for t in (g["toas"], g["tzr"]) if t is not None)
         return ("batched", self.family, self.union.structure_key(),
                 tuple(self.free_params), self.tzr is not None,
-                self.pl_specs, str(self.device), layouts)
+                self.pl_specs, str(self.device), layouts,
+                tuple((lo, hi, str(d)) for lo, hi, d in self.groups))
+
+    def _fused(self) -> bool:
+        """The fused loop runs unless it is off or the groups span more
+        than one CUDA card (one capture cannot)."""
+        cards = {str(d) for _lo, _hi, d in self.groups if d.type == "cuda"}
+        return device_loop.enabled() and len(cards) <= 1
 
     # -- fitting ---------------------------------------------------------
     def fit_toas(self, maxiter: int = 20, min_chi2_decrease: float = 1e-3,
@@ -756,7 +860,7 @@ class BatchedPulsarFitter:
         """
         B = len(self.models)
         with telemetry.profile_span("fit.batched", n_pulsars=B):
-            if device_loop.enabled():
+            if self._fused():
                 return self.dispatch_fit(
                     maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
                     max_step_halvings=max_step_halvings).finish()
@@ -871,7 +975,7 @@ class BatchedPulsarFitter:
         returns the per-member chi2 (``fit_toas``'s contract, split at
         the fetch). With the device loop off the fit runs here, on the
         host loop, and the handle is already resolved."""
-        if not device_loop.enabled():
+        if not self._fused():
             return _ResolvedBatchFit(self._host_fit(
                 maxiter, min_chi2_decrease, max_step_halvings))
         with telemetry.span("fit.batched.dispatch",

@@ -377,6 +377,14 @@ class ShardedServeFitter:
                 kind="device_loop_sharded_wls")
         return _InFlightShardedServeFit(self, handle)
 
+    def device_bytes(self) -> list[int]:
+        """Bytes of each TOA shard's placed tables, in shard order (the
+        serving tier's per-device accounting)."""
+        from pint_tpu_torch.parallel.mesh import per_device_bytes
+
+        return [sum(per_device_bytes(shard).values())
+                for shard in self.problem.shards]
+
     def _finish(self, deltas, info, chi2, converged) -> np.ndarray:
         _write_back(self, deltas, info, chi2, converged)
         self.diverged = np.asarray([self.diverged])

@@ -1,11 +1,11 @@
 """SLO ledger: per-class latency objectives and burn counters.
 
 Counterpart of ``pint_tpu.telemetry.slo``. Each request class has a
-latency objective declared as a knob. The port serves one class so far:
-``longjob`` (catalog fit, start to terminal state;
-``PINT_TORCH_SLO_LONGJOB_S``). The reference's ``read``, ``fit`` and
-``session`` classes belong to its serving tier and come with its port.
-Callers call :func:`observe` where they already measure latency (the
+latency objective declared as a knob: ``read`` (a predict request,
+``PINT_TORCH_SLO_READ_S``), ``fit`` (a sessionless fit, submit to
+result, ``PINT_TORCH_SLO_FIT_S``), ``session`` (a sessionful fit,
+``PINT_TORCH_SLO_SESSION_S``) and ``longjob`` (catalog fit, start to
+terminal state, ``PINT_TORCH_SLO_LONGJOB_S``). Callers call :func:`observe` where they already measure latency (the
 catalog job does at its terminal state), so the ledger costs one
 counter pair per request and nothing when telemetry is off.
 
@@ -21,12 +21,18 @@ from pint_tpu_torch import config
 from pint_tpu_torch.telemetry import core, counters
 
 #: request classes with a declared latency objective (one knob each).
-CLASSES = ("longjob",)
+CLASSES = ("read", "fit", "session", "longjob")
 
 
 def target_s(cls: str) -> float:
     """The declared latency objective [s] for a request class."""
     # literal knob names, so the knob-registry scan can verify them
+    if cls == "read":
+        return config.env_float("PINT_TORCH_SLO_READ_S")
+    if cls == "fit":
+        return config.env_float("PINT_TORCH_SLO_FIT_S")
+    if cls == "session":
+        return config.env_float("PINT_TORCH_SLO_SESSION_S")
     if cls == "longjob":
         return config.env_float("PINT_TORCH_SLO_LONGJOB_S")
     raise KeyError(cls)

@@ -29,6 +29,11 @@ class LRUCache(OrderedDict):
         self.maxsize = int(maxsize)
         self.name = name
 
+    def __deepcopy__(self, memo):
+        """A copy starts empty: the entries are memoized closures over
+        the original owner, derived data that the copy rebuilds."""
+        return type(self)(self.maxsize, self.name)
+
     def get_lru(self, key):
         """Value for ``key`` (refreshing its recency) or None."""
         val = self.get(key)

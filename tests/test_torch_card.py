@@ -520,3 +520,138 @@ def test_pta_fit_on_the_card_equals_the_cpus(cuda_device):
         for k in ma.free_params:
             assert abs(mb[k].value_f64 - ma[k].value_f64) \
                 <= 1e-6 * ma[k].uncertainty, k
+
+
+# ----------------------------------------------------------------------
+# the serving tier on the card
+# ----------------------------------------------------------------------
+
+_SERVE_PAR = """
+PSRJ           J1748-2021E
+F0             61.485476554  1
+F1             -1.181D-15  1
+PEPOCH        53750.000000
+DM              223.9  1
+UNITS          TDB
+TZRMJD  53801.38605120074849
+TZRFRQ  1949.609
+TZRSITE @
+"""
+
+
+def _serve_table(n, seed, lo=50000.0, hi=58000.0):
+    """n barycentric TOAs simulated from _SERVE_PAR on the CPU."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.simulation import make_fake_toas_from_arrays
+
+    rng = np.random.default_rng(seed)
+    mjds = np.sort(rng.uniform(lo, hi, n))
+    return make_fake_toas_from_arrays(
+        DD(mjds, np.zeros(n)), get_model(_SERVE_PAR),
+        freq_mhz=np.where(rng.random(n) < 0.5, 1400.0, 430.0), error_us=1.0,
+        obs="@", add_noise=True, seed=seed + 1, niter=2, device="cpu")
+
+
+def _serve_model():
+    from pint_tpu_torch.models import get_model
+
+    m = get_model(_SERVE_PAR)
+    m["F0"].add_delta(2e-10)
+    return m
+
+
+def test_scheduled_batch_on_the_card_matches_standalone(cuda_device):
+    """One scheduled batch of four fits on the card: each member on its
+    standalone fused ``dense_wls_fit`` (bench.py's bar: chi2 1e-6
+    relative, parameters 1e-9 relative or 5% of sigma), one capture
+    replayed by a second drain."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.serve import FitRequest, ThroughputScheduler
+
+    tables = [_serve_table(50 + 3 * i, 60 + i).to(cuda_device)
+              for i in range(4)]
+    device_loop.clear_cache()
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    try:
+        for drain in range(2):
+            s = ThroughputScheduler(devices=[cuda_device], max_queue=8)
+            reqs = [FitRequest(t, _serve_model(), tag=i)
+                    for i, t in enumerate(tables)]
+            for r in reqs:
+                s.submit(r)
+            before = telemetry.counters_snapshot()
+            res = s.drain()
+            delta = telemetry.counters_delta(before)
+            assert [r.status for r in res] == ["ok"] * 4
+            assert delta.get("fit.device_loop.captures", 0) == (
+                2 if drain == 0 else 0)
+            assert delta.get("fit.device_loop.replays", 0) > 0
+    finally:
+        telemetry.reset()
+    for r, req, t in zip(res, reqs, tables):
+        m = _serve_model()
+        d, _i, chi2, conv, _c = device_loop.dense_wls_fit(t, m)
+        assert r.chi2 == pytest.approx(chi2, rel=1e-6)
+        assert r.converged == conv
+        for k in m.free_params:
+            v = m[k].value_f64 + float(d[k])
+            assert abs(req.model[k].value_f64 - v) <= max(
+                1e-9 * abs(v), 0.05 * req.model[k].uncertainty), k
+
+
+def test_append_on_the_card_lands_on_full_refit(cuda_device):
+    """An 8-TOA append to a 2,000-TOA session on the card takes the
+    captured rank-k update and lands within DRIFT_CHI2_REL of a full
+    refit over the accumulated table."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.serve import (DRIFT_CHI2_REL, FitRequest,
+                                      ThroughputScheduler)
+    from pint_tpu_torch.toas import merge_TOAs
+
+    base = _serve_table(2000, 70).to(cuda_device)
+    app = _serve_table(8, 71, lo=58010.0, hi=58025.0).to(cuda_device)
+    s = ThroughputScheduler(devices=[cuda_device], max_queue=4)
+    s.submit(FitRequest(base, _serve_model(), session_id="c"))
+    assert s.drain()[0].session == "populate"
+    entry = s.sessions.entries[s.sessions._by_sid["c"]]
+    import copy
+
+    warm = copy.deepcopy(entry.model)
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    try:
+        s.submit(FitRequest(app, None, session_id="c"))
+        r = s.drain()[0]
+        delta = telemetry.counters_snapshot()
+    finally:
+        telemetry.reset()
+    assert r.status == "ok" and r.session == "incremental"
+    assert delta.get("fit.device_loop.replays", 0) > 0
+    assert entry.state["L"].device.type == "cuda"
+    _d, _i, chi2_full, conv, _c = device_loop.dense_wls_fit(
+        merge_TOAs([base, app]), warm)
+    assert conv
+    assert abs(r.chi2 - chi2_full) / chi2_full < DRIFT_CHI2_REL
+
+
+def test_batched_read_on_the_card_matches_dense_predict(cuda_device):
+    """A warm window on the card serves a batch of reads within
+    PHASE_PARITY_CYCLES of ``dense_predict`` on the card."""
+    from pint_tpu_torch.predict import (PHASE_PARITY_CYCLES, ReadService,
+                                        dense_predict)
+
+    model = _serve_model()
+    q = np.sort(np.random.default_rng(3).uniform(54000.001, 54000.999, 256))
+    svc = ReadService(device=cuda_device)
+    miss = svc.predict(model, q, skey=("card", "r"))
+    hit = svc.predict(model, q, skey=("card", "r"))
+    assert miss.source == "dense" and hit.source == "cheb" and hit.cache_hit
+    entry = next(iter(svc.cache.entries.values()))
+    assert entry.window.dev["coeffs"].device.type == "cuda"
+    dpi, dpf, _ = dense_predict(model, q, device=cuda_device)
+    assert np.max(np.abs((hit.phase_int - dpi)
+                         + (hit.phase_frac - dpf))) < PHASE_PARITY_CYCLES

@@ -376,3 +376,48 @@ def test_scaled_dm_sigma_np_mirrors_pinned_path():
                    ).wideband_members()[0]
     np.testing.assert_allclose(mirror, jmirror(jm.model, jm.toas, n_target),
                                rtol=1e-15)
+
+
+# ----------------------------------------------------------------------
+# the serving tier's long-job lane (tests/test_catalog.py:202)
+# ----------------------------------------------------------------------
+
+def test_scheduler_serves_reads_and_fits_during_catalog(monkeypatch):
+    """A catalog job advances one slice per drain while a small fit and a
+    read are served between slices; the read launches no fit loop; the
+    job ends done, with the joint fit of a job run on its own."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import (FitRequest, PredictRequest,
+                                      ThroughputScheduler)
+    from torch_parity import serve_table
+
+    monkeypatch.setenv("PINT_TORCH_CATALOG_SLICE_S", "0.0")
+    s = ThroughputScheduler(devices=["cpu"] * 8, mesh_devices=1, max_queue=8)
+    req = CatalogFitRequest(spec=SPEC, maxiter=6, min_chi2_decrease=0.0, **GW)
+    h = s.submit(req)
+    s.drain()
+    assert not h.done()
+    par = ("PSRJ FAKE_CO\nF0 61.485476554 1\nF1 -1.181e-15 1\n"
+           "PEPOCH 53750\nDM 223.9\nUNITS TDB\n"
+           "TZRMJD 53801.0\nTZRFRQ 1400.0\nTZRSITE @\n")
+    m = get_model(par)
+    s.submit(FitRequest(serve_table(32, seed=9, par=par)[1], m, maxiter=5,
+                        min_chi2_decrease=1e-5))
+    res = s.drain()
+    assert res[0].status == "ok"
+    assert (s.last_drain or {}).get("catalog", {}).get("jobs") == 1
+    before = telemetry.counters_snapshot()
+    r = s.predict(PredictRequest(np.array([54000.1, 54000.2]), model=m))
+    delta = telemetry.counters_delta(before)
+    assert r.status == "ok"
+    assert int(delta.get("fit.device_loop.launches", 0)) == 0
+    n = 0
+    while not h.done() and n < 40:
+        s.drain()
+        n += 1
+    assert h.done() and h.result()["state"] == "done"
+    assert s.report()["catalog_jobs"] == 0
+    alone = _run(_job(CatalogFitRequest(spec=SPEC, maxiter=6,
+                                        min_chi2_decrease=0.0, **GW), "alone"))
+    job = next(iter(s.catalog_jobs.values()))
+    assert job.chi2 == pytest.approx(alone.chi2, rel=1e-12)

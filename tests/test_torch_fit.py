@@ -310,6 +310,10 @@ def test_port_runs_without_jax_or_the_reference():
         "    device='cpu')\n"
         "f = HybridGLSFitter(t, m, device='cpu')\n"
         "assert np.isfinite(f.fit_toas(maxiter=2))\n"
+        "from pint_tpu_torch.serve import ThroughputScheduler, FitRequest\n"
+        "s = ThroughputScheduler(devices=['cpu'])\n"
+        "s.submit(FitRequest(t, get_model(sys.argv[1]), session_id='s'))\n"
+        "assert s.drain()[0].status in ('ok', 'nonconverged')\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'pint_tpu'))\n"
         "print(bad)\n"
@@ -344,13 +348,19 @@ TELEMETRY_AND_PARALLEL_MODULES = (
     "pint_tpu_torch.catalog", "pint_tpu_torch.catalog.generate",
     "pint_tpu_torch.catalog.hypergrid", "pint_tpu_torch.catalog.job",
     "pint_tpu_torch.pintk", "pint_tpu_torch.pintk.controller",
-    "pint_tpu_torch.pintk.app")
+    "pint_tpu_torch.pintk.app", "pint_tpu_torch.fitting.incremental",
+    "pint_tpu_torch.fitting.gls_incremental", "pint_tpu_torch.serve",
+    "pint_tpu_torch.serve.fingerprint", "pint_tpu_torch.serve.faults",
+    "pint_tpu_torch.serve.pipeline", "pint_tpu_torch.serve.session",
+    "pint_tpu_torch.serve.scheduler", "pint_tpu_torch.predict",
+    "pint_tpu_torch.predict.cache", "pint_tpu_torch.predict.engine")
 
 
 def test_telemetry_and_parallel_import_no_jax_or_the_reference():
     """The telemetry core, the many-pulsar modules, the PTA joint fit,
-    the catalogs and pintk load without JAX or the reference in the
-    process, and import neither."""
+    the catalogs, pintk, the incremental fits, the serving tier and the
+    read path load without JAX or the reference in the process, and
+    import neither."""
     code = (
         "import importlib, sys\n"
         f"for name in {TELEMETRY_AND_PARALLEL_MODULES!r}:\n"

@@ -23,6 +23,7 @@ its host loop is tests/test_torch_device_loop.py's. vmap's "performance drop" wa
 by member) is an error in every batched fit here.
 """
 
+import copy
 import warnings
 
 import numpy as np
@@ -476,3 +477,69 @@ def test_batched_capture_reads_each_mask_by_its_key():
     np.testing.assert_array_equal(chi2_s, chi2_o)
     np.testing.assert_array_equal(chi2_s, chi2_f)
     assert values_s == values_o == values_f
+
+
+# ----------------------------------------------------------------------
+# BatchedPulsarFitter(mesh=): the members over the mesh's "psr" rows
+# ----------------------------------------------------------------------
+
+def _mesh_batch(specs, maxiter, psr_axis=4, df0=2e-10):
+    """The reference's batch on its (psr_axis, 8 / psr_axis) mesh, and the
+    port's on an eight-slot CPU mesh of the same shape (one stacked group
+    per "psr" row) and on one device."""
+    problems, jproblems, one = [], [], []
+    for seed, ntoas, f0_extra in specs:
+        jm, jt, m, t, par = _problem(seed=seed, ntoas=ntoas, f0_extra=f0_extra)
+        ja, a = _perturbed(par, df0)
+        problems.append((t, a))
+        one.append((t, copy.deepcopy(a)))
+        jproblems.append((jt, ja))
+    bf = BatchedPulsarFitter(problems, mesh=_cpu_mesh(psr_axis=psr_axis))
+    assert [(lo, hi) for lo, hi, _d in bf.groups] == [
+        (i * len(specs) // psr_axis, (i + 1) * len(specs) // psr_axis)
+        for i in range(psr_axis)]
+    chi2 = bf.fit_toas(maxiter=maxiter)
+    b1 = BatchedPulsarFitter(one, device="cpu")
+    chi2_1 = b1.fit_toas(maxiter=maxiter)
+    jbf = JBatched(jproblems, mesh=jmake_mesh(8, psr_axis=psr_axis))
+    jchi2 = jbf.fit_toas(maxiter=maxiter)
+    return bf, chi2, b1, chi2_1, jbf, jchi2
+
+
+def test_batched_pulsar_fitter_on_a_mesh():
+    """tests/test_parallel.py:180 with the port's mesh: the members at
+    the reference's fit and at the one-device batch's."""
+    bf, chi2, b1, chi2_1, jbf, jchi2 = _mesh_batch(
+        [(10 + i, 60 + 7 * i, 1e-3 * i) for i in range(4)], 2)
+    assert chi2.shape == (4,) and np.all(np.isfinite(chi2))
+    _assert_members_match(bf.models, jbf.models, chi2, jchi2)
+    np.testing.assert_allclose(chi2, chi2_1, rtol=1e-12)
+    for m, m1 in zip(bf.models, b1.models):
+        for k in m.free_params:
+            assert abs(m[k].value_f64 - m1[k].value_f64) <= 1e-9 * m1[
+                k].uncertainty, k
+    rows = bf.device_bytes()
+    assert len(rows) == 4 and all(b > 0 for b in rows)
+
+
+def test_batched_damped_convergence_flags_on_a_mesh():
+    """tests/test_parallel.py:338 with the port's mesh."""
+    bf, chi2, _b1, _c1, jbf, jchi2 = _mesh_batch(
+        [(70 + i, 60 + 7 * i, 0.0) for i in range(4)], 15, df0=3e-10)
+    ns = [len(t) for t in bf.toas_list]
+    assert bf.converged.shape == (4,)
+    assert bf.converged.all() and (bf.converged == jbf.converged).all()
+    assert np.all(chi2 / (np.array(ns) - 4) < 1.8)
+    _assert_members_match(bf.models, jbf.models, chi2, jchi2)
+
+
+def test_batched_mesh_rows_must_divide_the_members():
+    _, _, _, t, par = _problem(seed=5, ntoas=60)
+    problems = [(t, _perturbed(par)[1]) for _ in range(3)]
+    with pytest.raises(ValueError, match="psr rows"):
+        BatchedPulsarFitter(problems, mesh=_cpu_mesh(psr_axis=2))
+    bf = BatchedPulsarFitter(problems, psr_axis=2, pad_members=4,
+                             device="cpu")
+    assert [(lo, hi) for lo, hi, _d in bf.groups] == [(0, 2), (2, 4)]
+    assert bf.loop_key() != BatchedPulsarFitter(
+        problems, pad_members=4, device="cpu").loop_key()

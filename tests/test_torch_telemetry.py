@@ -591,10 +591,10 @@ def test_telemetry_log_level_and_mirror(caplog):
 # ----------------------------------------------------------------------
 
 def test_slo_ledger_counts_and_burns(monkeypatch):
-    """The same observations in both packages give the same ledger for
-    the port's one class: the target from the class's knob, an
-    over-target latency and an explicit miss each burn; an unknown class
-    (the reference's serving classes included) has no target."""
+    """The same observations in both packages give the same ledger over
+    the four classes: the target from the class's knob, an over-target
+    latency and an explicit miss each burn; an unknown class has no
+    target."""
     from pint_tpu.telemetry import slo as jslo
     from pint_tpu_torch.telemetry import slo
 
@@ -607,13 +607,13 @@ def test_slo_ledger_counts_and_burns(monkeypatch):
         mod.observe("longjob", 0.9)                # over target -> burn
         mod.observe("longjob", 0.1, missed=True)   # explicit miss -> burn
     led = slo.snapshot()
-    assert led == {"longjob": jslo.snapshot()["longjob"]}
+    assert led == jslo.snapshot()
+    assert tuple(led) == ("read", "fit", "session", "longjob")
     assert led["longjob"] == {"target_s": 0.5, "total": 3, "burn": 2,
                               "burn_rate": round(2 / 3, 6)}
     assert telemetry.counter_value("slo.longjob.burn") == 2
-    for cls in ("batch", "read"):
-        with pytest.raises(KeyError):
-            slo.target_s(cls)
+    with pytest.raises(KeyError):
+        slo.target_s("batch")
 
 
 def test_slo_observe_is_noop_when_off():

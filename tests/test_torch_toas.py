@@ -140,8 +140,56 @@ def test_tdb_minus_tt_is_the_references(mjds):
     print(f"  rows off numpy by > {PS:g} s: {bad[:20].tolist()} of {hi.size}; "
           f"the same call again: {np.max(np.abs(again - npv)):.3e} s off numpy; "
           f"torch threads {torch.get_num_threads()}")
+    if np.max(np.abs(got - ref)) >= PS:
+        _sin_canary()
     assert np.max(np.abs(got - ref)) < PS
     assert 1.5e-3 < np.max(np.abs(got)) < 1.8e-3  # the annual term
+
+
+def _sin_canary(n: int = 50_000) -> None:
+    """Does a bad intra-op worker state reach torch's elementwise ops in
+    general? ``torch.sin`` over an n-element probe (split over the pool's
+    threads, as ``at::parallel_for`` splits it), each thread's share held
+    to numpy's sin."""
+    x = np.random.default_rng(7).uniform(-1e3, 1e3, n)
+    got = torch.sin(torch.from_numpy(x)).numpy()
+    want = np.sin(x)
+    k = torch.get_num_threads()
+    share = -(-n // k)
+    offs = [float(np.max(np.abs(got[i:i + share] - want[i:i + share]),
+                         initial=0.0)) for i in range(0, n, share)]
+    print(f"  sin canary over {n} elements, {k} threads: max |torch - "
+          f"numpy| per thread share {[f'{v:.2e}' for v in offs]}")
+
+
+_BLOCKED_VS_ONE_CALL = """
+import sys
+import numpy as np
+import torch
+from pint_tpu_torch.ops import timescales as ts
+rows = int(sys.argv[1])
+t = torch.from_numpy(np.random.default_rng(3).uniform(-0.3, 0.3, rows))
+blocked = ts._fb_eval(t).numpy()
+one = ts._fb_block(t).numpy()  # the whole matrix in one call per op
+print(int(np.sum(blocked != one)), float(np.max(np.abs(blocked - one))))
+"""
+
+
+@pytest.mark.parametrize("rows", [1_000, 100_000])
+def test_fb_series_blocked_equals_one_call(rows):
+    """The CPU series, evaluated in row blocks under torch's intra-op
+    grain (every sin on the calling thread), is bit for bit the one-call
+    evaluation, in a fresh process."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_VS_ONE_CALL,
+                          str(rows)], capture_output=True, text=True,
+                         cwd=root, check=True, timeout=120)
+    n_diff, gap = out.stdout.split()
+    assert int(n_diff) == 0, f"{n_diff} rows differ, max {gap} s"
 
 
 def test_tdb_minus_tt_after_the_candidate_state_changes(mjds):

@@ -304,3 +304,45 @@ def assert_columns_close(cols, rtol=1e-10, zero=()):
         gap = np.max(np.abs(a - b)) / scale
         print(f"  d/d{k}: {gap:.3e} of max|column|")
         assert gap <= rtol, k
+
+
+# ----------------------------------------------------------------------
+# the serving tier's parity cases (tests/test_torch_serve.py and the
+# session, faults and predict files)
+# ----------------------------------------------------------------------
+
+# PAR_BARY without noise: F0, F1 and DM fitted, a TZR anchor
+PAR_SERVE = "\n".join(line for line in PAR_BARY.splitlines()
+                      if not line.startswith(("EFAC", "ECORR", "TNRED"))
+                      ) + "\n"
+# PAR_SERVE with the noise lines of tests/test_serve.py (the TOAs flagged
+# -f fake)
+SERVE_NOISE = """
+EFAC -f fake 1.2
+ECORR -f fake 1.1
+"""
+
+
+def serve_table(n: int, seed: int, par: str = PAR_SERVE, flag: bool = False):
+    """(reference table, port table) of n simulated barycentric TOAs, the
+    port's carrying the reference's columns (``flag``: every TOA flagged
+    ``-f fake``)."""
+    from pint_tpu_torch.interop import state_from_numpy
+    from pint_tpu_torch.models import get_model
+
+    jm, jt = simulate_reference(n, seed=seed, par=par)
+    if flag:
+        jt = with_flag(jt)
+    return jt, state_from_numpy(params_of(jm), columns_of(jt),
+                                model=get_model(par), device="cpu")
+
+
+def serve_models(par: str = PAR_SERVE, pert_f0: float = 2e-10):
+    """(reference model, port model) from `par`, F0 moved by `pert_f0`."""
+    from pint_tpu.models import get_model as jget_model
+    from pint_tpu_torch.models import get_model
+
+    jm, m = jget_model(par), get_model(par)
+    jm["F0"].add_delta(pert_f0)
+    m["F0"].add_delta(pert_f0)
+    return jm, m
