@@ -227,11 +227,52 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    within 1e-9 relative; (g) zero
    ds32_gram launches in (a)-(f) (the serving tier's Grams are float64,
    as the reference's);
-19. a ``{"kernels": [...]}`` line, then the last line
+19. the fleet tier, each step failing the run on its gate (in the
+   order a, b, c, f, d, e: the join comes before the durability stream,
+   whose killed worker leaves one survivor): (a) phase 2's library put
+   in a fresh program store; two more Python processes on that store
+   (each its own empty build directory) run nvcc 0 times (each loads
+   the stored library, digest checked), give phase 4's (100,000, 66) G
+   bit for bit, the plain version within 1e-12 of max|G|, and drive 8
+   fits of 18a's stream through a scheduler: the first journals its
+   captures' program keys, the second derives the same keys from the
+   same fits (nothing new journaled), counts each
+   ``cache.fit_program.restored`` and as many captures as the first; a
+   truncated copy of the library in a fourth store is a counted miss
+   rebuilt by nvcc; (b) ``build_fleet(2)``:
+   two schedulers on the card route 18a's 64-fit stream twice (no
+   stealing: the measure is stickiness), round 2 on round 1's hosts
+   with zero captures, every member at 18a's bars, both walls beside
+   18a's warm drain; (c) two ``spawn_local_workers`` processes on the
+   card over TCP in one gloo group (their ``init_distributed`` strings
+   printed): the same stream twice, zero new ``cache.fit_program.miss``
+   in either worker's ``report`` in round 2, the workers' ``programs``
+   filled, then a third round whose busier worker is SIGKILLed holding
+   its pending requests: every request resolves on the survivor at
+   18a's bars; (f) a third worker with an empty store joins: it adopts
+   the survivor's keys and library (nvcc 0 times in its process, the
+   digest checked), its first fits are counted as captures
+   (``cache.fit_program.miss``) with the donors' keys among them
+   (``cache.fit_program.restored`` > 0), and model reads of a structure that
+   did not move are timed before and after the join; (d) 18c's
+   100,000-TOA WLS session populated through the TCP fleet, 4 appends
+   of 8 TOAs, its pinned worker SIGKILLed holding the last one queued:
+   the survivor restores it from the router's journal or replica, and
+   its chi2 and parameters match a control session that was never
+   killed (``DRIFT_CHI2_REL``; 1e-9 relative or 5% of sigma), with the
+   restore wall; (e) ``python -m pint_tpu_torch.telemetry.top --once``
+   while that append is pending, then the router's and the workers'
+   JSON-lines artifacts merged into ONE rooted tree for the killed
+   append (submit, accept, failover, replay, dispatch, commit; 3 pids),
+   ``python -m pint_tpu_torch.telemetry.report`` over them with its
+   fleet, mesh, read, programs, traces and SLO sections filled, and
+   ``python -m pint_tpu_torch.telemetry.probe`` naming the card;
+20. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs no network, and exits non-zero with no result when CUDA is
-missing or the package is not beside it.
+missing or the package is not beside it. Every process it starts
+(phase 19's workers and tools) is stopped before it ends.
 """
 
 from __future__ import annotations
@@ -240,6 +281,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -3878,7 +3920,7 @@ def serve_throughput(dev, card):
     profile_step("one warm drain of the 64-fit stream",
                  lambda: drain_stream(fresh_requests(problems), [dev]),
                  warm * 1e3)
-    return problems
+    return problems, alone, warm
 
 
 def serve_mixed(dev, card):
@@ -4065,7 +4107,7 @@ def serve_sessions(dev, card, toas6):
           f"{same}", flush=True)
     if not same:
         fail("18c: the gate-tripped refit is not the cold populate")
-    return results["WLS"][0]
+    return results["WLS"][0], table, results["WLS"][2]
 
 
 def serve_reads(dev, card, s):
@@ -4241,7 +4283,9 @@ def serving_tier(dev, toas6):
     """Phase 18: the serving tier on the card (18a-18g). Returns its
     ds32_gram launches, counted from 0 (the reference's serving tier
     reaches no Pallas kernel: its batched and incremental Grams are
-    float64)."""
+    float64), and what phase 19 reuses: 18a's problems, their standalone
+    fits and the warm drain's wall, 18c's WLS session table and its
+    appends."""
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.ops import gram
 
@@ -4261,12 +4305,12 @@ def serving_tier(dev, toas6):
     gram.ds32_gram.launches = gram.ds32_gram_batched.launches = 0
     try:
         phase("18a throughput: bench.py's 64-fit stream")
-        problems = serve_throughput(dev, card)
+        problems, alone, warm = serve_throughput(dev, card)
         phase("18b the mixed frontier: bench.py's _mixed_problems")
         serve_mixed(dev, card)
         phase(f"18c sessions: {N_SESSION}-TOA WLS and GLS sessions, "
               f"{N_APPENDS} appends of {K_APPEND} TOAs")
-        s = serve_sessions(dev, card, toas6)
+        s, session_table, session_apps = serve_sessions(dev, card, toas6)
         phase(f"18d reads: batched predictions of {N_READ_Q} queries")
         serve_reads(dev, card, s)
         phase("18e failure domains on the card")
@@ -4285,7 +4329,626 @@ def serving_tier(dev, toas6):
     if launches:
         fail(f"18g: the serving tier launched ds32_gram {launches} times")
     device_loop_clear()
-    return launches
+    return {"launches": launches, "problems": problems, "alone": alone,
+            "warm_s": warm, "session_table": session_table,
+            "session_appends": session_apps}
+
+
+# ----------------------------------------------------------------------
+# phase 19: the fleet tier
+# ----------------------------------------------------------------------
+
+N_FLEET_APPENDS = 4        # 19d: appends of K_APPEND TOAs to the session
+N_FLEET_READS = 20         # 19f: timed reads before and after the join
+N_FLEET_READ_Q = 64        # queries per read
+# 19b/19c measure stickiness: a queue never deep enough to steal a cold
+# structure, so each of the stream's four structures lands on one host
+NO_STEAL = dict(steal_depth=4 * N_SERVE_FITS)
+
+# the second and third processes of 19a: each finds the kernel library
+# in the store (and builds nothing), runs ds32_gram on phase 4's q = 66
+# input, and drives the head of 18a's stream through a scheduler, whose
+# captures journal their program keys in the store (the first) or find
+# them there (the second: restored, byte-identical, nothing journaled)
+STORE_CHILD = r"""
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from pint_tpu_torch import compile_cache, telemetry
+from pint_tpu_torch.ops import gram
+from pint_tpu_torch.programs.store import store
+from pint_tpu_torch.serve import ThroughputScheduler
+telemetry.configure(enabled=True)
+compile_cache.enable_persistent_cache(sys.argv[2])
+dev = torch.device(sys.argv[5])
+A = torch.load(sys.argv[3]).to(dev)
+G = gram.ds32_gram(A)
+torch.save(G.cpu(), sys.argv[4])
+launches = gram.ds32_gram.launches
+sched = ThroughputScheduler(devices=[dev])
+for r in cs.fresh_requests(cs.throughput_problems(int(sys.argv[6]), dev)):
+    sched.submit(r)
+res = sched.drain()
+c = telemetry.counters_snapshot()
+print(json.dumps({
+    "keys": store().export_keys(), "library": gram.library_key(),
+    "restored": int(c.get("cache.fit_program.restored", 0)),
+    "captures": int(c.get("cache.fit_program.miss", 0)),
+    "status": sorted({r.status for r in res}),
+    "builds": {k: int(c.get(f"programs.kernel.{k}", 0))
+               for k in ("store", "build_dir", "nvcc", "corrupt")},
+    "loaded": gram.LOADED, "launches": launches,
+    "build_dir": str(gram.BUILD_DIR)}))
+"""
+N_STORE_FITS = 8           # 19a: fits of 18a's stream in each process
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def store_child(work, root, dev, label):
+    """One process of 19a on the store at `root`: (its record, its G,
+    wall)."""
+    out_g = work / f"G66_{label}.pt"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", STORE_CHILD, str(ROOT), str(work / label),
+         str(work / "A66.pt"), str(out_g), str(dev), str(N_STORE_FITS)],
+        env=dict(os.environ, PINT_TORCH_PROGRAM_CACHE_DIR=str(root)),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"19a: the {label} process failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), \
+        torch.load(out_g), wall
+
+
+def fleet_store(dev, card, work):
+    """19a: phase 2's library stored; two more processes on the store
+    each build nothing and match this process's G bit for bit, and the
+    second derives the first's program keys from the same fits (counted
+    restored, nothing new journaled); a truncated library in a fourth
+    store is a counted miss and is rebuilt from source. Returns (store
+    root, library sha256, the other processes' ds32_gram launches)."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.programs import ProgramStore
+    from pint_tpu_torch.programs.store import file_digest
+
+    root = work / "store_a"
+    st = ProgramStore(str(root))
+    lib, _log = gram.build(store=st)
+    size, digest = file_digest(lib)
+    print(f"stored {lib.name} ({size} bytes, sha256 {digest[:16]}...) in a "
+          f"fresh store: {st.stats()['kernels']}", flush=True)
+    A = whitened(N_TOAS, 66, seed=N_TOAS, device=dev)
+    G1 = gram.ds32_gram(A)
+    torch.save(A.cpu(), work / "A66.pt")
+    scale = float(G1.abs().max())
+    manifest = root / "manifest.jsonl"
+    recs, launches = {}, 0
+    for label in ("first", "second"):
+        out, G2, wall = store_child(work, root, dev, label)
+        recs[label] = out
+        launches += out["launches"]
+        err_plain = float((G2.to(dev) - gram.ds32_gram_reference(A))
+                          .abs().max())
+        bitwise = torch.equal(G2, G1.cpu())
+        lines = manifest.read_text().splitlines() if manifest.exists() else []
+        out["manifest"] = lines
+        print(f"{card}: the {label} process on the store ({wall:.2f} s, "
+              f"fresh build directory {out['build_dir']}): builds "
+              f"{out['builds']}, library from {out['loaded'].get('origin')}"
+              f" (sha256 {str(out['loaded'].get('sha256'))[:16]}...), "
+              f"{out['launches']} ds32_gram launch(es); G at ({N_TOAS}, 66) "
+              f"bit for bit this process's {bitwise}, against the plain "
+              f"version {err_plain / scale:.3e} of max|G| (bar "
+              f"{PLAIN_BAR:g}); {N_STORE_FITS} fits of 18a's stream "
+              f"{out['status']}: captures (cache.fit_program.miss) "
+              f"{out['captures']}, cache.fit_program.restored "
+              f"{out['restored']}, program keys held {len(out['keys'])}, "
+              f"manifest lines {len(lines)}", flush=True)
+        # (a CPU rehearsal runs the plain version: no library is loaded)
+        loaded_ok = dev.type != "cuda" or (
+            out["loaded"].get("origin") == "store"
+            and out["loaded"].get("sha256") == digest
+            and out["launches"] >= 1)
+        if not (out["builds"]["nvcc"] == 0 and loaded_ok and bitwise
+                and out["library"] == gram.library_key()
+                and err_plain <= PLAIN_BAR * scale):
+            fail(f"19a: the {label} process: {out}")
+    first, second = recs["first"], recs["second"]
+    same = second["keys"] == first["keys"] and \
+        second["manifest"] == first["manifest"]
+    print(f"  program keys from real dispatches: the first process "
+          f"journaled {len(first['keys'])}, the second derived the same "
+          f"{same} and counted {second['restored']} restored beside "
+          f"{second['captures']} captures (a capture is never a hit)",
+          flush=True)
+    if not (first["restored"] == 0 and len(first["keys"]) >= 1 and same
+            and second["restored"] == len(first["keys"])
+            and second["captures"] == first["captures"] >= 1):
+        fail(f"19a: the program keys did not carry across processes: "
+             f"{first['keys']} / {second['keys']}")
+    # a fourth store holding a truncated copy of the library
+    telemetry.configure(enabled=True)
+    third = ProgramStore(str(work / "store_c"))
+    bad = pathlib.Path(third.kernel_dir) / lib.name
+    shutil.copyfile(lib, bad)
+    shutil.copyfile(f"{lib}.sha256", f"{bad}.sha256")
+    with open(bad, "r+b") as fh:
+        fh.truncate(size // 2)
+    before = telemetry.counters_snapshot()
+    t0 = time.perf_counter()
+    rebuilt, _log = gram.build(store=third, build_dir=work / "build_c")
+    rebuild_s = time.perf_counter() - t0
+    nvcc = int(telemetry.counters_delta(before).get("programs.kernel.nvcc",
+                                                    0))
+    gram._load(rebuilt)
+    held = third.kernel_library(lib.name)
+    print(f"  a truncated copy ({size // 2} of {size} bytes) in a fourth "
+          f"store: store misses counted corrupt {third.counts['corrupt']}, "
+          f"nvcc runs {nvcc}, rebuilt from source in {rebuild_s:.2f} s; the "
+          f"rebuilt library loads and the store now holds it verified "
+          f"{held is not None}", flush=True)
+    if not (third.counts["corrupt"] == 1 and nvcc == 1 and held is not None):
+        fail("19a: the truncated library was not a counted miss rebuilt "
+             "from source")
+    return root, digest, launches
+
+
+def fleet_stream(router, problems, alone, label, kill=None):
+    """One round of 18a's stream through `router`: (results, wall, the
+    requests' hosts). `kill(handles)` (optional) runs after the submits,
+    before the drain."""
+    reqs = fresh_requests(problems)
+    t0 = time.perf_counter()
+    handles = [router.submit(r) for r in reqs]
+    if kill is not None:
+        kill(handles)
+    res = router.drain()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    member_parity(res, reqs, alone, label)
+    bad = [(r.tag, r.status) for r in res if r.status != "ok"]
+    if bad or len(res) != len(reqs):
+        fail(f"19: {label}: {len(res)} of {len(reqs)} resolved, {bad[:4]}")
+    return res, wall, [h.host for h in handles]
+
+
+def fleet_loopback(dev, card, serve):
+    """19b: build_fleet(2) with two schedulers on the card, 18a's stream
+    twice: round 2 lands on round 1's hosts and captures nothing."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.fleet import build_fleet
+
+    device_loop_clear()
+    device_loop._LOOP_CACHE.maxsize = 32
+    try:
+        router = build_fleet(2, devices=[dev], max_queue=4 * N_SERVE_FITS,
+                             router_kwargs=NO_STEAL)
+        walls, hosts, caps = [], [], []
+        for rnd in (1, 2):
+            before = telemetry.counters_snapshot()
+            _res, wall, h = fleet_stream(router, serve["problems"],
+                                         serve["alone"],
+                                         f"loopback fleet round {rnd}")
+            d = telemetry.counters_delta(before)
+            walls.append(wall)
+            hosts.append(h)
+            caps.append(int(d.get("fit.device_loop.captures", 0)))
+    finally:
+        device_loop._LOOP_CACHE.maxsize = 8
+        device_loop_clear()
+    split = {hid: hosts[0].count(hid) for hid in sorted(set(hosts[0]))}
+    print(f"{card}: loopback fleet of 2 schedulers on the card, 18a's "
+          f"{N_SERVE_FITS}-fit stream: round 1 {walls[0]:.3f} s ({caps[0]} "
+          f"captures), round 2 {walls[1]:.3f} s ({caps[1]} captures), "
+          f"requests per host {split}; 18a's single-scheduler warm drain "
+          f"{serve['warm_s']:.3f} s", flush=True)
+    want = caps[0] > 0 if dev.type == "cuda" else True
+    if not (hosts[1] == hosts[0] and caps[1] == 0 and want):
+        fail(f"19b: round 2 moved or captured: captures {caps}, "
+             f"split {split}")
+
+
+def spawn(n, dev, env_per_worker, prefix, distributed=False):
+    from pint_tpu_torch.fleet import TcpHost
+    from pint_tpu_torch.fleet.worker import spawn_local_workers
+
+    t0 = time.perf_counter()
+    workers = spawn_local_workers(
+        n, device="cuda" if dev.type == "cuda" else "cpu",
+        env=dict(PYTHONPATH=str(ROOT), PINT_TORCH_TELEMETRY="1"),
+        env_per_worker=env_per_worker, ready_timeout_s=180,
+        distributed=distributed, coord_port=free_port(), prefix=prefix)
+    wall = time.perf_counter() - t0
+    hosts = [TcpHost(h, ("127.0.0.1", p), timeout_s=600)
+             for h, p, _ in workers]
+    SPAWNED.append((workers, hosts))
+    return workers, hosts, wall
+
+
+# every worker phase 19 starts, stopped at its end whatever happened
+SPAWNED: list = []
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def stop_workers(workers, hosts):
+    for h in hosts:
+        try:
+            h.shutdown()
+        except Exception:  # noqa: BLE001 — a killed worker is gone
+            pass
+    for _hid, _port, p in workers:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def fleet_tcp(dev, card, serve, work, store_root, jsonl):
+    """19c: two spawn_local_workers processes on the card over TCP, one
+    gloo group: 18a's stream twice (round 2: zero new captures in either
+    worker's report op), then a third round whose host is SIGKILLed with
+    its requests pending: every request resolves on the survivor."""
+    import signal
+
+    from pint_tpu_torch.fleet import FleetRouter
+
+    stores = []
+    for i in range(2):
+        st = work / f"store_w{i}"
+        shutil.copytree(store_root, st)
+        stores.append(st)
+    workers, hosts, spawn_s = spawn(
+        2, dev, [{"PINT_TORCH_PROGRAM_CACHE_DIR": str(stores[i]),
+                  "PINT_TORCH_TELEMETRY_PATH": str(jsonl[f"w{i}"])}
+                 for i in range(2)], "w", distributed=True)
+    procs = {h: p for h, _port, p in workers}
+    router = FleetRouter(hosts, **NO_STEAL)
+    walls, misses = [], []
+    for rnd in (1, 2):
+        _res, wall, _h = fleet_stream(router, serve["problems"],
+                                      serve["alone"], f"TCP fleet round {rnd}")
+        walls.append(wall)
+        misses.append({h.host_id: h.report()["program_misses"]
+                       for h in hosts})
+    reps = {h.host_id: h.report() for h in hosts}
+    modes = {hid: r["distributed"] for hid, r in reps.items()}
+    print(f"{card}: 2 worker processes on the card ({spawn_s:.2f} s to "
+          f"ready): round 1 {walls[0]:.3f} s, round 2 {walls[1]:.3f} s; "
+          f"cache.fit_program.miss per worker after each round {misses}; "
+          f"init_distributed {modes}", flush=True)
+    for hid, r in reps.items():
+        print(f"  {hid} report: queue {r['queue_depth']}, sessions "
+              f"{r['sessions']}, device {r['device']}, programs "
+              f"{ {k: r['programs'][k] for k in ('kernels', 'kernel_put', 'kernel_hit', 'restored', 'corrupt')} }",
+              flush=True)
+    if not (misses[1] == misses[0] and all(
+            r["programs"] and r["programs"]["kernels"] for r in reps.values())
+            and all(m.startswith("initialized(N=2") for m in modes.values())):
+        fail(f"19c: round 2 captured ({misses}) or the workers' reports "
+             f"lack their stores or group: {modes}")
+    killed = {}
+
+    def kill(handles):
+        victim = max(procs, key=lambda hid: sum(h.host == hid
+                                                for h in handles))
+        killed["hid"] = victim
+        killed["pending"] = sum(h.host == victim for h in handles)
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=30)
+
+    res, wall, _h = fleet_stream(router, serve["problems"], serve["alone"],
+                                 "TCP fleet round 3 (a worker killed)", kill)
+    survivors = {r.host for r in res}
+    print(f"  round 3: {killed['hid']} SIGKILLed holding "
+          f"{killed['pending']} pending requests; all {len(res)} resolved "
+          f"on {sorted(survivors)} in {wall:.3f} s (failovers "
+          f"{router.last_drain['failovers']})", flush=True)
+    if killed["hid"] in survivors:
+        fail("19c: a request resolved on the killed worker")
+    return router, workers
+
+
+def read_walls(router, model, n=N_FLEET_READS):
+    from pint_tpu_torch.serve import PredictRequest
+
+    rng = np.random.default_rng(23)
+    out = []
+    for _ in range(n):
+        q = np.sort(rng.uniform(54000.0005, 54000.9995, N_FLEET_READ_Q))
+        t0 = time.perf_counter()
+        r = router.predict(PredictRequest(q, model=model))
+        out.append(time.perf_counter() - t0)
+        if r.status != "ok":
+            fail(f"19f: a read {r.status}: {r.error}")
+    return out, r.host
+
+
+def fleet_join(dev, card, serve, work, router, jsonl, digest):
+    """19f: a third worker with an empty store joins mid-stream: it
+    adopts the donors' keys and the kernel library (nvcc runs 0 times in
+    its process; the digest checked), its first sticky fits capture
+    (counted as captures), and reads on structures that did not move
+    keep their walls. Returns its worker."""
+    from pint_tpu_torch.fleet import rendezvous_rank
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import fingerprint as fpm
+
+    alive = router.alive_hosts()
+    fp8s = {}
+    for par, t in serve["problems"][:4]:
+        fp8s[fpm.short_id(fpm.structure_fingerprint(get_model(par), None))] \
+            = par
+    stay = [par for fp8, par in fp8s.items()
+            if rendezvous_rank(fp8, alive)[0]
+            == rendezvous_rank(fp8, alive + ["j0"])[0]]
+    if not stay:
+        fail("19f: every structure moves to the joiner")
+    model = get_model(stay[0])
+    # the survivor serves the whole stream once: a round's batches are
+    # what the donor journals (19c's failed-over requests re-fit in
+    # other batches), so the joiner's first fits can find their keys
+    _res, wall0, _h = fleet_stream(router, serve["problems"], serve["alone"],
+                                   "the survivor alone")
+    print(f"{card}: the stream on the survivor alone before the join: "
+          f"{wall0:.3f} s", flush=True)
+    before, host_before = read_walls(router, model)
+    workers, hosts, spawn_s = spawn(
+        1, dev, [{"PINT_TORCH_PROGRAM_CACHE_DIR": str(work / "store_j"),
+                  "PINT_TORCH_TELEMETRY_PATH": str(jsonl["j0"])}], "j")
+    t0 = time.perf_counter()
+    router.add_host(hosts[0])
+    join_s = time.perf_counter() - t0
+    rep = hosts[0].report()
+    progs = rep["programs"] or {}
+    builds = progs.get("kernel_builds", {})
+    loaded = progs.get("kernel_loaded", {})
+    print(f"{card}: joiner j0 ready in {spawn_s:.2f} s, join handshake "
+          f"{join_s:.3f} s: kernels adopted {progs.get('kernel_adopt')}, "
+          f"keys {progs.get('prior')}, nvcc runs {builds.get('nvcc')}, "
+          f"library from {loaded.get('origin')}, sha256 matches the donors' "
+          f"{loaded.get('sha256') == digest}", flush=True)
+    if dev.type == "cuda" and not (
+            builds.get("nvcc") == 0 and loaded.get("origin") == "store"
+            and loaded.get("sha256") == digest
+            and progs.get("kernel_adopt", 0) >= 1):
+        fail(f"19f: the joiner did not adopt the library: {progs}")
+    res, wall, hosts_r = fleet_stream(router, serve["problems"],
+                                      serve["alone"], "after the join")
+    rep = hosts[0].report()
+    n_j = hosts_r.count("j0")
+    restored = int(rep["programs"].get("restored", 0))
+    print(f"  the stream after the join: {wall:.3f} s, {n_j} requests on "
+          f"j0, whose first sticky fits captured: cache.fit_program.miss "
+          f"{rep['program_misses']} (captures, never hits); "
+          f"cache.fit_program.restored {restored} (keys the donors "
+          f"journaled)", flush=True)
+    if n_j == 0 or rep["program_misses"] == 0 or restored == 0:
+        fail("19f: the joiner took no sticky fit, its captures were not "
+             "counted as misses, or none of its keys was the donors'")
+    after, host_after = read_walls(router, model)
+    print(f"  {N_FLEET_READS} reads of {N_FLEET_READ_Q} queries on a "
+          f"structure that stayed on {host_before}: p50 "
+          f"{np.median(before) * 1e3:.2f} ms before the join, "
+          f"{np.median(after) * 1e3:.2f} ms after (on {host_after})",
+          flush=True)
+    if host_after != host_before:
+        fail("19f: a structure that should not move moved")
+    return workers
+
+
+def fleet_durability(dev, card, serve, router, procs):
+    """19d + 19e: 18c's 100,000-TOA WLS session through the TCP fleet,
+    4 appends of 8 TOAs, its pinned worker SIGKILLed holding the last
+    append queued; the survivor restores it; parity with a control that
+    was never killed. Returns the killed append's trace id."""
+    import signal
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.serve import (DRIFT_CHI2_REL, FitRequest,
+                                      ThroughputScheduler)
+
+    table, apps = serve["session_table"], serve["session_appends"]
+    apps = apps[:N_FLEET_APPENDS]
+
+    def model():
+        m = get_model(PAR_SERVE)
+        m["F0"].add_delta(2e-10)
+        return m
+
+    t0 = time.perf_counter()
+    h0 = router.submit(FitRequest(table, model(), session_id="big",
+                                  **SERVE_HYPER))
+    r0 = router.drain()[0]
+    populate_s = time.perf_counter() - t0
+    if r0.status != "ok":
+        fail(f"19d: the populate {r0.status}: {r0.error}")
+    pinned = h0.host
+    for a in apps[:-1]:
+        router.submit(FitRequest(a, None, session_id="big", **SERVE_HYPER))
+        r = router.drain()[0]
+        if r.status != "ok":
+            fail(f"19d: an append {r.status}: {r.error}")
+    h = router.submit(FitRequest(apps[-1], None, session_id="big",
+                                 **SERVE_HYPER))
+    addrs = ",".join(f"{hh.address[0]}:{hh.address[1]}"
+                     for hid, hh in router.hosts.items()
+                     if router._health[hid]["alive"])
+    top = subprocess.run(
+        [sys.executable, "-m", "pint_tpu_torch.telemetry.top", "--connect",
+         addrs, "--once"], capture_output=True, text=True, timeout=60,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if top.returncode != 0:
+        fail(f"19e: top --once failed: {top.stderr[-1000:]}")
+    agg = json.loads(top.stdout)
+    print(f"{card}: top --once while the append is pending: "
+          f"{agg['hosts_live']} live hosts, queue depth {agg['queue_depth']}, "
+          f"in-flight traces {len(agg['inflight_traces'])}, SLO "
+          f"{ {k: v['total'] for k, v in agg['slo'].items()} }", flush=True)
+    if not (agg["hosts_live"] >= 2 and agg["queue_depth"] >= 1):
+        fail(f"19e: top saw no pending work: {agg}")
+    procs[pinned].send_signal(signal.SIGKILL)
+    procs[pinned].wait(timeout=30)
+    t0 = time.perf_counter()
+    r = router.drain()[0]
+    restore_s = time.perf_counter() - t0
+    skey = router._sid_last["big"]
+    owner = router._sticky[skey]
+    summary = router.hosts[owner].session_summary(skey)
+    dur = router.last_drain["durability"]
+    # the control: the same stream on a scheduler that was never killed
+    s = ThroughputScheduler(devices=[dev], max_queue=8)
+    s.submit(FitRequest(table, model(), session_id="big", **SERVE_HYPER))
+    s.drain()
+    for a in apps:
+        s.submit(FitRequest(a, None, session_id="big", **SERVE_HYPER))
+        s.drain()
+    e = s.sessions.entries[s.sessions._by_sid["big"]]
+    chi2_gap = abs(summary["chi2"] - e.chi2) / abs(e.chi2)
+    worst = 0.0
+    for k in e.model.free_params:
+        hi, lo, _unc = summary["params"][k]
+        v, vc = hi + lo, e.model[k].value_f64
+        bar = max(SERVE_VALUE_RTOL * abs(vc),
+                  SERVE_VALUE_SIGMA * e.model[k].uncertainty)
+        worst = max(worst, abs(v - vc) / bar)
+    print(f"{card}: {len(table)}-TOA WLS session through the TCP fleet: "
+          f"populate {populate_s:.3f} s on {pinned}; {len(apps)} appends of "
+          f"{K_APPEND} TOAs, {pinned} SIGKILLed holding the last one queued; "
+          f"restored on {owner} and the append served in {restore_s:.3f} s "
+          f"(route {r.session}, status {r.status}; restores "
+          f"{dur['restores']}, replayed {dur['replayed']}); against a "
+          f"control never killed: chi2 {chi2_gap:.3e} relative (bar "
+          f"{DRIFT_CHI2_REL:g}), worst parameter {worst:.3e} of its bar "
+          f"(1e-9 relative or 5% of sigma); {summary['n_toas']} TOAs",
+          flush=True)
+    if not (r.status == "ok" and owner != pinned and chi2_gap <= DRIFT_CHI2_REL
+            and worst <= 1.0 and summary["n_toas"] == e.n_toas):
+        fail("19d: the restored session is off its control")
+    return h.result().trace_ctx.trace_id
+
+
+def fleet_traces(card, jsonl, tid, pids_min=3):
+    """19e: the killed stream's artifacts merge into one rooted tree;
+    the report renders its sections; the probe names the card."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.telemetry import trace
+
+    telemetry.write_rollup()
+    paths = [str(p) for k, p in jsonl.items() if k != "router"] + [
+        str(jsonl["router"])]
+    tree = trace.assemble(trace.load(paths))[tid]
+    names = trace.hop_names(tree)
+    print(f"{card}: the killed append's trace: {len(tree['roots'])} root(s), "
+          f"{len(tree['orphans'])} orphans, pids {tree['pids']}, hosts "
+          f"{tree['hosts']}, hops {names}", flush=True)
+    for line in trace.render(tree):
+        print("  " + line)
+    chain = ("submit", "accept", "failover", "replay", "dispatch", "commit")
+    if not (len(tree["roots"]) == 1 and not tree["orphans"]
+            and all(n in names for n in chain)
+            and len(tree["pids"]) >= pids_min):
+        fail("19e: the killed stream is not one rooted tree over the chain")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    rep = subprocess.run(
+        [sys.executable, "-m", "pint_tpu_torch.telemetry.report", *paths,
+         "--json"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=env)
+    if rep.returncode != 0:
+        fail(f"19e: report failed: {rep.stderr[-1000:]}")
+    summary = json.loads(rep.stdout)
+    sections = {"fleet": summary["fleet"].get("drains"),
+                "mesh": summary["mesh"].get("drains"),
+                "read": summary["reads"].get("records"),
+                "programs": len(summary["programs"]),
+                "traces": summary["dist_traces"].get("traces"),
+                "SLO": sum(v["total"] for v in summary["slo"].values())}
+    text = subprocess.run(
+        [sys.executable, "-m", "pint_tpu_torch.telemetry.report", *paths],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    print(f"  report over {len(paths)} artifacts: {sections}; "
+          f"{len(text.stdout.splitlines())} lines of text", flush=True)
+    if text.returncode != 0 or not all(sections.values()):
+        fail(f"19e: empty report sections: {sections}")
+    probe = subprocess.run(
+        [sys.executable, "-m", "pint_tpu_torch.telemetry.probe", "--timeout",
+         "60"], capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=env)
+    rec = json.loads(probe.stdout.strip().splitlines()[-1]) \
+        if probe.stdout.strip() else {}
+    print(f"  probe: exit {probe.returncode}, {rec.get('n')} device(s), "
+          f"{rec.get('device0')} {rec.get('capability')}, "
+          f"{rec.get('latency_s')} s", flush=True)
+    if torch.cuda.is_available() and not (
+            probe.returncode == 0
+            and rec.get("device0") == torch.cuda.get_device_name(0)):
+        fail(f"19e: the probe did not name the card: {probe.stdout[-500:]}")
+
+
+def fleet_tier(dev, serve, work=None):
+    """Phase 19 (a)-(f). Returns the ds32_gram launches of the second
+    process of 19a (the stored library's), the path's launches."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.ops import gram
+
+    card = card_line()
+    work = pathlib.Path(work or tempfile.mkdtemp(prefix="fleet_"))
+    jsonl = {k: work / f"{k}.jsonl" for k in ("router", "w0", "w1", "j0")}
+    quiet = [logging.getLogger(f"pint_tpu_torch.{m}")
+             for m in ("observatory", "ephemeris")]
+    levels = [lg.level for lg in quiet]
+    for lg in quiet:
+        lg.setLevel(logging.ERROR)
+    gram.ds32_gram.launches = gram.ds32_gram_batched.launches = 0
+    try:
+        phase("19a the program store: two more processes, a truncated "
+              "library")
+        store_root, digest, child_launches = fleet_store(dev, card, work)
+        telemetry.reset()
+        telemetry.configure(enabled=True, jsonl_path=str(jsonl["router"]))
+        phase("19b a loopback fleet: build_fleet(2) on the card")
+        fleet_loopback(dev, card, serve)
+        phase("19c a TCP fleet: two worker processes, a SIGKILL")
+        router, workers = fleet_tcp(dev, card, serve, work, store_root,
+                                    jsonl)
+        phase("19f a cold join: a third worker with an empty store")
+        jworkers = fleet_join(dev, card, serve, work, router, jsonl, digest)
+        procs = {h: p for h, _port, p in workers + jworkers}
+        phase(f"19d durability: the {N_SESSION}-TOA session, a SIGKILL with "
+              f"an append queued")
+        tid = fleet_durability(dev, card, serve, router, procs)
+        phase("19e traces and the tools: report, top, probe")
+        fleet_traces(card, jsonl, tid)
+    finally:
+        while SPAWNED:
+            stop_workers(*SPAWNED.pop())
+        telemetry.reset()
+        for lg, level in zip(quiet, levels):
+            lg.setLevel(level)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{card}: ds32_gram launches in phase 19: the other processes "
+          f"of 19a {child_launches} (the stored library), this process "
+          f"{gram.ds32_gram.launches} (19a's comparison)", flush=True)
+    return child_launches
 
 
 def main() -> None:
@@ -4317,6 +4980,11 @@ def main() -> None:
     dev = torch.device("cuda")
 
     phase("2 build")
+    # the build directory is build/<tag>: the tag folds in the host's CPU
+    # and the card's name and compute capability
+    from pint_tpu_torch.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache(ROOT)
     t0 = time.perf_counter()
     lib, log = gram.build()
     print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
@@ -4670,10 +5338,17 @@ def main() -> None:
     phase(f"18 the serving tier: {N_SERVE_FITS} scheduled fits, the mixed "
           f"frontier, {N_SESSION}-TOA sessions, reads, failure domains, card "
           f"against CPU")
+    serve = serving_tier(dev, toas)
     launches_by_path["serving tier 18a-18f (counted from 0)"] = \
-        serving_tier(dev, toas)
+        serve["launches"]
 
-    phase("19 result")
+    phase("19 the fleet tier: the program store, a loopback fleet, TCP "
+          "workers, a killed 100,000-TOA session, traces and the tools, a "
+          "cold join")
+    launches_by_path["fleet tier 19 (counted from 0)"] = fleet_tier(
+        dev, serve)
+
+    phase("20 result")
 
     def per_step(ss):
         return {k: (None if any(s[k] is None for s in ss)

@@ -173,6 +173,11 @@ def pad_solve_rows(n_target: int, r, sigma, *mats):
     return tuple(out)
 
 
+# (kind, fingerprint, shape) triples seen this process while a program
+# store is configured: the first sighting of each is journaled there
+_SEEN_PROGRAMS: set = set()
+
+
 def note_program(kind: str, fingerprint, shape, *, captured=None) -> None:
     """Account one dispatch of fused-loop program ``kind`` at ``shape``.
 
@@ -180,19 +185,46 @@ def note_program(kind: str, fingerprint, shape, *, captured=None) -> None:
     port's counterpart of an XLA compile): a ``cache.fit_program.miss``,
     with the capture's counts (graphs, kernel launches recorded) in
     ``program.<kind>.*`` gauges and a ``type="program"`` record that
-    carries a hash of ``fingerprint`` (what the program closes over: the
-    loop cache's key). A dispatch that only replays is a
-    ``cache.fit_program.hit``.
+    carries the 8-hex digest of ``fingerprint`` (what the program closes
+    over). A dispatch that only replays is a ``cache.fit_program.hit``.
+
+    The first time a process sees ``(kind, fingerprint, shape)`` it asks
+    the program store (:func:`pint_tpu_torch.programs.store.note_seen`,
+    which journals the key): a key that an earlier process (or a
+    shipment) journaled counts ``cache.fit_program.restored``. It stays
+    a miss when it captures: a CUDA graph is captured again in every
+    process, so a restored key never turns a capture into a hit. Only a
+    ``fingerprint`` made of facts that every process derives alike is
+    journaled: ``None`` (a caller with no such identity) and a value
+    whose repr is its address are not.
     """
     if not _tele_core._enabled:
         return
+    from pint_tpu_torch.programs import store as _store
+
+    tkey = (kind, fingerprint, shape)
+    try:
+        # only with a store: without one there is nothing to journal
+        first = (fingerprint is not None and _store.store() is not None
+                 and tkey not in _SEEN_PROGRAMS)
+    except TypeError:  # an unhashable fingerprint: not journaled
+        first = False
+    if first:
+        _SEEN_PROGRAMS.add(tkey)
+        if _store.note_seen(kind, fingerprint, shape):
+            _tele_counters.inc("cache.fit_program.restored")
     _tele_counters.inc("cache.fit_program."
                        + ("hit" if captured is None else "miss"))
     if captured is not None:
         from pint_tpu_torch.telemetry import recorder
 
-        recorder.capture_program(kind, shape=shape,
-                                 fingerprint=hash(fingerprint) & 0xFFFFFFFF,
+        from pint_tpu_torch.serve.fingerprint import short_id
+
+        try:
+            fp8 = None if fingerprint is None else short_id(fingerprint)
+        except TypeError:
+            fp8 = None
+        recorder.capture_program(kind, shape=shape, fingerprint=fp8,
                                  **captured)
 
 

@@ -24,9 +24,9 @@ Grid mode (``request.hypergrid``; :mod:`pint_tpu_torch.catalog
 fitter, each point swapping only the power-law values
 (:meth:`~pint_tpu_torch.parallel.pta.PTAGLSFitter.set_pl_params`).
 
-The reference's scheduler, fleet router and trace hops that drive its
-jobs wait for the serving tier (ROADMAP Queue 1 item 6); a request's
-``trace_ctx`` stamps the job's records but is not hopped.
+A request's ``trace_ctx`` stamps the job's records; the checkpoint
+carries it in wire form, and a job resumed from it re-heads the SAME
+trace with a ``replay`` hop, so a kill -> adopt chain stays one tree.
 """
 
 from __future__ import annotations
@@ -189,6 +189,13 @@ class CatalogJob:
         self._fit_start_iter = ckpt.get("fit_start_iter", 0)
         if ckpt.get("state") in ("done", "failed"):
             self.state = ckpt["state"]
+        # the checkpoint carries the trace in wire form: the resumed
+        # job re-heads the SAME trace with a replay hop, so a kill ->
+        # adopt chain stays one connected tree across hosts
+        ctx = telemetry.trace.unwire(ckpt.get("trace"))
+        self.trace_ctx = telemetry.trace.hop(
+            ctx, "replay", host=self.host_id or None,
+            kind="catalog_resume") or ctx
         telemetry.inc("catalog.resumes")
 
     def _ensure(self) -> None:
@@ -477,6 +484,7 @@ class CatalogJob:
             "grid_idx": self.grid_idx,
             "grid_best": self._grid_best,
             "fit_start_iter": self._fit_start_iter,
+            "trace": telemetry.trace.wire(self.trace_ctx),
         }
 
     @classmethod

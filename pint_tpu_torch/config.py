@@ -201,6 +201,41 @@ declare("PINT_TORCH_READ_CACHE_BYTES", 33554432, "int",
 declare("PINT_TORCH_READ_MAX_WINDOWS", 16, "int",
         "Fresh cache windows one predict request may generate; rows "
         "beyond them are served dense (counted).")
+declare("PINT_TORCH_FLEET", True, "bool",
+        "Kill switch for the fleet tier; 0 (or one host) degenerates "
+        "to the single-host scheduler path.")
+declare("PINT_TORCH_FLEET_PROCESSES", 1, "int",
+        "Fleet process count; >1 arms a gloo torch.distributed join "
+        "in workers.")
+declare("PINT_TORCH_FLEET_PROCESS_ID", 0, "int",
+        "This worker's rank in the fleet's torch.distributed group.")
+declare("PINT_TORCH_FLEET_COORD", "127.0.0.1:9733", "str",
+        "host:port of the fleet's torch.distributed store (rank 0).")
+declare("PINT_TORCH_FLEET_JOURNAL_BYTES", 67108864, "int",
+        "Fleet append-journal byte budget; over it, committed appends "
+        "snapshot-truncate into the base table (replay cost only).")
+declare("PINT_TORCH_FLEET_OP_DEADLINE_S", 60.0, "float",
+        "Default per-operation fleet transport wire deadline [s]; a "
+        "miss raises HostSuspect into the suspicion ladder.")
+declare("PINT_TORCH_FLEET_HEARTBEAT_S", 5.0, "float",
+        "Fleet heartbeat ping deadline [s] (suspicion-ladder cadence).")
+declare("PINT_TORCH_FLEET_METRICS_DEADLINE_S", 5.0, "float",
+        "Wire deadline [s] for the fleet 'metrics' snapshot op.")
+declare("PINT_TORCH_TRACE_SAMPLE", 1.0, "float",
+        "Distributed-trace root sampling rate in [0,1]; thinned "
+        "deterministically (error accumulator, no RNG). An unsampled "
+        "request is traceless for its whole life.")
+declare("PINT_TORCH_PROGRAM_CACHE_DIR", None, "str",
+        "Root of the per-host persistent program store (kernel "
+        "libraries and the key manifest); unset = no store, the kernel "
+        "builds into build/.")
+declare("PINT_TORCH_PROGRAM_SHIP", True, "bool",
+        "Fleet join prewarm gate: ship kernel libraries, program keys "
+        "and replica summaries to a joining host before it takes "
+        "traffic; 0 makes the join instant.")
+declare("PINT_TORCH_PREWARM_TOP_K", 8, "int",
+        "Adopt-set size cap for the fleet join prewarm: the top-K "
+        "most-popular structures assigned to the joining host.")
 
 
 @dataclasses.dataclass

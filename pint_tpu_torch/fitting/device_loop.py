@@ -512,7 +512,8 @@ def _note_loop_stats(stats: dict, counters: dict) -> None:
 
 def dispatch_damped(full, deltas0, operands, *, key, probe=None,
                     maxiter=20, min_chi2_decrease=1e-3,
-                    max_step_halvings=8, kind="device_loop") -> InFlightFit:
+                    max_step_halvings=8, kind="device_loop",
+                    program=None) -> InFlightFit:
     """Start a fused fit and return its :class:`InFlightFit` handle.
 
     ``full(deltas, operands)`` and ``probe(deltas, operands)`` evaluate
@@ -525,6 +526,14 @@ def dispatch_damped(full, deltas0, operands, *, key, probe=None,
     over, alive. The first dispatch of a key captures (on the card) after
     an eager init evaluation; later ones replay from the first
     evaluation.
+
+    ``key`` may name objects by ``id()``: it lives in this process.
+    ``program`` is the same identity in facts that every process
+    derives alike (the model's structure fingerprint, the fitted names,
+    the layout; never an ``id()``): the program store journals it with
+    the arguments' shapes (:func:`pint_tpu_torch.bucketing
+    .note_program`), so a later process that dispatches the same loop
+    counts ``cache.fit_program.restored``. ``None`` journals nothing.
     """
     device = next(t for t in pytree.tree_leaves((deltas0, operands))
                   if isinstance(t, torch.Tensor)).device
@@ -534,14 +543,15 @@ def dispatch_damped(full, deltas0, operands, *, key, probe=None,
     return _dispatch(lambda: build_damped_loop(full, probe, record=record),
                      cache_key, deltas0, operands, device,
                      (maxiter, min_chi2_decrease, max_step_halvings), kind,
-                     InFlightFit)
+                     InFlightFit, program)
 
 
 def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
-              handle_cls):
+              handle_cls, program):
     """The shared launch head of the scalar and batched runners: find or
     capture the loop of ``cache_key`` (the caller's key first, the
-    arguments' signature last) and start a fit on it."""
+    arguments' signature last) and start a fit on it; ``program`` and
+    the signature are what the program store journals."""
     cap = _LOOP_CACHE.get_lru(cache_key)
     stats = {"device": str(device), "captures": 0, "replays": 0,
              "fetches": 0, "full": 0, "probe": 0}
@@ -555,7 +565,7 @@ def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
         stats["captures"] = len(cap.graphs)
         stats["full"] = 1
         bucketing.note_program(
-            kind, cache_key[0], cache_key[-1],
+            kind, program, cache_key[-1],
             captured={"graphs": len(cap.graphs), **{
                 f"{k}.{fn.__name__}": n
                 for k, ns in getattr(cap, "recorded", {}).items()
@@ -563,7 +573,7 @@ def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
         handle = handle_cls(cap, kind, stats)
         cap.request_flags()
     else:
-        bucketing.note_program(kind, cache_key[0], cache_key[-1])
+        bucketing.note_program(kind, program, cache_key[-1])
         if cap.pending is not None:
             cap.pending.fetch()   # the statics are busy: finish that fit
         with telemetry.span(f"{kind}.program", kind="replay"):
@@ -576,7 +586,8 @@ def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
 
 def run_damped(full, deltas0, operands, *, key, probe=None, maxiter=20,
                min_chi2_decrease=1e-3, max_step_halvings=8,
-               kind="device_loop", stats: dict | None = None):
+               kind="device_loop", stats: dict | None = None,
+               program=None):
     """Run a fused damped fit to its end.
 
     The return contract of :func:`pint_tpu_torch.fitting.damped
@@ -588,7 +599,7 @@ def run_damped(full, deltas0, operands, *, key, probe=None, maxiter=20,
     handle = dispatch_damped(
         full, deltas0, operands, key=key, probe=probe, maxiter=maxiter,
         min_chi2_decrease=min_chi2_decrease,
-        max_step_halvings=max_step_halvings, kind=kind)
+        max_step_halvings=max_step_halvings, kind=kind, program=program)
     deltas, info, chi2, converged, counters = handle.fetch()
     if stats is not None:
         stats.update(handle.stats)
@@ -894,11 +905,13 @@ class InFlightBatchedFit(InFlightFit):
 def dispatch_damped_batched(run, deltas0, operands, *, key, probe=None,
                             maxiter=20, min_chi2_decrease=1e-3,
                             max_step_halvings=8,
-                            kind="device_loop_batched") -> InFlightBatchedFit:
+                            kind="device_loop_batched",
+                            program=None) -> InFlightBatchedFit:
     """Start a fused batched fit (:func:`dispatch_damped` for
     :class:`BatchedLoop`): ``deltas0`` holds (B,) tensors, ``run`` and
     ``probe`` evaluate every member at once. The batch's shape is in
-    the loop cache's key through the arguments' signature."""
+    the loop cache's key through the arguments' signature; ``program``
+    is as there."""
     device = next(t for t in pytree.tree_leaves((deltas0, operands))
                   if isinstance(t, torch.Tensor)).device
     record = recorder.enabled()
@@ -908,20 +921,21 @@ def dispatch_damped_batched(run, deltas0, operands, *, key, probe=None,
     return _dispatch(lambda: build_batched_loop(run, probe, record=record),
                      cache_key, deltas0, operands, device,
                      (maxiter, min_chi2_decrease, max_step_halvings), kind,
-                     InFlightBatchedFit)
+                     InFlightBatchedFit, program)
 
 
 def run_damped_batched(run, deltas0, operands, *, key, probe=None,
                        maxiter=20, min_chi2_decrease=1e-3,
                        max_step_halvings=8, kind="device_loop_batched",
-                       stats: dict | None = None):
+                       stats: dict | None = None, program=None):
     """Run a fused batched fit to its end: ``(deltas, info, chi2,
     converged, counters)`` on the host, chi2 and converged (B,) numpy
     arrays. ``stats`` receives the fit's captures, replays and fetches."""
     handle = dispatch_damped_batched(
         run, deltas0, operands, key=key, probe=probe, maxiter=maxiter,
         min_chi2_decrease=min_chi2_decrease,
-        max_step_halvings=max_step_halvings, kind=kind)
+        max_step_halvings=max_step_halvings, kind=kind,
+        program=program)
     out = handle.fetch()
     if stats is not None:
         stats.update(handle.stats)
@@ -962,6 +976,8 @@ def dense_wls_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
         model.zero_deltas(device=dev), (model.base_dd(dev), sigma),
         probe=lambda d, ops: probe(ops[0], d, toas_b, ops[1]),
         key=("dense_wls", id(step), id(probe), id(toas_b)),
+        program=("dense_wls", model._fn_fingerprint(),
+                 tuple(model.free_params)),
         maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_wls",
         stats=stats)
@@ -1009,6 +1025,8 @@ def dense_gls_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
         model.zero_deltas(device=dev), (model.base_dd(dev), noise),
         probe=lambda d, ops: probe(ops[0], d, toas_b, ops[1]),
         key=("dense_gls", id(step), id(probe), id(toas_b)),
+        program=("dense_gls", model._fn_fingerprint(),
+                 tuple(model.free_params), pl_specs),
         maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_gls",
         stats=stats)
@@ -1056,6 +1074,8 @@ def dense_wideband_fit(toas, model, *, maxiter=20, min_chi2_decrease=1e-3,
         model.zero_deltas(device=dev), (model.base_dd(dev), noise, dm),
         probe=lambda d, ops: probe(ops[0], d, toas_b, ops[1], ops[2]),
         key=("dense_wb", id(step), id(probe), id(toas_b)),
+        program=("dense_wb", model._fn_fingerprint(),
+                 tuple(model.free_params), pl_specs),
         maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_wb",
         stats=stats)

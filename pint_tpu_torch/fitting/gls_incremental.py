@@ -323,6 +323,7 @@ def dispatch_gls_incremental(model, toas_append, state, *, names,
     return InFlightGlsIncrUpdate(device_loop.dispatch_damped(
         step, u0, (model.base_dd(dev), leaves, noise_k, state), probe=probe,
         key=("gls_incr", id(step), id(probe)), maxiter=maxiter,
+        program=("gls_incr", model._fn_fingerprint(), key),
         min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_gls_incr"))
 

@@ -273,6 +273,9 @@ class HybridGLSFitter(Fitter):
                 probe=lambda d, b: self._chi2_at(b, d),
                 key=("hybrid", id(self), gls_step.ds32_gram,
                      self.model.structure_key()),
+                program=("hybrid", self.model._fn_fingerprint(),
+                         tuple(self._names),
+                         gls_step.ds32_gram.__qualname__),
                 maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
                 kind="hybrid", stats=self.loop_stats)
             self.counters.update(counters)

@@ -423,6 +423,8 @@ def dispatch_incremental(model, toas_append, state, *, names, maxiter=20,
     return InFlightIncrUpdate(device_loop.dispatch_damped(
         step, u0, (model.base_dd(dev), leaves, sigma, state),
         probe=probe, key=("incr", id(step), id(probe)),
+        program=("incr", model._fn_fingerprint(), names,
+                 layout_key(stacked)),
         maxiter=maxiter, min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings, kind="device_loop_incr"))
 
@@ -476,6 +478,8 @@ def dispatch_incremental_batch(members, *, maxiter=20, min_chi2_decrease=1e-3,
     return InFlightIncrBatch(device_loop.dispatch_damped_batched(
         step, u0, (base, stacked.leaves, sigma, state), probe=probe,
         key=("incr_batch", id(step), id(probe)), maxiter=maxiter,
+        program=("incr_batch", lead._fn_fingerprint(), names,
+                 layout_key(stacked)),
         min_chi2_decrease=min_chi2_decrease,
         max_step_halvings=max_step_halvings,
         kind="device_loop_incr_batch"), n_real)

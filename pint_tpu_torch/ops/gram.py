@@ -17,7 +17,10 @@ compute the same thing. The relative error is about
 tensor on the card and runs :func:`ds32_gram_reference`, the same
 arithmetic in PyTorch operators, for a tensor on the CPU. The kernel is
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at
-the root of the checkout and loaded with ``ctypes``.
+the root of the checkout (``build/<tag>`` after
+:func:`pint_tpu_torch.compile_cache.enable_persistent_cache`) and loaded
+with ``ctypes``; with a program store (``PINT_TORCH_PROGRAM_CACHE_DIR``)
+its library is looked up there first (:func:`build`).
 
 :func:`ds32_gram_batched` is the (P, n, q) -> (P, q, q) form: one launch
 computes P Grams (the batch index is the kernel grid's third axis), each
@@ -77,40 +80,132 @@ def _block_rows(n: int) -> tuple[int, int]:
     return bn, -(-n // bn)
 
 
-def library_path(source: Path = SOURCE) -> Path:
-    """Where the built library of `source` lives (keyed by its content)."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+def _arch() -> str:
+    """The target arch of NVCC_FLAGS' ``-gencode`` (``sm_90a``)."""
+    for flag in NVCC_FLAGS:
+        if "code=" in flag:
+            return flag.split("code=")[-1]
+    return ""
 
 
-def build(source: Path = SOURCE) -> tuple[Path, str]:
-    """Compile `source` with nvcc unless its library exists.
+def library_facts() -> dict:
+    """What a library built here is for, recorded beside it in its
+    ``.sha256`` record: the target arch of NVCC_FLAGS, the loading
+    card's compute capability (``"none"`` without a card) and the nvcc
+    version that builds here. A shipped library is installed only where
+    its arch and capability are the loading card's
+    (:meth:`~pint_tpu_torch.programs.store.ProgramStore.adopt_xla`); its
+    nvcc version is a record, not a condition."""
+    from pint_tpu_torch.compile_cache import card_capability, nvcc_version
 
-    Returns (library path, the compiler's output — the ``-Xptxas -v``
-    register and shared-memory report; empty when nothing was built).
-    """
-    out = library_path(source)
-    if out.exists():
-        return out, ""
+    return {"arch": _arch(), "capability": card_capability(),
+            "nvcc": nvcc_version()}
+
+
+def library_key(source: Path = SOURCE) -> str:
+    """What a built library depends on, digested: the source's content,
+    NVCC_FLAGS, their target arch and the loading card's compute
+    capability — the one architecture guard, so a library built for one
+    card is never looked up on another. The nvcc version is not in the
+    key: a library shipped from a host with another nvcc, or to a host
+    with none, is the same program."""
+    from pint_tpu_torch.compile_cache import card_capability
+
+    h = hashlib.sha256(source.read_bytes())
+    for part in (*NVCC_FLAGS, _arch(), card_capability()):
+        h.update(b"\0" + str(part).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(source: Path = SOURCE, build_dir: Path | None = None
+                 ) -> Path:
+    """Where the built library of `source` lives in the build directory
+    (named by :func:`library_key`)."""
+    return (build_dir or BUILD_DIR) / f"lib{source.stem}-{library_key(source)}.so"
+
+
+#: the library this process loaded: its path, sha256 and origin
+#: ("store", "build_dir" or "nvcc"); empty until loaded
+LOADED: dict = {}
+
+
+def _run_nvcc(source: Path, out: str) -> str:
+    """Compile `source` into the shared library `out`; returns nvcc's
+    output (the ``-Xptxas -v`` report). Raises when nvcc fails."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", out, str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _default_store():
+    from pint_tpu_torch.programs.store import store
+
+    return store()
+
+
+def build(source: Path = SOURCE, *, store=None,
+          build_dir: Path | None = None) -> tuple[Path, str]:
+    """The built library of `source`: (path, the compiler's output —
+    the ``-Xptxas -v`` register and shared-memory report; empty when
+    nothing was built).
+
+    The ladder: the program store's kernel tier (`store`, by default
+    the process's ``PINT_TORCH_PROGRAM_CACHE_DIR`` store, ``False`` for
+    none; a library a shipment adopted lands there), then the build
+    directory, then nvcc from source, then raise. A file whose size or
+    digest differs from its ``.sha256`` record (truncated, corrupt, or
+    written by an older build without one) is removed, counted
+    (``programs.store.corrupt`` in the store, ``programs.kernel.corrupt``
+    in the build directory) and rebuilt; nothing falls back to the plain
+    version. What is built or found in the build directory is put in the
+    store. ``programs.kernel.{store,build_dir,nvcc}`` count where each
+    library came from.
+    """
+    return _build(source, store, build_dir)[:2]
+
+
+def _build(source, store, build_dir) -> tuple[Path, str, str]:
+    """:func:`build`, with the rung the library came from."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.programs import store as _st
+
+    st = _default_store() if store is None else (store or None)
+    bdir = build_dir or BUILD_DIR
+    out = library_path(source, bdir)
+    if st is not None:
+        hit = st.kernel_library(out.name)
+        if hit is not None:
+            telemetry.inc("programs.kernel.store")
+            return hit, "", "store"
+    ok = _st.verified(out)
+    if ok:
+        telemetry.inc("programs.kernel.build_dir")
+        if st is not None:
+            st.put_kernel(out)
+        return out, "", "build_dir"
+    if ok is False:
+        telemetry.inc("programs.kernel.corrupt")
+        _st.discard(out)
+    bdir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=bdir)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        telemetry.inc("programs.kernel.nvcc")
+        log = _run_nvcc(source, tmp)
+        _st.write_sidecar(tmp, out, facts=library_facts())
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    if st is not None:
+        st.put_kernel(out)
+    return out, log, "nvcc"
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _log = build()
+def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.ds32_gram_batched_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -118,6 +213,43 @@ def _library() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def load_library(source: Path = SOURCE, *, store=None,
+                 build_dir: Path | None = None) -> ctypes.CDLL:
+    """Build (:func:`build`) and load the library, recording where it
+    came from in ``LOADED``. One that fails to load (or lacks the launch
+    symbol) is removed from wherever it came from (counted corrupt
+    there) and built again from source; a second failure raises."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.programs import store as _st
+
+    st = _default_store() if store is None else (store or None)
+    for attempt in (0, 1):
+        path, _log, origin = _build(source, st, build_dir)
+        try:
+            lib = _load(path)
+            break
+        except (OSError, AttributeError) as e:
+            if origin == "store":
+                st.discard_kernel(path.name)
+            else:
+                telemetry.inc("programs.kernel.corrupt")
+                if st is not None:
+                    _st.discard(Path(st.kernel_dir) / path.name)
+            _st.discard(library_path(source, build_dir))
+            if attempt:
+                raise RuntimeError(
+                    f"the {source.name} library built from source does "
+                    f"not load: {e}") from e
+    LOADED.update(path=str(path), sha256=_st.file_digest(path)[1],
+                  origin=origin)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return load_library()
 
 
 def _check(A, rank: int = 2, name: str = "ds32_gram") -> None:

@@ -982,7 +982,9 @@ class BatchedPulsarFitter:
                             n_pulsars=len(self.models)):
             handle = device_loop.dispatch_damped_batched(
                 self.run, self.zero_deltas(), self.operands(),
-                probe=self.probe, key=self.loop_key(), maxiter=maxiter,
+                probe=self.probe, key=self.loop_key(),
+                program=(self.union._fn_fingerprint(), self.loop_key()),
+                maxiter=maxiter,
                 min_chi2_decrease=min_chi2_decrease,
                 max_step_halvings=max_step_halvings,
                 kind="device_loop_batched")

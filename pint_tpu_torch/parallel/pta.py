@@ -963,7 +963,11 @@ class PTAGLSFitter:
         key = ("pta", id(self), gls_step.ds32_gram,
                tuple(m.structure_key() for m in self.models))
         D, info, chi2, conv, counters = device_loop.run_damped(
-            self._evaluate, D0, self.operands(), key=key, maxiter=maxiter,
+            self._evaluate, D0, self.operands(), key=key,
+            program=("pta", tuple(m._fn_fingerprint() for m in self.models),
+                     tuple(self.names), self.gw, self.accel,
+                     gls_step.ds32_gram.__qualname__),
+            maxiter=maxiter,
             min_chi2_decrease=min_chi2_decrease,
             max_step_halvings=max_step_halvings, kind="device_loop_pta",
             stats=self.loop_stats)

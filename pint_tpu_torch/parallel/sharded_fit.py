@@ -236,6 +236,8 @@ def _fit(problem, kind, maxiter, min_chi2_decrease, max_step_halvings=8,
             out = device_loop.run_damped(
                 full, deltas0, bases, probe=probe,
                 key=(kind, id(problem)), maxiter=maxiter,
+                program=(kind, model._fn_fingerprint(),
+                         tuple(model.free_params), mesh.size),
                 min_chi2_decrease=min_chi2_decrease,
                 max_step_halvings=max_step_halvings,
                 kind=f"device_loop_{kind}", stats=stats)
@@ -372,6 +374,8 @@ class ShardedServeFitter:
             handle = device_loop.dispatch_damped(
                 full, deltas0, self.bases, probe=probe,
                 key=("sharded_serve", id(self.problem)), maxiter=maxiter,
+                program=("sharded_serve", self.model._fn_fingerprint(),
+                         tuple(self.model.free_params), self.mesh.size),
                 min_chi2_decrease=min_chi2_decrease,
                 max_step_halvings=max_step_halvings,
                 kind="device_loop_sharded_wls")

@@ -29,7 +29,8 @@ def script_init(log_level: str = "INFO") -> torch.device:
     its backend's float64 is inexact or unreachable, there is no
     fallback: a host without a card exits with a message naming
     ``PINT_TORCH_DEVICE=cpu``, and a device whose double-double
-    error-free transforms fail ``dd.self_check`` exits non-zero. Returns
+    error-free transforms fail ``dd.self_check`` exits non-zero. Then
+    the program store is latched (:func:`_touch_program_store`). Returns
     the device every tool then runs on.
     """
     from pint_tpu_torch import config, logging as pint_logging
@@ -46,4 +47,25 @@ def script_init(log_level: str = "INFO") -> torch.device:
             f"dd.self_check failed on {dev}: its float64 error-free "
             "transforms are not exact, so the double-double phase cannot "
             "run there")
+    _touch_program_store()
     return dev
+
+
+def _touch_program_store() -> None:
+    """Point the kernel's build directory at this host and card
+    (:func:`pint_tpu_torch.compile_cache.enable_persistent_cache`) and
+    latch the persistent program store, before the first kernel build.
+
+    With ``PINT_TORCH_PROGRAM_CACHE_DIR`` set, a tool's repeat
+    invocations find the Gram kernel's library in the store's kernel
+    tier instead of building it, and their captures' keys are journaled.
+    Never raises — persistence must not break a console tool.
+    """
+    try:
+        from pint_tpu_torch.compile_cache import enable_persistent_cache
+        from pint_tpu_torch.programs.store import store as _store
+
+        enable_persistent_cache()
+        _store()
+    except Exception:  # noqa: BLE001
+        pass

@@ -146,7 +146,8 @@ def plan_key(fp: tuple, toa_bucket: int, hyper: tuple, devices: int,
 def canonical_repr(obj) -> str:
     """Process-independent text of a fingerprint-shaped value (sets and
     dicts sorted: their iteration order depends on the string hash
-    seed)."""
+    seed). Raises TypeError on a value whose repr is its address (a
+    plain object, a function): no other process could derive it."""
     if isinstance(obj, (set, frozenset)):
         return "{" + ",".join(sorted(canonical_repr(x) for x in obj)) + "}"
     if isinstance(obj, dict):
@@ -158,7 +159,10 @@ def canonical_repr(obj) -> str:
         return "(" + ",".join(canonical_repr(x) for x in obj) + ",)"
     if isinstance(obj, list):
         return "[" + ",".join(canonical_repr(x) for x in obj) + "]"
-    return repr(obj)
+    text = repr(obj)
+    if type(obj).__repr__ is object.__repr__ or " at 0x" in text:
+        raise TypeError(f"{type(obj).__name__} has no value-based repr")
+    return text
 
 
 def short_id(fp: tuple) -> str:

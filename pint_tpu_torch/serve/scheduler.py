@@ -77,10 +77,6 @@ from pint_tpu_torch.serve import fingerprint as _fp
 from pint_tpu_torch.serve import faults as _faults
 from pint_tpu_torch.serve.pipeline import run_pipeline
 
-#: version of :meth:`ThroughputScheduler.metrics_snapshot`'s dict (the
-#: reference's ``telemetry.top.METRICS_SNAPSHOT_VERSION``)
-METRICS_SNAPSHOT_VERSION = 1
-
 #: the request-status taxonomy
 STATUSES = ("ok", "nonconverged", "diverged", "failed", "timed_out",
             "quarantined", "rejected")
@@ -198,7 +194,7 @@ class FitResult:
     injected: str | None = None
     session: str | None = None  # session route token
     host: str | None = None     # serving host id
-    trace_ctx: Any = None       # the request's trace context (or None)
+    trace_ctx: Any = None       # dispatch-hop context (router commit parent)
 
     @property
     def fitted(self) -> bool:
@@ -285,7 +281,7 @@ class PredictResult:
     latency_s: float = 0.0
     error: str | None = None
     host: str | None = None     # serving host id
-    trace_ctx: Any = None       # the read's trace context (or None)
+    trace_ctx: Any = None       # read-hop context (router commit parent)
 
 
 class PredictHandle:
@@ -349,10 +345,26 @@ class BatchPlan:
 
 
 def _program_store_stats() -> dict | None:
-    """Persistent-program-store health for :meth:`report`: None, since
-    the port has no program store yet (the reference's ``programs``
-    package is not ported)."""
-    return None
+    """Persistent-program-store health for :meth:`report`, with the
+    Gram kernel's build counters (``programs.kernel.*`` — where each
+    library came from: the store, the build directory, nvcc; only while
+    telemetry counts) and its loaded library (never raises; None = no
+    store configured)."""
+    try:
+        from pint_tpu_torch.ops import gram
+        from pint_tpu_torch.programs import store_stats
+
+        stats = store_stats()
+        if stats is not None:
+            if telemetry.enabled():
+                c = telemetry.counters_snapshot()
+                stats["kernel_builds"] = {
+                    k: int(c.get(f"programs.kernel.{k}", 0))
+                    for k in ("store", "build_dir", "nvcc", "corrupt")}
+            stats["kernel_loaded"] = dict(gram.LOADED)
+        return stats
+    except Exception:  # noqa: BLE001 — health surface must not fail
+        return None
 
 
 class _FailedBatch:
@@ -491,6 +503,13 @@ class ThroughputScheduler:
 
         self.sessions = (session_cache if session_cache is not None
                          else SessionCache())
+        # durable fleet sessions: replicas stashed HERE by the fleet
+        # router for sessions another host owns (this host is their
+        # ring successor) — adopted on failover instead of a cold
+        # journal replay. FIFO-capped; never consulted on the
+        # single-host path
+        self.replicas: dict[tuple, dict] = {}
+        self.max_replicas = 64
         # the read path: predictions from cached fit state. Artifacts
         # (and their evaluations) live on the last device of the pool
         # (with several cards, reads never queue behind fits); the
@@ -574,6 +593,70 @@ class ThroughputScheduler:
         return job._last_checkpoint or job.checkpoint()
 
     # ------------------------------------------------------------------
+    # durable sessions: the replication/adoption surface
+    # ------------------------------------------------------------------
+    def session_summary(self, key: tuple) -> dict | None:
+        """This host's committed summary for one session key — the
+        replica payload the fleet router ships to the ring successor
+        after a commit: the fitted model (pickled with its exact (hi,
+        lo) double-double values + uncertainties), chi2, append count.
+        Small by design: the accumulated table stays in the router's
+        journal. None when the key holds no committed solution."""
+        import pickle
+
+        e = self.sessions.entries.get(tuple(key))
+        if e is None or e.model is None:
+            return None
+        return {
+            "skey": tuple(key),
+            "model_blob": pickle.dumps(
+                e.model, protocol=pickle.HIGHEST_PROTOCOL),
+            "params": {k: (e.model[k].hi, e.model[k].lo,
+                           e.model[k].uncertainty)
+                       for k in e.model.free_params},
+            "chi2": e.chi2, "appends": e.appends,
+            "n_toas": e.n_toas, "version": e.version,
+        }
+
+    def stash_replica(self, key: tuple, blob: dict) -> None:
+        """Store a replica for a session another host owns (FIFO-capped
+        — replicas are a warm-failover accelerant, never the only copy:
+        the router's journal can always cold-rebuild)."""
+        key = tuple(key)
+        self.replicas.pop(key, None)
+        while len(self.replicas) >= self.max_replicas:
+            self.replicas.pop(next(iter(self.replicas)))
+            telemetry.inc("serve.session.replica_evicted")
+        self.replicas[key] = blob
+        telemetry.inc("serve.session.replica_stashed")
+
+    def adopt_session(self, key: tuple, toas,
+                      replica: dict | None = None) -> dict:
+        """Warm failover: adopt a replicated session as this host's own
+        committed state. The replica comes from the local stash
+        (shipped by the router after each commit) unless passed
+        explicitly; ``toas`` is the journal's accumulated table the
+        replica's solution was fitted to. Returns ``{"adopted": bool,
+        "chi2": float|None, "epoch": int|None}`` — not adopted when no
+        replica is held (the router then cold-replays the journal)."""
+        import pickle
+
+        from pint_tpu_torch.serve import fingerprint as _fpm
+
+        key = tuple(key)
+        blob = replica if replica is not None \
+            else self.replicas.pop(key, None)
+        if blob is None:
+            return {"adopted": False, "chi2": None, "epoch": None}
+        model = pickle.loads(blob["model_blob"])
+        fp = _fpm.structure_fingerprint(model, toas)
+        entry = self.sessions.adopt(key, fp, model, toas,
+                                    chi2=blob["chi2"])
+        return {"adopted": True, "chi2": entry.chi2,
+                "epoch": blob.get("epoch"),
+                "with_state": entry.state is not None}
+
+    # ------------------------------------------------------------------
     # degradation ladder
     # ------------------------------------------------------------------
     def degraded(self) -> bool:
@@ -610,7 +693,8 @@ class ThroughputScheduler:
         """The host health surface: queue depths, the ladder state, the
         EWMA drain rate and the process's capture count (fit-program
         cache misses). Cheap and side-effect-free, callable between
-        drains. ``programs`` is None: the port has no program store."""
+        drains. ``programs`` is the program store's health with the Gram
+        kernel's build counts (None without a store)."""
         from pint_tpu_torch.telemetry.counters import counter_value
 
         return {
@@ -623,6 +707,7 @@ class ThroughputScheduler:
             "drain_rate": self._drain_rate,
             "devices": self.n_devices,
             "sessions": len(self.sessions.entries),
+            "replicas": len(self.replicas),
             "catalog_jobs": sum(
                 1 for j in self.catalog_jobs.values()
                 if j.state not in ("done", "failed")),
@@ -633,12 +718,13 @@ class ThroughputScheduler:
         }
 
     def metrics_snapshot(self) -> dict:
-        """The live snapshot: one versioned dict (its own copy of the
-        reference's version constant) with :meth:`report`'s health
-        surface, the counter and gauge registries, the SLO ledger and the
-        trace ids in flight. Cheap and side-effect-free (no drain, no
+        """The live snapshot: one versioned dict (version
+        :data:`pint_tpu_torch.telemetry.top.METRICS_SNAPSHOT_VERSION`)
+        with :meth:`report`'s health surface, the counter and gauge
+        registries, the SLO ledger and the trace ids in flight. Cheap and side-effect-free (no drain, no
         device work)."""
         from pint_tpu_torch import telemetry as _t
+        from pint_tpu_torch.telemetry.top import METRICS_SNAPSHOT_VERSION
 
         inflight = sorted(
             {req.trace_ctx.trace_id
@@ -706,6 +792,18 @@ class ThroughputScheduler:
                 request = dataclasses.replace(request, toas=toas,
                                               model=model)
                 telemetry.inc(f"serve.fault.injected.{injected}")
+        if request.trace_ctx is None:
+            # single-host use: the trace is born HERE (fleet requests
+            # arrive with the router's root already attached)
+            request.trace_ctx = telemetry.trace.begin(
+                "submit", host=self.host_id or None, lane="fit")
+        else:
+            # fleet intake: the accept hop pins THIS process into the
+            # request's trace at admission — flushed per worker op, it
+            # survives even a SIGKILL before the fit dispatches
+            request.trace_ctx = telemetry.trace.hop(
+                request.trace_ctx, "accept",
+                host=self.host_id or None) or request.trace_ctx
         if request.session_id is not None:
             # sessionful request: resolve the cache key once
             # on the enqueue path; admission backpressure for NEW
@@ -780,6 +878,13 @@ class ThroughputScheduler:
             raise ServeQueueFull(
                 depth=len(self._read_queue), max_queue=cap,
                 retry_after_s=0.05)
+        if request.trace_ctx is None:
+            request.trace_ctx = telemetry.trace.begin(
+                "submit", host=self.host_id or None, lane="read")
+        else:
+            request.trace_ctx = telemetry.trace.hop(
+                request.trace_ctx, "accept",
+                host=self.host_id or None) or request.trace_ctx
         handle = PredictHandle()
         self._read_queue.append((request, handle, time.perf_counter()))
         telemetry.inc("serve.requests")
@@ -814,6 +919,10 @@ class ThroughputScheduler:
         from pint_tpu_torch.serve import fingerprint as _fpm
 
         telemetry.inc("serve.read.requests")
+        if request.trace_ctx is None:
+            # the synchronous fast lane never passed through submit
+            request.trace_ctx = telemetry.trace.begin(
+                "submit", host=self.host_id or None, lane="read")
         t0 = time.perf_counter()
         try:
             n = int(np.atleast_1d(np.asarray(request.mjds)).size)
@@ -869,7 +978,9 @@ class ThroughputScheduler:
             cache_hit=bool(out is not None and out.cache_hit),
             n_queries=n, latency_s=round(latency, 9), error=error,
             host=self.host_id or None)
-        res.trace_ctx = request.trace_ctx
+        res.trace_ctx = telemetry.trace.hop(
+            request.trace_ctx, "read", host=self.host_id or None,
+            status=status, latency_s=round(latency, 6))
         telemetry.slo.observe("read", latency, missed=status != "ok")
         self._read_stats.append({
             "latency_s": latency, "service_s": service_s,
@@ -1202,7 +1313,11 @@ class ThroughputScheduler:
             error = (f"deadline_s={req.deadline_s:g} exceeded "
                      f"(latency {t_done - t_sub:.3f}s); the completed "
                      "fit is attached")
-        hop_ctx = req.trace_ctx
+        # the dispatch hop: this host served the request — the result
+        # carries the hop back so the router's commit parents under it
+        hop_ctx = telemetry.trace.hop(
+            req.trace_ctx, "dispatch", host=self.host_id or None,
+            status=status, queue_latency_s=round(t_done - t_sub, 6))
         res = FitResult(
             tag=req.tag, request=req, chi2=float(chi2),
             converged=bool(converged),
@@ -1481,6 +1596,16 @@ class ThroughputScheduler:
         def _dispatch(state):
             if isinstance(state, _FailedBatch):
                 return state
+            # tag what runs under this launch with the plan's
+            # fingerprint short id: stored artifacts then carry the fp8
+            # the fleet router's warm-set/popularity stats use, which
+            # the join handshake filters shipments on
+            from pint_tpu_torch.programs.key import serve_fp8
+
+            with serve_fp8(state.plan.group):
+                return _dispatch_inner(state)
+
+        def _dispatch_inner(state):
             plan = state.plan
             while True:
                 try:
@@ -1665,8 +1790,11 @@ class ThroughputScheduler:
                     # the deferred async-dispatch error surfaces at this
                     # sync; one retry "attempt" = fresh dispatch + fetch
                     if state.handle is None:
-                        state.handle = state.fitter.dispatch_fit(
-                            **state.hyper)
+                        from pint_tpu_torch.programs.key import serve_fp8
+
+                        with serve_fp8(plan.group):
+                            state.handle = state.fitter.dispatch_fit(
+                                **state.hyper)
                     chi2 = np.asarray(state.handle.finish(), dtype=float)
                     break
                 except Exception as e:  # noqa: BLE001

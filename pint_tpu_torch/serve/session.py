@@ -358,6 +358,46 @@ class SessionCache:
         telemetry.set_gauge("serve.session.bytes", self.bytes_in_use)
         return True
 
+    def adopt(self, key: tuple, fp: tuple, model, toas,
+              chi2: float) -> SessionEntry:
+        """Install a REPLICATED committed solution as this cache's own
+        state (fleet warm failover): the ring successor receives the
+        dead host's small summary (fitted model, chi2) plus the
+        journal's accumulated table and adopts it as if its own populate
+        had committed it — including the device snapshot when the model
+        is inside the incremental step's domain, so the next append
+        takes the rank-k path. Gates reset: the adopted point is a
+        converged solution, the same fresh start a populate commit
+        gives."""
+        e = self.entry_for(key, fp)
+        e.model = model
+        e.toas = toas
+        e.pending = []
+        e.n_toas = len(toas)
+        e.appends = 0
+        e.drift = 0.0
+        e.chi2 = float(chi2)
+        try:
+            family = _session_family(model, toas)
+        except Exception:  # noqa: BLE001 — snapshot is an optimization
+            family = None
+        if family is not None:
+            if family == "gls":
+                from pint_tpu_torch.fitting import gls_incremental as _mod
+            else:
+                from pint_tpu_torch.fitting import incremental as _mod
+
+            snap = _mod.snapshot_state(model, toas)
+            e.names, e.off = snap["names"], snap["off"]
+            e.family = family
+            self.commit_state(key, snap["state"], snap["bytes"])
+        else:
+            self.commit_state(key, None, 0)
+            e.names, e.off, e.family = None, 0, None
+        self.notify_commit(key)
+        telemetry.inc("serve.session.adopted")
+        return e
+
     def stats(self) -> dict:
         with_state = sum(1 for e in self.entries.values()
                          if e.state is not None)

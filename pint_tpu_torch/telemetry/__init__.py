@@ -15,17 +15,21 @@ Counterpart of ``pint_tpu.telemetry``'s core:
   artifact and the end-of-run summary (:mod:`.export`);
 * :mod:`.recorder`: the flight recorder, per-evaluation traces of the
   damped fits;
-* :mod:`.trace`: the request-trace context spans are stamped with;
-* :mod:`.slo`: per-class latency objectives and their burn counters.
+* :mod:`.trace`: distributed request traces — contexts, ``type="hop"``
+  records across router, workers and scheduler, and the assembler;
+* :mod:`.slo`: per-class latency objectives and their burn counters;
+* ``python -m pint_tpu_torch.telemetry.report`` (:mod:`.report`), the
+  run-health report over artifacts; ``python -m
+  pint_tpu_torch.telemetry.top`` (:mod:`.top`), the live view of a
+  running fleet; ``python -m pint_tpu_torch.telemetry.probe``
+  (:mod:`.probe`), the CUDA liveness probe.
 
 Off (the default unless ``PINT_TORCH_TELEMETRY=1`` or an entry point
 calls :func:`configure`), every hook is a boolean check and return, so
 the fit loops stay instrumented. ``PINT_TORCH_TELEMETRY=0`` is a kill
 switch that beats ``configure(enabled=True)``. No hook runs inside a
 captured graph: the fused loop bumps its counters on the host, from the
-flags and results it fetches anyway. The reference's report CLI, live
-``top`` view and fleet hops wait for the serving tier (ROADMAP Queue 1
-item 6); its backend probe has no counterpart.
+flags and results it fetches anyway.
 
 The telemetry modules import only the standard library at import time.
 """

@@ -34,6 +34,11 @@ class LRUCache(OrderedDict):
         the original owner, derived data that the copy rebuilds."""
         return type(self)(self.maxsize, self.name)
 
+    def __reduce__(self):
+        """A pickled cache unpickles empty, for the same reason (a model
+        crosses the fleet wire and its journal without its closures)."""
+        return type(self), (self.maxsize, self.name)
+
     def get_lru(self, key):
         """Value for ``key`` (refreshing its recency) or None."""
         val = self.get(key)

@@ -1,7 +1,7 @@
 """Catalogs of the port against tests/test_catalog.py.
 
-Mirrors the reference's 11 cases that need no scheduler, fleet or
-report (ROADMAP Queue 1 item 6 holds the other four): generator
+Mirrors the reference's cases but its two fleet cases (those run in
+tests/test_torch_fleet.py): generator
 determinism and mix, the joint fit through the job against the dense
 oracle, progress records, checkpoint and resume, the hypergrid's one
 capture and per-point parity, its job mode, the pulsar-major stacked
@@ -421,3 +421,42 @@ def test_scheduler_serves_reads_and_fits_during_catalog(monkeypatch):
                                         min_chi2_decrease=0.0, **GW), "alone"))
     job = next(iter(s.catalog_jobs.values()))
     assert job.chi2 == pytest.approx(alone.chi2, rel=1e-12)
+
+
+def test_report_catalog_section_and_graceful_degradation(tmp_path):
+    import os
+
+    from pint_tpu.telemetry.report import build_summary as jbuild_summary
+    from pint_tpu_torch.telemetry.report import build_summary, render
+
+    mini = os.path.join(os.path.dirname(__file__), "data",
+                        "telemetry_mini.jsonl")
+    summary = build_summary([mini], None, [], 25.0)
+    assert summary["catalog"]["events"] == 0
+    assert "catalog workloads" not in render(summary)
+    path = str(tmp_path / "cat.jsonl")
+    recs = [
+        {"type": "longjob", "kind": "catalog_fit", "job": "cat-1",
+         "host": "w0", "state": "running", "event": "iteration",
+         "iter": i, "accepts": i, "chi2": 100.0 - i,
+         "checkpoints": i + 1, "resumes": 0, "lam": 1.0,
+         "accepted": True, "halvings": 0, "wall_s": 0.5,
+         "n_pulsars": 4, "ntoas": 192}
+        for i in range(1, 4)
+    ] + [{"type": "longjob", "kind": "catalog_fit", "job": "cat-1",
+          "host": "w1", "state": "running", "event": "iteration",
+          "iter": 4, "accepts": 4, "chi2": 95.0, "checkpoints": 5,
+          "resumes": 1, "lam": 1.0, "accepted": True, "halvings": 0,
+          "wall_s": 0.4, "n_pulsars": 4, "ntoas": 192}]
+    with open(path, "w") as fh:
+        for r in recs:
+            fh.write(json.dumps(r) + "\n")
+    summary = build_summary([path], None, [], 25.0)
+    ct = summary["catalog"]
+    assert ct == jbuild_summary([path], None, [], 25.0)["catalog"]
+    assert ct["events"] == 4 and ct["total_iterations"] == 4
+    assert ct["resumes"] == 1 and ct["p50_iter_wall_s"] is not None
+    [job] = ct["jobs"]
+    assert job["hosts"] == ["w0", "w1"]
+    text = render(summary)
+    assert "catalog workloads" in text and "cat-1" in text

@@ -2,7 +2,7 @@
 
 The port's scheduler (:mod:`pint_tpu_torch.serve.scheduler`) and fault
 injector (:mod:`pint_tpu_torch.serve.faults`) on the reference's cases
-(tests/test_faults.py but its report case): a NaN member is retried
+(tests/test_faults.py): a NaN member is retried
 once and quarantined with its trace while its co-members keep their
 clean-drain bits; a prep fault salvages every member; a transient
 device error is retried, a persistent one salvaged; deadlines at
@@ -10,7 +10,8 @@ formation and after the fetch; a passthrough that raises fails at once;
 the degradation ladder trips, isolates, sheds and heals. The same
 stream and plan through the reference gives the same statuses and
 attempts, chi2 within 1e-9 relative. The transient classifier knows
-CUDA's errors.
+CUDA's errors. The report's failure-domains section renders the same
+summary as the reference's on the same records.
 """
 
 import time
@@ -351,3 +352,37 @@ def test_singular_member_resolves_as_the_reference(table):
     jres, res, _delta, _s = _drain_both(jreqs, reqs)
     _same_outcomes(jres, res)
     assert [(r.status, r.attempts) for r in res] == [("ok", 1)] * 4
+
+
+def test_report_failure_domains_section(tmp_path, capsys):
+    import json
+
+    from pint_tpu.telemetry import report as jreport
+    from pint_tpu_torch.telemetry import report
+
+    recs = [
+        {"type": "fault", "status": "quarantined", "tag": "'q1'",
+         "group": "g", "attempts": 2, "injected": "nan_toas",
+         "error": "diverged in batch; retry also diverged",
+         "trace": {"chi2": [1.0, float("nan")], "lam": [0.0, 1.0],
+                   "accepted": [False, False]}},
+        {"type": "fault", "status": "failed", "tag": "'f1'",
+         "attempts": 3, "error": "boom"},
+        {"type": "rollup", "schema": 3,
+         "counters": {"serve.quarantine.count": 1,
+                      "serve.retry.dispatch": 2,
+                      "serve.fault.prep": 1, "cache.x.hit": 5}},
+    ]
+    p = tmp_path / "run.jsonl"
+    p.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    assert report.main([str(p)]) == 0
+    out = capsys.readouterr().out
+    assert "failure domains" in out
+    assert "quarantined" in out and "serve.retry.dispatch" in out
+    summary = report.build_summary([str(p)], None, [], 25.0)
+    assert summary["faults"] == jreport.build_summary(
+        [str(p)], None, [], 25.0)["faults"]
+    assert summary["faults"]["by_status"] == {"quarantined": 1,
+                                              "failed": 1}
+    assert summary["faults"]["recent"][0]["has_trace"]
+    assert "cache.x.hit" not in summary["faults"]["counters"]

@@ -353,13 +353,21 @@ TELEMETRY_AND_PARALLEL_MODULES = (
     "pint_tpu_torch.serve.fingerprint", "pint_tpu_torch.serve.faults",
     "pint_tpu_torch.serve.pipeline", "pint_tpu_torch.serve.session",
     "pint_tpu_torch.serve.scheduler", "pint_tpu_torch.predict",
-    "pint_tpu_torch.predict.cache", "pint_tpu_torch.predict.engine")
+    "pint_tpu_torch.predict.cache", "pint_tpu_torch.predict.engine",
+    "pint_tpu_torch.compile_cache", "pint_tpu_torch.programs",
+    "pint_tpu_torch.programs.key", "pint_tpu_torch.programs.store",
+    "pint_tpu_torch.programs.ship", "pint_tpu_torch.telemetry.top",
+    "pint_tpu_torch.telemetry.report", "pint_tpu_torch.telemetry.probe",
+    "pint_tpu_torch.fleet", "pint_tpu_torch.fleet.__main__",
+    "pint_tpu_torch.fleet.durability", "pint_tpu_torch.fleet.transport",
+    "pint_tpu_torch.fleet.router", "pint_tpu_torch.fleet.worker")
 
 
 def test_telemetry_and_parallel_import_no_jax_or_the_reference():
     """The telemetry core, the many-pulsar modules, the PTA joint fit,
-    the catalogs, pintk, the incremental fits, the serving tier and the
-    read path load without JAX or the reference in the process, and
+    the catalogs, pintk, the incremental fits, the serving tier, the
+    read path, the program store, the rest of telemetry and the fleet
+    load without JAX or the reference in the process, and
     import neither."""
     code = (
         "import importlib, sys\n"

@@ -2,7 +2,7 @@
 
 The port's engine (:mod:`pint_tpu_torch.predict.engine`), segment cache
 and read service, and the scheduler's read lane, on the reference's
-cases (tests/test_predict.py but its report case), on CPU torch:
+cases (tests/test_predict.py), on CPU torch:
 
 * a window's coefficients within ``COEFF_PARITY_CYCLES`` of the
   reference engine's (each coefficient's contribution |dc_p| tscale^p),
@@ -16,7 +16,8 @@ cases (tests/test_predict.py but its report case), on CPU torch:
   model; the kill switch's host path), the cache's LRU and budget, and
   invalidation on commit;
 * the read lane: it never touches the fit loop, the two-tier drain, the
-  read SLA, structured errors, sessionless reads, the read record.
+  read SLA, structured errors, sessionless reads, the read record and
+  the report's read-path section.
 """
 
 import copy
@@ -323,3 +324,27 @@ def test_read_record_and_counters(served):
     assert counters.get("serve.read.cache_hits") == 2
     assert counters.get("serve.read.status.ok") == 2
     assert slo["total"] == 2
+
+
+def test_report_cli_read_section(served):
+    from pint_tpu_torch.telemetry import report
+
+    s, mjds = served
+    s.predict(PredictRequest(mjds, session_id="read"))
+    s.read_stats()
+    records = [dict(s.last_read),
+               {"type": "rollup", "counters": {"serve.read.host_path": 1}}]
+    rd = report.read_summary(records)
+    assert rd["records"] == 1 and rd["requests"] >= 1
+    assert rd["p50_s"] is not None
+    assert rd["counters"] == {"serve.read.host_path": 1}
+    summary = {"sources": [], "spans": [], "traces": [], "programs": [],
+               "serve": [], "passthrough": report.passthrough_rollup([]),
+               "sessions": report.sessions_summary([]), "reads": rd,
+               "mesh": report.mesh_summary([]),
+               "faults": report.fault_summaries([]), "caches": {},
+               "pollution": report.pollution_windows([])}
+    text = report.render(summary)
+    assert "read path" in text and "segment-cache hit rate" in text
+    summary["reads"] = report.read_summary([])
+    assert "(no read records)" in report.render(summary)

@@ -2,8 +2,8 @@
 
 ``pint_tpu_torch.serve`` (the throughput scheduler, its pipeline and
 fingerprints) held, on CPU torch, to the reference's cases
-(tests/test_serve.py, test_serve_frontier.py and test_serve_mesh.py but
-the report case) on the same inputs: barycentric tables simulated by
+(tests/test_serve.py, test_serve_frontier.py and test_serve_mesh.py) on
+the same inputs: barycentric tables simulated by
 the reference and carried to the port. The port's pool is eight CPU
 slots (``devices=["cpu"] * 8``), as the reference's is the eight-device
 virtual CPU platform of tests/conftest.py. The same stream through both
@@ -573,19 +573,55 @@ def test_grid_members_x_toas_when_pool_has_spare(tables):
 
 
 def test_report_and_metrics_snapshot_surface(tables):
-    """The health surface holds the reference's keys (but its fleet
-    replicas); ``programs`` is None (no program store yet); the
-    snapshot's version is the reference's constant."""
+    """The health surface holds the reference's keys; ``programs`` is
+    None without a program store; the snapshot's version is the
+    reference's constant."""
     from pint_tpu.telemetry.top import METRICS_SNAPSHOT_VERSION
 
     js, s = _both([_pair(tables["a"])], max_queue=4)
     js.drain()
     s.drain()
     rep, jrep = s.report(), js.report()
-    assert set(rep) == set(jrep) - {"replicas"}
+    assert set(rep) == set(jrep)
     assert rep["programs"] is None
     assert (rep["queue_depth"], rep["sessions"], rep["degraded"]) == (
         jrep["queue_depth"], jrep["sessions"], jrep["degraded"])
     snap = s.metrics_snapshot()
     assert snap["version"] == METRICS_SNAPSHOT_VERSION
-    assert set(snap) == set(js.metrics_snapshot()) - {"replicas"}
+    assert set(snap) == set(js.metrics_snapshot())
+
+
+def test_report_mesh_section(tables):
+    """The drain record's mesh block rolls up into the report's mesh
+    section (the reference's summary of its own drain of the same
+    stream), including the >2x occupancy-skew warning."""
+    from pint_tpu.telemetry import report as jreport
+    from pint_tpu_torch.telemetry import report
+
+    js, s = _both([_pair(tables["a"], tag=i, maxiter=6) for i in range(6)],
+                  max_queue=8)
+    js.drain()
+    s.drain()
+    summary = report.mesh_summary([dict(s.last_drain)])
+    jsummary = jreport.mesh_summary([dict(js.last_drain)])
+    assert summary["devices"] == 8 and summary["drains"] == 1
+    assert summary["member_sharded"] == jsummary["member_sharded"] == 1
+    assert sum(summary["per_device_members"]) == 6
+    assert summary["per_device_slots"] == jsummary["per_device_slots"]
+    assert summary["skew_warning"] is False
+    skewed = {"type": "serve", "mesh": {
+        "devices": 2, "per_device_members": [4, 1],
+        "per_device_occupancy": [1.0, 0.25],
+        "per_device_bytes": [100, 100],
+        "member_sharded": 1, "toa_sharded": 0}}
+    lop = report.mesh_summary([skewed])
+    assert lop == jreport.mesh_summary([skewed])
+    assert lop["skew_warning"] is True and lop["occupancy_skew"] == 4.0
+    text = report.render({
+        "sources": [], "spans": [], "traces": [], "programs": [],
+        "serve": [], "mesh": lop,
+        "faults": {"events": 0, "by_status": {}, "quarantined": 0,
+                   "recent": [], "counters": {}},
+        "caches": {}, "pollution": {"samples": 0, "polluted_samples": 0,
+                                    "windows": []}})
+    assert "WARNING: occupancy skew" in text

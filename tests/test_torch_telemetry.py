@@ -13,10 +13,12 @@ log level. Added for the port: the fused loop's counters equal the host
 loop's, telemetry off leaves a fit without records or counters, and no
 hook runs inside a loop body (what the card captures).
 
-Left out, with no port counterpart yet: the report CLI case
-(test_telemetry.py:452, ``telemetry/report.py``, ROADMAP Queue 1 item 6)
-and the subprocess cases from :522 (the TPU liveness probe, which has no
-card counterpart, and ``bench.py --smoke``, the reference's bench).
+The report CLI over the reference's checked-in mini artifact (every
+section rendered, the same summary dict as the reference's
+``build_summary``, the verdict's exit codes) and the CUDA liveness probe
+(on a host without a card: a written record and a non-zero exit) are
+subprocess cases with timeouts of their own. Left out: ``bench.py
+--smoke`` (the reference's bench; the port has none yet).
 """
 
 from __future__ import annotations
@@ -622,3 +624,108 @@ def test_slo_observe_is_noop_when_off():
     slo.observe("longjob", 1e9, missed=True)
     telemetry.configure(enabled=True)
     assert slo.snapshot()["longjob"]["total"] == 0
+
+
+# ----------------------------------------------------------------------
+# the report CLI and the probe (subprocesses)
+# ----------------------------------------------------------------------
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                       "telemetry_mini.jsonl")
+
+
+def _run(module, args, timeout=60):
+    import subprocess
+    import sys
+
+    return subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+
+
+def test_report_summary_matches_reference_on_the_fixture():
+    """One fixed records file: the port's summary dict is the
+    reference's, section for section."""
+    from pint_tpu.telemetry import report as jreport
+    from pint_tpu_torch.telemetry import report
+
+    ours = report.build_summary([FIXTURE], None, [], 25.0)
+    theirs = jreport.build_summary([FIXTURE], None, [], 25.0)
+    assert json.loads(json.dumps(ours, default=str)) == \
+        json.loads(json.dumps(theirs, default=str))
+    assert report.render(ours).splitlines()[1:] != []
+
+
+def test_report_cli_fixture_and_verdict(tmp_path):
+    mod = "pint_tpu_torch.telemetry.report"
+    proc = _run(mod, [FIXTURE])
+    assert proc.returncode == 0, proc.stderr[-500:]
+    for section in ("span tree", "flight recorder", "program accounting",
+                    "cache hit rates", "host pollution",
+                    "bench regression verdict"):
+        assert section in proc.stdout, section
+    assert "device_loop_gls [device]" in proc.stdout
+    assert "host_loop [host]" in proc.stdout
+    hist = tmp_path / "hist.json"
+    hist.write_text(json.dumps({"metric": "m", "value": 1.0,
+                                "contended": False}))
+    recs = {name: tmp_path / f"{name}.json" for name in ("ok", "bad",
+                                                          "cont")}
+    recs["ok"].write_text(json.dumps({"metric": "m", "value": 1.1,
+                                      "contended": False}))
+    recs["bad"].write_text(json.dumps({"metric": "m", "value": 1.6,
+                                       "contended": False}))
+    recs["cont"].write_text(json.dumps({"metric": "m", "value": 9.0,
+                                        "contended": True}))
+    proc = _run(mod, [FIXTURE, "--bench", str(recs["ok"]), "--history",
+                      str(hist)])
+    assert proc.returncode == 0 and "bench_verdict: ok" in proc.stdout
+    proc = _run(mod, ["--bench", str(recs["bad"]), "--history", str(hist)])
+    assert proc.returncode == 1 and "bench_verdict: regressed" in proc.stdout
+    proc = _run(mod, ["--bench", str(recs["cont"]), "--history",
+                      str(hist)])
+    assert proc.returncode == 0
+    assert "bench_verdict: skipped-contended" in proc.stdout
+    assert _run(mod, []).returncode == 2
+    assert _run(mod, [str(tmp_path / "missing.jsonl")]).returncode == 2
+
+
+def test_report_reads_the_ports_capture_records(tmp_path):
+    """The port's spans (capture/replay kinds) fill the compile/execute
+    columns, and its program records (graphs, recorded launches) the
+    program section."""
+    from pint_tpu_torch.telemetry import report
+
+    path = str(tmp_path / "run.jsonl")
+    telemetry.configure(enabled=True, jsonl_path=path)
+    for _ in range(3):
+        with spans.graph_span("loop.program"):
+            pass
+    recorder.capture_program("device_loop", shape=(64,), fingerprint=1,
+                             graphs=2, **{"full.ds32_gram": 3})
+    telemetry.flush()
+    summary = report.build_summary([path], None, [], 25.0)
+    [node] = [n for n in summary["spans"] if n["name"] == "loop.program"]
+    assert (node["compile_count"], node["execute_count"]) == (1, 2)
+    [prog] = summary["programs"]
+    assert prog["graphs"] == 2 and prog["launches"] == {
+        "full.ds32_gram": 3}
+    assert "graphs=2 full.ds32_gram=3" in report.render(summary)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the probe on a host without CUDA")
+def test_probe_without_a_card_exits_nonzero_with_its_record(tmp_path):
+    path = str(tmp_path / "probe.jsonl")
+    proc = _run("pint_tpu_torch.telemetry.probe",
+                ["--timeout", "50", "--jsonl", path])
+    assert proc.returncode == 1, proc.stderr[-500:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["alive"] is False and rec["n"] == 0
+    assert rec["platform"] == "none" and rec["latency_s"] > 0
+    lines = [json.loads(ln) for ln in open(path)]
+    types = [ln["type"] for ln in lines]
+    assert "probe" in types and types[-1] == "rollup"
+    assert lines[-1]["counters"]["probe.attempts"] == 1
+    assert lines[-1]["counters"]["probe.errors"] == 1
