@@ -9,14 +9,20 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; TF32 is switched off for matmuls and cuDNN;
-2. build every kernel of the path from its source (``nvcc``, ``sm_90a``);
+2. build every kernel of the path from its source (``nvcc``, ``sm_90a``)
+   and print each kernel's threads, registers, spill bytes, dynamic
+   shared bytes and resident blocks per SM: every partials build must
+   run at 2 or more blocks per SM with no spill;
 3. ``dd.self_check`` on the card must pass: the DD phase runs there;
 4. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (q = 66: the bench par with RAJ/DECJ), at the
-   barycentric path's (q = 64), at the binary path's (phase 7's q, six
-   64-wide tiles), at the noise path's (phase 11's q, eight 64-wide
-   tiles), at an odd row count that pads and at two column tiles, and against float64 within 10x its error bound, with its time
-   (CUDA events around one call, and each pass's device time), the plain
+   path's shapes (q = 66: the bench par with RAJ/DECJ, the narrow
+   build), at the barycentric path's (q = 64), at the binary path's
+   (phase 7's q = 341, the pairs build), at the noise path's (phase 11's
+   q = 480), at an odd row count that pads, and at 3,001 rows on every
+   route of the tiling (q = 63, 65, 67, 68, 69, 100, 127, 128, 129, 200,
+   341: both sides of each tile edge), and against float64 within 10x
+   its error bound, the same bits on a second call, with its time (CUDA
+   events around one call, and each pass's device time), the plain
    version's, its bound and a library call's;
 5. the data layer: the same 2,000-row GBT table (clock chain, TDB,
    observatory and planet positions) built on the card and on the CPU
@@ -174,10 +180,11 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    ds32_gram launches in each of these sub-paths, counted from 0 before
    each (their Grams are float64);
 17. the PTA joint fit, after the loop cache is cleared: the batched
-   ds32 Gram at (68, 8,824, 106), (68, 2,206, 106) and a q <= 64 shape
-   (each member bit for bit its 2-D launch, through ``torch.func.vmap``
-   too, and within 1e-12 of max|G| of the batched plain version; times,
-   bound, ``torch.bmm`` both ways); BASELINE.md config 5 from
+   ds32 Gram at (68, 8,824, 106), (68, 2,206, 106), a q <= 64 shape and
+   (3, 3,001, 129) (each member bit for bit its 2-D launch, through
+   ``torch.func.vmap`` too, and within 1e-12 of max|G| of the batched
+   plain version; times, bound, ``torch.bmm`` both ways); BASELINE.md
+   config 5 from
    ``generate_catalog`` (68 x 8,824 GBT TOAs, 600,032, ECORR + 30-harmonic
    red noise, a 20-harmonic HD-correlated GW background; each table then
    shifted by a draw of its par's noise; every model kicked by KICK)
@@ -1508,9 +1515,8 @@ def profile_step(label, fn, wall_ms):
 
 def kernel_name(text: str) -> str:
     """The first ds32_gram kernel named in `text` (a mangled symbol), as
-    partials<64>, partials<128> or reduce."""
-    m = re.search(r"ds32_gram_(partials|reduce)(?:ILi(\d+)E)?", text)
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    partials_narrow, partials_tile, partials_pairs or reduce."""
+    return re.search(r"ds32_gram_(partials_[a-z]+|reduce)", text).group(1)
 
 
 def whitened(n, q, seed, device):
@@ -1565,8 +1571,11 @@ def fmt_ms(ms):
 # ("binary": 6 tiles of 64) and phase 11's noise path ("noise": 8 tiles)
 # add their q (check_gram's path_q). 2,000
 # and 500 rows are phase 9's fits; 137 rows pad the block and its last
-# 32-row chunk; 3,001 x 100 takes the off-diagonal tile path and an odd
-# row count.
+# 32-row chunk; the 3,001-row shapes (an odd row count) take every route
+# of the tiling (ops/gram.py::_tile_plan) on both sides of each edge:
+# the narrow build's one tile up to 68 columns, the one-tile build's
+# task runs up to 128, the pairs build's 64-column tiles after that.
+ROUTE_Q = (63, 65, 67, 68, 69, 100, 127, 128, 129, 200, 341)
 GRAM_SHAPES = (
     ("G_BB", N_TOAS, 66, True, "main"),
     ("Schur", N_TOAS // 4, 66, True, "main"),
@@ -1577,7 +1586,7 @@ GRAM_SHAPES = (
     ("G_BB small q64", N_SMALL, 64, False, None),
     ("Schur small q64", N_SMALL // 4, 64, False, None),
     ("padding", 137, 64, False, None),
-    ("two tiles", 3001, 100, False, None),
+    *((f"route q{q}", 3001, q, False, None) for q in ROUTE_Q),
 )
 
 
@@ -3206,10 +3215,12 @@ PTA_SPEC = dict(n_pulsars=68, toas_per_pulsar=8_824, mix=("ecorr_red",),
                 seed=0)
 PTA_GW = dict(gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=20)
 # the batched kernel's shapes: G_BB (every TOA x q), the ECORR Schur term
-# (one row per 4-TOA epoch) and a q <= 64 case (the 64-column build)
+# (one row per 4-TOA epoch), a q <= 68 case (the narrow build) and a
+# pairs-build case with a one-column tile
 PTA_GRAM_SHAPES = (("G_BB", 68, 8_824, 106, True),
                    ("Schur", 68, 2_206, 106, True),
-                   ("q46", 68, 2_206, 46, False))
+                   ("q46", 68, 2_206, 46, False),
+                   ("q129", 3, 3_001, 129, False))
 # the Gram-kernel route against the float64 route: the ds32 conditioning
 # trap (ROADMAP Queue 3; 1.45e-4 sigma measured in phase 16's sharded
 # fit), the sharded fit's bar
@@ -4993,6 +5004,15 @@ def main() -> None:
             print(f"  nvcc: {kernel_name(line)}:")
         elif "registers" in line or "spill" in line or "smem" in line:
             print("  nvcc:", line.strip())
+    builds = gram.build_info()
+    for name, b in builds.items():
+        print(f"  {name}: {b['threads']} threads, {b['registers']} registers, "
+              f"{b['spill_bytes']} spill bytes, {b['shared_bytes']} B dynamic "
+              f"shared, {b['blocks_per_sm']} blocks per SM", flush=True)
+    short = [name for name, b in builds.items() if name.startswith("partials")
+             and (b["spill_bytes"] or b["blocks_per_sm"] < 2)]
+    if short:
+        fail(f"partials builds below 2 blocks per SM or spilling: {short}")
 
     phase("3 dd.self_check on the card")
     ok = dd.self_check(dev)

@@ -10,7 +10,8 @@ G = AᵀA as the classic double-single split
 with f32 products over row blocks and a compensated (hi, lo) f32 pair
 carried across the blocks, in block order, by TwoSum. The rows per block
 are a function of n alone (:func:`_block_rows`), so the card and the CPU
-compute the same thing. The relative error is about
+compute the same thing; the kernel's tiling of the output is
+:func:`_tile_plan`, a function of q alone. The relative error is about
 3·√min(n, 1024)·2⁻²⁴ + 2⁻⁴⁸ (:func:`gram_error_bound`).
 
 :func:`ds32_gram` launches the kernel in ``csrc/ds32_gram.cu`` for a
@@ -36,11 +37,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,10 +58,33 @@ MAX_BLOCK_ROWS = 1024
 # the row blocks the rows are cut into, at least: enough thread blocks
 # to fill the H100's 132 SMs at the main path's shapes
 TARGET_BLOCKS = 256
-# output tile edge of one thread block (kTile in csrc/ds32_gram.cu); the
-# (I <= J) tile pairs go on gridDim.y, at most 65,535: 361 tiles
+# the partials pass's tiling (csrc/ds32_gram.cu, :func:`_tile_plan`): a
+# thread's patch of outputs is PATCH x PATCH; q <= NARROW_COLUMNS is one
+# diagonal tile (the narrow build); q <= ONE_TILE_COLUMNS one tile whose
+# patches are dealt to tasks of at most TASK_PATCHES (the one-tile
+# build); a wider q TILE-column tile pairs (the pairs build). THREADS:
+# the threads of a block of each build, one patch each; STAGED_COLUMNS:
+# the f64 columns one block of each build can stage
+PATCH = 4
 TILE = 64
-MAX_COLUMNS = 361 * TILE
+NARROW_COLUMNS = 68
+ONE_TILE_COLUMNS = 128
+TASK_PATCHES = 128
+THREADS = {"narrow": 160, "tile": 128, "pairs": 256}
+STAGED_COLUMNS = {"narrow": 80, "tile": 128, "pairs": 128}
+# the grid: the partials pass puts its tasks on gridDim.x, its row
+# blocks on gridDim.y and the members on gridDim.z; the reduce puts one
+# thread per upper element, REDUCE_THREADS to a block, on gridDim.x and
+# the members on gridDim.y. gridDim.x takes at most GRID_X blocks, y and
+# z GRID_YZ. The reduce's blocks bind the columns first: MAX_COLUMNS is
+# the largest q with ceil(q(q+1)/2 / REDUCE_THREADS) <= GRID_X (its
+# t = ceil(q / TILE) tiles' t(t+1)/2 pairs fit too)
+GRID_X = 2 ** 31 - 1
+GRID_YZ = 65_535
+REDUCE_THREADS = 64
+MAX_COLUMNS = (math.isqrt(8 * REDUCE_THREADS * GRID_X + 1) - 1) // 2
+MAX_ROWS = GRID_YZ * MAX_BLOCK_ROWS
+MAX_BATCH = GRID_YZ
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +104,114 @@ def _block_rows(n: int) -> tuple[int, int]:
     bn = min(MAX_BLOCK_ROWS, max(MIN_BLOCK_ROWS,
                                  _round_up(-(-n // TARGET_BLOCKS), CHUNK_ROWS)))
     return bn, -(-n // bn)
+
+
+class TilePlan(NamedTuple):
+    """How the partials pass cuts the q x q upper triangle (csrc/ds32_gram.cu).
+
+    Tile t covers columns [t·edge, min((t+1)·edge, q)), its width
+    rounded up to PATCH (the padded columns are staged as zeros). One
+    thread block per task and row block; the tasks in grid order
+    (``blockIdx.x``) are :meth:`tasks`: with one tile, `ntasks` equal
+    runs of its patch list; otherwise each tile pair (I <= J) with its
+    patches, but where the last tile is narrow enough a full diagonal
+    pair's patches past TASK_PATCHES ride with the pair (I, last tile),
+    so that every such task fits four warps. Each thread owns one
+    PATCH x PATCH patch of outputs (:meth:`patches`, in thread order)
+    and carries three FFMA chains per output.
+    """
+
+    q: int
+    build: str   # "narrow", "tile" or "pairs"
+    edge: int
+    ntasks: int
+
+    @property
+    def threads(self) -> int:
+        return THREADS[self.build]
+
+    @property
+    def ntiles(self) -> int:
+        return -(-self.q // self.edge)
+
+    def tile(self, t: int) -> tuple[int, int]:
+        """(first column, padded width) of tile t."""
+        return t * self.edge, _round_up(min(self.edge, self.q - t * self.edge),
+                                        PATCH)
+
+    def _pair_patches(self, I: int, J: int) -> list[tuple[int, int]]:
+        # a diagonal pair's patches with gy <= gx row by row, any other
+        # pair's all of them row by row: (first output i, first output j)
+        (i0, wi), (j0, wj) = self.tile(I), self.tile(J)
+        mi, mj = wi // PATCH, wj // PATCH
+        return [(i0 + PATCH * gy, j0 + PATCH * gx) for gy in range(mi)
+                for gx in range(gy if I == J else 0, mj)]
+
+    def tasks(self):
+        """(I, J, p0, p1, x0, x1) per task, in blockIdx.x order: tile pair
+        (I, J), the run [p0, p1) of its patch list and the run [x0, x1)
+        of tile I's diagonal patch list. Where the last tile is narrow
+        enough, each full diagonal pair keeps its first TASK_PATCHES
+        patches and the rest ride with the pair (I, last tile)."""
+        nt = self.ntiles
+        if nt == 1:
+            m = self.tile(0)[1] // PATCH
+            np_ = m * (m + 1) // 2
+            return [(0, 0, t * np_ // self.ntasks, (t + 1) * np_ // self.ntasks,
+                     0, 0) for t in range(self.ntasks)]
+        last = self.tile(nt - 1)[1]
+        out = []
+        for i in range(nt):
+            m = self.tile(i)[1] // PATCH
+            full = m * (m + 1) // 2
+            rest = full - TASK_PATCHES
+            ride = (rest > 0 and last < self.edge
+                    and m * (last // PATCH) + rest <= TASK_PATCHES)
+            out.append((i, i, 0, TASK_PATCHES if ride and i < nt - 1 else full,
+                        0, 0))
+            for j in range(i + 1, nt):
+                rides = ride and j == nt - 1
+                out.append((i, j, 0, m * (self.tile(j)[1] // PATCH),
+                            TASK_PATCHES if rides else 0, full if rides else 0))
+        return out
+
+    def patches(self, task: int) -> list[tuple[int, int]]:
+        """The first output (i, j) of each patch of task `task`, by
+        thread."""
+        I, J, p0, p1, x0, x1 = self.tasks()[task]
+        return self._pair_patches(I, J)[p0:p1] + self._pair_patches(I, I)[x0:x1]
+
+    def ffma_per_row(self) -> int:
+        """FFMAs the partials pass issues per row of A: three per output
+        of every patch."""
+        nt, w = self.ntiles, [self.tile(t)[1] // PATCH for t in range(self.ntiles)]
+        patches = sum(m * (m + 1) // 2 for m in w) + sum(
+            w[i] * w[j] for i in range(nt) for j in range(i + 1, nt))
+        return 3 * PATCH * PATCH * patches
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(q: int) -> TilePlan:
+    """The partials pass's tiling for q columns, a function of q alone.
+
+    q <= NARROW_COLUMNS: one diagonal tile as wide as q rounded up to
+    PATCH, one task (the narrow build: at most 153 patches on 160
+    threads), so the main path's q = 66 issues 1.125x the FFMAs of
+    q = 64. q <= ONE_TILE_COLUMNS: one tile, its patch list dealt to the
+    fewest tasks of at most TASK_PATCHES (the one-tile build: four
+    warps, one per SM sub-partition, four blocks per SM). A wider q:
+    TILE-column tile pairs (the pairs build: a full pair is 256
+    patches on eight warps; see :meth:`TilePlan.tasks` for a narrow
+    last tile). The wrapper passes `edge` and `ntasks` to the launch.
+    """
+    if q <= NARROW_COLUMNS:
+        return TilePlan(q, "narrow", NARROW_COLUMNS, 1)
+    if q <= ONE_TILE_COLUMNS:
+        m = -(-q // PATCH)
+        return TilePlan(q, "tile", ONE_TILE_COLUMNS,
+                        -(-(m * (m + 1) // 2) // TASK_PATCHES))
+    nt = -(-q // TILE)
+    return TilePlan(q, "pairs", TILE, nt * (nt + 1) // 2)
 
 
 def _arch() -> str:
@@ -210,8 +344,12 @@ def _load(path: Path) -> ctypes.CDLL:
     fn = lib.ds32_gram_batched_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    info = lib.ds32_gram_build_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    info.restype = ctypes.c_int
     return lib
 
 
@@ -252,6 +390,28 @@ def _library() -> ctypes.CDLL:
     return load_library()
 
 
+#: the kernels of one launch, by the index ds32_gram_build_info takes
+BUILDS = ("partials_narrow", "partials_tile", "partials_pairs", "reduce")
+
+
+def build_info(device: int = 0) -> dict:
+    """What each kernel of the loaded library runs with on CUDA card
+    `device`: {name: {threads, registers, spill_bytes (local memory per
+    thread), shared_bytes (dynamic, per block), blocks_per_sm (resident,
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor)}}."""
+    lib = _library()
+    out = {}
+    for k, name in enumerate(BUILDS):
+        vals = (ctypes.c_int * 5)()
+        rc = lib.ds32_gram_build_info(k, device, vals)
+        if rc != 0:
+            raise RuntimeError(f"ds32_gram_build_info({name}) failed: "
+                               f"cudaError {rc}")
+        out[name] = dict(zip(("threads", "registers", "spill_bytes",
+                              "shared_bytes", "blocks_per_sm"), vals))
+    return out
+
+
 def _check(A, rank: int = 2, name: str = "ds32_gram") -> None:
     if not isinstance(A, torch.Tensor):
         raise TypeError(f"{name} takes a torch.Tensor, got {type(A).__name__}")
@@ -276,10 +436,13 @@ def _launch(A: torch.Tensor, counter) -> torch.Tensor:
         raise ValueError(f"{counter.__name__} needs a contiguous (row-major) "
                          "tensor")
     batch, n, q = A.shape
-    if q > MAX_COLUMNS:
-        raise ValueError(f"{counter.__name__} supports q <= {MAX_COLUMNS} "
-                         f"columns, got {q}")
+    for what, size, most in (("columns", q, MAX_COLUMNS), ("rows", n, MAX_ROWS),
+                             ("batch members", batch, MAX_BATCH)):
+        if size > most:
+            raise ValueError(f"{counter.__name__} supports at most {most} "
+                             f"{what}, got {size}")
     bn, nb = _block_rows(n)
+    plan = _tile_plan(q)
     # each member's per-block f32 partials, upper triangle packed row by
     # row
     partial = torch.empty((batch, nb, q * (q + 1) // 2), dtype=torch.float32,
@@ -288,7 +451,7 @@ def _launch(A: torch.Tensor, counter) -> torch.Tensor:
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = _library().ds32_gram_batched_launch(
         A.data_ptr(), partial.data_ptr(), G.data_ptr(), batch, n, q, bn, nb,
-        A.device.index or 0, stream)
+        plan.edge, plan.ntasks, A.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{counter.__name__} kernel launch failed: "
                            f"cudaError {rc}")

@@ -44,6 +44,25 @@ def test_kernel_rejects_more_columns_than_its_grid(cuda_device):
         ds32_gram(A)
 
 
+@pytest.mark.parametrize("q", [64, 65, 66, 127, 128, 129, 341])
+def test_kernel_equals_its_plain_version_on_every_route(cuda_device, q):
+    """The kernel against its plain version with ``torch.equal`` at
+    3,001 rows on each route of the tiling (ops/gram.py::_tile_plan):
+    the narrow build's one tile (64, 65, 66), the one-tile build's task
+    runs (127, 128), the pairs build with a one-column tile (129) and the
+    binary path's width (341); one launch counted per call."""
+    from pint_tpu_torch.ops.gram import ds32_gram_reference
+
+    g = torch.Generator().manual_seed(q)
+    A = torch.randn((3001, q), generator=g, dtype=torch.float64)
+    A = (A / torch.linalg.norm(A, dim=0)).to(cuda_device)
+    before = ds32_gram.launches
+    G = ds32_gram(A)
+    torch.cuda.synchronize()
+    assert ds32_gram.launches == before + 1
+    assert torch.equal(G, ds32_gram_reference(A))
+
+
 def test_true_div_is_the_ieee_quotient_on_the_card(cuda_device):
     """The card's ``true_div`` equals the CPU's correctly rounded quotient,
     bit for bit, at the data layer's divisors (the card's ``x / c`` need
@@ -472,13 +491,13 @@ def test_captured_batched_loop_replays_bit_for_bit(cuda_device, monkeypatch):
 
 def test_batched_kernel_is_the_2d_launches_bit_for_bit(cuda_device):
     """One batched launch over P members gives each member's 2-D launch
-    bit for bit, at the PTA fit's width and a q <= 64 one, also through
-    ``torch.func.vmap`` (the custom op's rule); launches are counted on
-    each wrapper, one per launch."""
+    bit for bit, at the PTA fit's width, a q <= 64 one and the pairs
+    build's 129, also through ``torch.func.vmap`` (the custom op's rule);
+    launches are counted on each wrapper, one per launch."""
     from pint_tpu_torch.ops.gram import ds32_gram_batched
 
     g = torch.Generator().manual_seed(12)
-    for P, n, q in ((6, 2206, 106), (5, 1000, 40)):
+    for P, n, q in ((6, 2206, 106), (5, 1000, 40), (3, 3001, 129)):
         A = torch.randn((P, n, q), generator=g, dtype=torch.float64)
         A = (A / torch.linalg.norm(A, dim=1, keepdim=True)).to(cuda_device)
         before = (ds32_gram.launches, ds32_gram_batched.launches)

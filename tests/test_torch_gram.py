@@ -21,10 +21,14 @@ from chip_smoke import PLAIN_BAR
 
 
 @pytest.mark.parametrize("n,q,block", [(640, 20, 128), (137, 5, 64),
-                                       (4096, 64, 1024)])
+                                       (4096, 64, 1024), (3001, 65, 1024),
+                                       (3001, 66, 1024), (3001, 127, 1024),
+                                       (3001, 129, 1024)])
 def test_gram_matches_tpu_kernel_and_f64(n, q, block):
     """The TPU kernel at `block`-row blocks; the port at its own, which
-    are never larger (so the same error bound holds for both)."""
+    are never larger (so the same error bound holds for both). q = 65
+    and 66 are the narrow build's padded tile, 127 the one-tile build's
+    tile in task runs, 129 the pairs build with a one-column tile."""
     rng = np.random.default_rng(0)
     A = rng.standard_normal((n, q)) / np.sqrt(n)
     G_ref = np.asarray(ds32_gram_pallas(jnp.asarray(A), interpret=True,
@@ -136,8 +140,8 @@ def test_plain_version_at_the_new_blocks_matches_tpu_kernel():
 
 @pytest.mark.parametrize("n", [3001, 20_000])
 def test_plain_version_two_column_tiles(n):
-    """q = 100 spans two 64-wide output tiles (the kernel's off-diagonal
-    tile path): within 10x the error bound of f64, and symmetric."""
+    """q = 100 (the one-tile build's tile in three task runs): within 10x
+    the error bound of f64, and symmetric."""
     rng = np.random.default_rng(n)
     A = rng.standard_normal((n, 100))
     A /= np.linalg.norm(A, axis=0)
@@ -149,11 +153,63 @@ def test_plain_version_two_column_tiles(n):
 
 
 def test_column_limit_is_the_largest_grid_of_tile_pairs():
-    """The partials grid puts the t(t+1)/2 tile pairs (I <= J) of
-    t = ceil(q / 64) tiles on gridDim.y, at most 65,535."""
-    t = gram.MAX_COLUMNS // gram.TILE
-    assert gram.MAX_COLUMNS % gram.TILE == 0
-    assert t * (t + 1) // 2 <= 65_535 < (t + 1) * (t + 2) // 2
+    """The launch's grids at q columns: the reduce's q(q+1)/2 threads, 64
+    to a block, on gridDim.x (at most 2^31 - 1) bind first; the partials'
+    tasks, t(t+1)/2 tile pairs of t = ceil(q / 64) tiles, go on gridDim.x
+    too. MAX_COLUMNS is the most columns both take."""
+    def reduce_blocks(q):
+        return -(-(q * (q + 1) // 2) // gram.REDUCE_THREADS)
+
+    q = gram.MAX_COLUMNS
+    assert reduce_blocks(q) <= gram.GRID_X < reduce_blocks(q + 1)
+    plan = gram._tile_plan(q)
+    t = -(-q // gram.TILE)
+    assert plan.ntiles == t and plan.ntasks == t * (t + 1) // 2 <= gram.GRID_X
+
+
+# the q of every route of the tiling: the narrow tile (q <= 68), the
+# one-tile build's task runs (q <= 128), the pairs build, the
+# main path's 66, the PTA fit's 106, the binary and noise paths' 341 and
+# 480
+PLAN_Q = (64, 65, 66, 100, 106, 128, 129, 341, 480)
+
+
+@pytest.mark.parametrize("q", PLAN_Q)
+def test_tile_plan_covers_each_output_once(q):
+    """Every output (i, j), i <= j < q, lies in exactly one patch of one
+    task; every task holds some of them; a task's patches fit its
+    build's threads and its columns the columns a block stages."""
+    plan = gram._tile_plan(q)
+    count = np.zeros((q, q), dtype=int)
+    for t, (I, J, p0, p1, x0, x1) in enumerate(plan.tasks()):
+        patches = plan.patches(t)
+        assert 0 < len(patches) == (p1 - p0) + (x1 - x0) <= plan.threads
+        staged = plan.tile(I)[1] + (plan.tile(J)[1] if I != J else 0)
+        assert staged <= gram.STAGED_COLUMNS[plan.build]
+        real = 0
+        for i0, j0 in patches:
+            i, j = np.meshgrid(np.arange(i0, i0 + gram.PATCH),
+                               np.arange(j0, j0 + gram.PATCH), indexing="ij")
+            keep = (i <= j) & (j < q)
+            np.add.at(count, (i[keep], j[keep]), 1)
+            real += int(keep.sum())
+        assert real > 0, (t, I, J)
+    upper = np.triu(np.ones((q, q), dtype=bool))
+    assert (count[upper] == 1).all() and (count[~upper] == 0).all()
+
+
+def test_tile_plan_main_path_issues_at_most_115_percent_of_q64():
+    """The main path's q = 66 (one narrow tile of 68 columns) issues
+    1.125x the FFMAs per row of q = 64, where three 64-column tile
+    pairs issued 3.96x; the plan's builds by q."""
+    ratio = gram._tile_plan(66).ffma_per_row() / gram._tile_plan(64).ffma_per_row()
+    assert ratio <= 1.15
+    assert gram._tile_plan(64).ffma_per_row() == 3 * 16 * 136
+    builds = {q: (gram._tile_plan(q).build, gram._tile_plan(q).ntasks)
+              for q in PLAN_Q}
+    assert builds == {64: ("narrow", 1), 65: ("narrow", 1), 66: ("narrow", 1),
+                      100: ("tile", 3), 106: ("tile", 3), 128: ("tile", 5),
+                      129: ("pairs", 6), 341: ("pairs", 21), 480: ("pairs", 36)}
 
 
 def test_library_path_is_keyed_by_source_content(tmp_path):
