@@ -1496,7 +1496,8 @@ def profile_step(label, fn, wall_ms):
 
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a program span's range on the device's timeline is no work
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())

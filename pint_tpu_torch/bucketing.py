@@ -138,7 +138,7 @@ def note_batch_occupancy(n_real: int, n_members: int) -> None:
     """Count one batched fit's members: ``batch.members.real`` and
     ``batch.members.pad`` (occupancy = real / (real + pad)) and the
     ``batch.occupancy.last`` gauge."""
-    if not _tele_core._enabled:
+    if not _tele_core.enabled():
         return
     _tele_counters.inc("batch.members.real", n_real)
     _tele_counters.inc("batch.members.pad", max(0, n_members - n_real))
@@ -198,7 +198,7 @@ def note_program(kind: str, fingerprint, shape, *, captured=None) -> None:
     journaled: ``None`` (a caller with no such identity) and a value
     whose repr is its address are not.
     """
-    if not _tele_core._enabled:
+    if not _tele_core.enabled():
         return
     from pint_tpu_torch.programs import store as _store
 

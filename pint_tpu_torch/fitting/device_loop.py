@@ -56,7 +56,7 @@ from torch.utils import _pytree as pytree
 from pint_tpu_torch import bucketing, config, telemetry
 from pint_tpu_torch.fitting.damped import COUNTERS, note_fit_counters
 from pint_tpu_torch.ops import gram
-from pint_tpu_torch.telemetry import recorder
+from pint_tpu_torch.telemetry import marks, recorder
 from pint_tpu_torch.utils.cache import LRUCache
 
 # accept tolerance of the host loop (damped.downhill_iterate)
@@ -342,6 +342,11 @@ class _Captured:
     launch counts of :data:`_KERNELS` grow by those at each replay. The
     flags are fetched through pinned host memory after an event. On the
     CPU a "replay" runs the body eagerly into the same static tensors.
+
+    With the flight recorder on, the full body runs inside a stage-mark
+    session (:mod:`pint_tpu_torch.telemetry.marks`): the marks that the
+    evaluation places at its stage boundaries are captured with it, and
+    :meth:`stage_ms` reads them after a replay.
     """
 
     def __init__(self, loop: DampedLoop, carry0: dict, operands, device):
@@ -352,11 +357,11 @@ class _Captured:
         self.bodies = bodies = {"full": loop.full_body}
         if loop.probe is not None:
             bodies["probe"] = loop.probe_body
+        self.marks = marks.Session(self.cuda) if loop.trace_cap else None
         self.graphs = {}
         if not self.cuda:
             # the init evaluation gives the carry its info leaves
-            self.carry = _tensors(torch.clone,
-                                  loop.full_body(carry0, self.ops))
+            self.carry = _tensors(torch.clone, self._run("full", carry0))
             return
         # warm-up on a side stream, as capture requires: the init
         # evaluation (whose carry becomes the static one) and one probe
@@ -364,8 +369,7 @@ class _Captured:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.carry = _tensors(torch.clone,
-                                  loop.full_body(carry0, self.ops))
+            self.carry = _tensors(torch.clone, self._run("full", carry0))
             if "probe" in bodies:
                 loop.probe_body(self.carry, self.ops)
         torch.cuda.current_stream(device).wait_stream(side)
@@ -375,17 +379,30 @@ class _Captured:
             g = torch.cuda.CUDAGraph()
             before = [k.captured for k in _KERNELS]
             with torch.cuda.graph(g, pool=pool):
-                _copy_into(self.carry, body(self.carry, self.ops))
+                _copy_into(self.carry, self._run(kind, self.carry))
             self.graphs[kind] = g
             self.recorded[kind] = [k.captured - b
                                    for k, b in zip(_KERNELS, before)]
         self.flags_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         self.event = torch.cuda.Event()
 
+    def _run(self, kind: str, carry: dict) -> dict:
+        """Body `kind` once, eagerly or under capture; the full body
+        inside the stage-mark session."""
+        if kind == "full" and self.marks is not None:
+            with self.marks:
+                return self.bodies[kind](carry, self.ops)
+        return self.bodies[kind](carry, self.ops)
+
+    def stage_ms(self) -> dict:
+        """Milliseconds by stage of the last full evaluation, read from
+        its marks once its replay has synchronized ({} without marks)."""
+        return self.marks.segments() if self.marks is not None else {}
+
     def replay(self, kind: str) -> None:
         """One evaluation of `kind` ("full" or "probe") on the statics."""
         if not self.cuda:
-            _copy_into(self.carry, self.bodies[kind](self.carry, self.ops))
+            _copy_into(self.carry, self._run(kind, self.carry))
             return
         self.graphs[kind].replay()
         for k, n in zip(_KERNELS, self.recorded[kind]):
@@ -425,10 +442,18 @@ class InFlightFit:
     ``(deltas, info, chi2, converged, counters)`` on the host, and is
     idempotent. ``stats`` counts this fit's captures, graph replays, host
     fetches (flags and the result) and evaluations by kind.
+
+    With telemetry on, spans time the host's side of the loop:
+    ``<kind>.replay`` (a graph launch and the flags' copy request),
+    ``<kind>.flag_wait`` (the wait at each flag fetch), ``<kind>.fetch``
+    (driving the loop to its end) and ``<kind>.result`` (the result's
+    copy to the host); and each full evaluation's stage marks, read at
+    its flag fetch, add to the ``fit.device.<stage>_ms`` counters and
+    time its entry of the flight recorder.
     """
 
     __slots__ = ("_cap", "_kind", "_done", "_result", "stats", "keep",
-                 "kept")
+                 "kept", "_last", "_eval_s")
 
     def __init__(self, cap: _Captured, kind: str, stats: dict):
         self._cap = cap
@@ -436,6 +461,10 @@ class InFlightFit:
         self._done = False
         self._result = None
         self.stats = stats
+        # the trace entry of the full evaluation launched last (None: a
+        # probe, or nothing launched), and each timed entry's seconds
+        self._last = None
+        self._eval_s: dict = {}
         # info leaves to keep on the device at the fetch (``kept``): the
         # incremental updates' replacement state, which must survive a
         # later dispatch reusing the capture's statics
@@ -443,15 +472,34 @@ class InFlightFit:
         self.kept = None
 
     def _launch(self, body: str) -> None:
-        self._cap.replay(body)
+        with telemetry.span(f"{self._kind}.replay"):
+            self._cap.replay(body)
+            self._cap.request_flags()
+        # full evaluations fill the recorder's entries in order
+        self._last = self.stats["full"] if body == "full" else None
         self.stats[body] += 1
         if self._cap.cuda:
             self.stats["replays"] += 1
-        self._cap.request_flags()
+
+    def _note_stages(self, entry: int) -> None:
+        """The stage times of the full evaluation that the last flag
+        fetch synchronized, while telemetry is on."""
+        if not telemetry.enabled():
+            return
+        seg = self._cap.stage_ms()
+        for stage, ms in seg.items():
+            telemetry.inc(f"fit.device.{stage}_ms", ms)
+        if seg:
+            self._eval_s[entry] = sum(seg.values()) * 1e-3
 
     def _advance(self) -> None:
         """Read the flags of the last evaluation; launch the next one."""
-        body = self._cap.loop.next_kind(self._cap.flags())
+        with telemetry.span(f"{self._kind}.flag_wait"):
+            flags = self._cap.flags()
+        if self._last is not None:
+            self._note_stages(self._last)
+            self._last = None
+        body = self._cap.loop.next_kind(flags)
         if self._cap.cuda:
             self.stats["fetches"] += 1
         if body is None:
@@ -479,9 +527,10 @@ class InFlightFit:
                     self.kept = {k: info[k].clone() for k in self.keep}
                 # the fit's result, copied out of the statics that the
                 # next dispatch reuses
-                deltas, info, chi2, converged, counters, trace = _tensors(
-                    lambda t: t.to("cpu", copy=True),
-                    cap.loop.result(cap.carry))
+                with telemetry.span(f"{self._kind}.result"):
+                    deltas, info, chi2, converged, counters, trace = \
+                        _tensors(lambda t: t.to("cpu", copy=True),
+                                 cap.loop.result(cap.carry))
             if cap.cuda:
                 self.stats["fetches"] += 1
             cap.pending = None
@@ -489,7 +538,8 @@ class InFlightFit:
             _note_loop_stats(self.stats, counters)
             if trace is not None:
                 recorder.emit_device_trace(
-                    self._kind, {k: v.numpy() for k, v in trace.items()})
+                    self._kind, {k: v.numpy() for k, v in trace.items()},
+                    durations=self._eval_s)
             self._result = (deltas, info, chi2, converged, counters)
         return self._result
 
@@ -502,7 +552,7 @@ def _note_loop_stats(stats: dict, counters: dict) -> None:
     if not telemetry.enabled():
         return
     telemetry.inc("fit.device_loop.launches")
-    for k in ("captures", "replays", "fetches", "full", "probe"):
+    for k in ("captures", "replays", "fetches"):
         if stats.get(k):
             telemetry.inc(f"fit.device_loop.{k}", stats[k])
     for k, v in counters.items():

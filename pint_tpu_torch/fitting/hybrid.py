@@ -48,6 +48,7 @@ from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
 from pint_tpu_torch.fitting.step import make_resid_fn
 from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
+from pint_tpu_torch.telemetry import marks
 
 
 def make_whiten_stage1(model, tzr=None, *, traced_tzr: bool = False):
@@ -192,15 +193,20 @@ class HybridGLSFitter(Fitter):
         self.loop_stats: dict = {}
 
     def _iterate(self, base, deltas) -> tuple[dict, dict]:
-        """One full step: chi2 at ``deltas`` and the proposed next deltas."""
+        """One full step: chi2 at ``deltas`` and the proposed next deltas.
+        Its stages are marked for the fused loop's capture
+        (:mod:`pint_tpu_torch.telemetry.marks`)."""
+        marks.stage("stage1")
         A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas,
                                            self._sigma)
+        marks.stage("stage2")
         parts = gls_gram_whitened(A_M, rw, sw, norm_M, self._F, self._phi_F,
                                   self.noise.epochs, self.noise.ecorr_phi)
         info = gls_finalize_seg(parts, self._n_params)
         info["chi2_at_input"] = noise_marginal_chi2(parts, self._n_params)
         new_deltas = {k: deltas[k] + info["x"][i + self._off]
                       for i, k in enumerate(self._names)}
+        marks.stage(None)
         return new_deltas, info
 
     def _build_chi2_probe(self):

@@ -56,6 +56,7 @@ from pint_tpu_torch.fitting.step import design_columns
 from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.telemetry import marks
 from pint_tpu_torch.utils.cache import LRUCache
 
 _EPS = torch.finfo(torch.float64).eps
@@ -246,6 +247,7 @@ def make_pta_gram(model, gw: GWSpec, pl_specs, tzr=None, *,
     k_gw = 2 * gw.nharm
 
     def gram(base, deltas, blocks, phi_e, pl_params, fs, tzr_toas=None):
+        marks.stage("stage1")
         dev = phi_e.device
         per = []
         for toas, sigma, epochs, F in blocks:
@@ -274,6 +276,7 @@ def make_pta_gram(model, gw: GWSpec, pl_specs, tzr=None, *,
             r = res / f0
             M = torch.stack(design_columns(J, names, f0, r, has_phoff), dim=1)
             rows.append((torch.cat([M, F], dim=1), r, w, epochs))
+        marks.stage("stage2")
         p = len(names) + (0 if has_phoff else 1)
         ne = phi_e.shape[0]
         norm = column_norm(_add([torch.sum(B * B * w[:, None], dim=0)
@@ -614,8 +617,10 @@ class PTAGLSFitter:
 
             def run(base, d, pl_params, s=single, stage1=stage1,
                     stage2=stage2):
+                marks.stage("stage1")
                 toas_, sigma_, epochs, F_ = s.blocks[0]
                 A_M, rw, sw, norm_M = stage1(base, d, toas_, sigma_)
+                marks.stage("stage2")
                 return stage2(A_M, rw, sw, norm_M, epochs, s.phi_e,
                               pl_params, F_, s.fs)
         else:
@@ -638,9 +643,11 @@ class PTAGLSFitter:
 
             def member(base, d, leaves, sigma, epochs, phi_e, basis,
                        pl_params, tzr_leaves):
+                marks.stage("stage1")
                 toas = layout.member(leaves)
                 tz = tzr_layout.member(tzr_leaves) if traced_tzr else None
                 A_M, rw, sw, norm_M = stage1(base, d, toas, sigma, tz)
+                marks.stage("stage2")
                 return stage2(A_M, rw, sw, norm_M, epochs, phi_e, pl_params,
                               basis[0], basis[1:])
         else:
@@ -763,11 +770,24 @@ class PTAGLSFitter:
         second, noise-columns-only elimination, so judging a trial point
         costs no extra Gram pass. Both damped loops (the host loop and
         the fused one) run this one function.
+
+        Stage marks (:mod:`pint_tpu_torch.telemetry.marks`, recorded in
+        the fused loop's capture) split its device time: ``stage1`` (the
+        timing model, whitening, the jacfwd design) up to each member's
+        stage boundary, ``stage2`` (the Grams, ECORR elimination and
+        reductions) from there to the end of :meth:`_grams`, ``joint``
+        (the arrow elimination, the GW core, step and uncertainties) to
+        the end of :meth:`_joint`.
         """
         from pint_tpu_torch.parallel.batch import _cusolver
 
         with _cusolver(self.device):
-            return self._joint(self._grams(D, ops), D)
+            marks.stage("stage1")
+            grams = self._grams(D, ops)
+            marks.stage("joint")
+            out = self._joint(grams, D)
+            marks.stage(None)
+            return out
 
     def _joint(self, grams, D):
         P = len(self.models)
@@ -949,31 +969,41 @@ class PTAGLSFitter:
         ``PINT_TORCH_DEVICE_LOOP=0`` runs ``damped.downhill_iterate`` over
         :meth:`step` (the oracle).
         """
-        self._prepare()
         self.counters, self.loop_stats = {}, {}
-        if not self._fused():
+        # the host's preparation of a fit: the prepared state, and for
+        # the fused loop its operands and its identity in this process
+        # and across processes
+        with telemetry.span("fit.pta_joint.prepare"):
+            self._prepare()
+            fused = self._fused()
+            if fused:
+                ops = self.operands()
+                P = len(self.models)
+                D0 = {name: torch.zeros(P, dtype=torch.float64,
+                                        device=self.device)
+                      for name in self.names}
+                key = ("pta", id(self), gls_step.ds32_gram,
+                       tuple(m.structure_key() for m in self.models))
+                program = ("pta",
+                           tuple(m._fn_fingerprint() for m in self.models),
+                           tuple(self.names), self.gw, self.accel,
+                           gls_step.ds32_gram.__qualname__)
+        if not fused:
             flat, info, chi2, conv = downhill_iterate(
                 self.step, self.zero_flat(), maxiter=maxiter,
                 min_chi2_decrease=min_chi2_decrease,
                 max_step_halvings=max_step_halvings, counters=self.counters)
             return flat, info, chi2, conv
-        P = len(self.models)
-        D0 = {name: torch.zeros(P, dtype=torch.float64, device=self.device)
-              for name in self.names}
-        key = ("pta", id(self), gls_step.ds32_gram,
-               tuple(m.structure_key() for m in self.models))
         D, info, chi2, conv, counters = device_loop.run_damped(
-            self._evaluate, D0, self.operands(), key=key,
-            program=("pta", tuple(m._fn_fingerprint() for m in self.models),
-                     tuple(self.names), self.gw, self.accel,
-                     gls_step.ds32_gram.__qualname__),
+            self._evaluate, D0, ops, key=key, program=program,
             maxiter=maxiter,
             min_chi2_decrease=min_chi2_decrease,
             max_step_halvings=max_step_halvings, kind="device_loop_pta",
             stats=self.loop_stats)
         self.counters.update(counters)
-        out = dict(self._host_info(info), diverged=bool(info["diverged"]))
-        return self._to_flat(D), out, chi2, conv
+        with telemetry.span("fit.pta_joint.writeback"):
+            out = dict(self._host_info(info), diverged=bool(info["diverged"]))
+            return self._to_flat(D), out, chi2, conv
 
     def fit_toas(self, maxiter: int = 10, min_chi2_decrease: float = 1e-3,
                  max_step_halvings: int = 8) -> float:
@@ -989,21 +1019,20 @@ class PTAGLSFitter:
         back.
         """
         n_toas = sum(len(t) for t in self.toas_list)
-        telemetry.set_gauge("pta.n_pulsars", len(self.models))
-        telemetry.set_gauge("fit.ntoas", n_toas)
         with telemetry.profile_span("fit.pta_joint",
                                     n_pulsars=len(self.models), ntoas=n_toas,
                                     accel=self.accel):
             flat, info, chi2, converged = self.run_loop(
                 maxiter, min_chi2_decrease, max_step_halvings)
-        self.converged = converged
-        self.diverged = bool(info.get("diverged", False))
-        self.chi2 = chi2
-        if self.diverged:
-            self.diverged_reason = f"non-finite chi2 ({chi2})"
-            self.converged = False
-            return chi2
-        self.apply_solution(flat, info)
+            self.converged = converged
+            self.diverged = bool(info.get("diverged", False))
+            self.chi2 = chi2
+            if self.diverged:
+                self.diverged_reason = f"non-finite chi2 ({chi2})"
+                self.converged = False
+                return chi2
+            with telemetry.span("fit.pta_joint.writeback"):
+                self.apply_solution(flat, info)
         return chi2
 
 

@@ -14,7 +14,8 @@ Counterpart of ``pint_tpu.telemetry``'s core:
 * :func:`flush` / :func:`rollup` / :func:`write_rollup`: the JSON-lines
   artifact and the end-of-run summary (:mod:`.export`);
 * :mod:`.recorder`: the flight recorder, per-evaluation traces of the
-  damped fits;
+  damped fits; :mod:`.marks`, the stage marks captured inside the fused
+  loop's graphs, which time each evaluation's stages on the device;
 * :mod:`.trace`: distributed request traces — contexts, ``type="hop"``
   records across router, workers and scheduler, and the assembler;
 * :mod:`.slo`: per-class latency objectives and their burn counters;
@@ -24,12 +25,14 @@ Counterpart of ``pint_tpu.telemetry``'s core:
   running fleet; ``python -m pint_tpu_torch.telemetry.probe``
   (:mod:`.probe`), the CUDA liveness probe.
 
-Off (the default unless ``PINT_TORCH_TELEMETRY=1`` or an entry point
-calls :func:`configure`), every hook is a boolean check and return, so
-the fit loops stay instrumented. ``PINT_TORCH_TELEMETRY=0`` is a kill
-switch that beats ``configure(enabled=True)``. No hook runs inside a
-captured graph: the fused loop bumps its counters on the host, from the
-flags and results it fetches anyway.
+Off (the default unless ``PINT_TORCH_TELEMETRY=1``, an entry point
+calls :func:`configure`, or a torch profiler records in the process),
+every hook is a boolean check and return, so the fit loops stay
+instrumented. ``PINT_TORCH_TELEMETRY=0`` is a kill switch that beats
+``configure(enabled=True)`` and a profiler session. No hook runs inside
+a captured graph: the fused loop bumps its counters on the host, from
+the flags, results and stage marks it fetches; the marks themselves are
+event records in the graph, which the flight recorder's setting keys.
 
 The telemetry modules import only the standard library at import time.
 """

@@ -1,17 +1,22 @@
 """Process-global telemetry state: the enable gate and its settings.
 
-Counterpart of ``pint_tpu.telemetry.core``. With telemetry off every
-instrumentation site costs one call that reads a module-level boolean
-and returns: no lock, no allocation, no clock read. The heavier
-machinery (span records, counter locks, the JSON-lines buffer) lives
-behind that gate in the sibling modules.
+Counterpart of ``pint_tpu.telemetry.core``. The gate every
+instrumentation site checks (:func:`enabled`) is open when telemetry is
+configured on, or while a torch profiler records in this process: a
+profiled region then carries the program's own spans, counters and
+stage times without a knob. With telemetry off and no profiler, a site
+costs one call that reads two module-level booleans and returns: no
+lock, no allocation, no clock read. The heavier machinery (span records,
+counter locks, the JSON-lines buffer) lives behind that gate in the
+sibling modules.
 
 Environment knobs, declared in :mod:`pint_tpu_torch.config` and read at
 :func:`configure` and :func:`reset` time (not only at import), so tests
 can set them:
 
 * ``PINT_TORCH_TELEMETRY``: ``0`` is a hard kill switch, telemetry stays
-  off even when an entry point asks for it; ``1`` turns it on at import
+  off even when an entry point asks for it or a profiler records (read
+  per call while one does); ``1`` turns it on at import
   for plain library use; unset defers to :func:`configure`.
 * ``PINT_TORCH_TELEMETRY_PATH``: the JSON-lines artifact (appended to);
   unset keeps records in memory only (the rollup still works).
@@ -25,6 +30,7 @@ can set them:
 
 from __future__ import annotations
 
+import sys
 import threading
 
 from pint_tpu_torch import config
@@ -44,9 +50,21 @@ def _env_kill_switch() -> bool:
     return config.env_raw("PINT_TORCH_TELEMETRY") == "0"
 
 
+def profiler_recording() -> bool:
+    """Is a torch profiler recording in this process? Read through
+    ``sys.modules``: nothing imports torch here, and a process that never
+    loaded torch's profiler has none recording."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(prof._is_profiler_enabled)
+
+
 def enabled() -> bool:
-    """The gate every instrumentation site checks first."""
-    return _enabled
+    """The gate every instrumentation site checks first: telemetry is
+    configured on, or a torch profiler records in this process (unless
+    ``PINT_TORCH_TELEMETRY=0``)."""
+    if _enabled:
+        return True
+    return profiler_recording() and not _env_kill_switch()
 
 
 def jsonl_path() -> str | None:

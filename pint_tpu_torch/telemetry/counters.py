@@ -9,7 +9,9 @@ Names use dots as namespace separators:
 
 * ``fit.*``: damped-loop events (iterations, accepts, halvings, probe
   evaluations, the outcome), ``fit.device_loop.*`` the fused loop's
-  launches, captures, replays and fetches;
+  launches, captures, replays and fetches, ``fit.device.<stage>_ms``
+  the device milliseconds of each marked stage of its evaluations
+  (:mod:`pint_tpu_torch.telemetry.marks`);
 * ``cache.<name>.hit|miss|evict``: a named :class:`~pint_tpu_torch.utils
   .cache.LRUCache`; ``cache.fit_program.*``: graph captures
   (:func:`pint_tpu_torch.bucketing.note_program`);
@@ -30,7 +32,7 @@ _gauges: dict[str, float] = {}
 
 def inc(name: str, n: float = 1) -> None:
     """Add ``n`` to counter ``name`` (nothing when telemetry is off)."""
-    if not core._enabled:
+    if not core.enabled():
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
@@ -38,7 +40,7 @@ def inc(name: str, n: float = 1) -> None:
 
 def set_gauge(name: str, value: float) -> None:
     """Record the current value of gauge ``name`` (last write wins)."""
-    if not core._enabled:
+    if not core.enabled():
         return
     with _lock:
         _gauges[name] = float(value)
@@ -46,7 +48,7 @@ def set_gauge(name: str, value: float) -> None:
 
 def max_gauge(name: str, value: float) -> None:
     """Record ``value`` only if it exceeds the gauge's current value."""
-    if not core._enabled:
+    if not core.enabled():
         return
     with _lock:
         prev = _gauges.get(name)

@@ -113,7 +113,7 @@ def add_span(rec: dict) -> None:
 
 def add_record(rec: dict) -> None:
     """Buffer a record that is not a span (nothing when telemetry is off)."""
-    if not core._enabled:
+    if not core.enabled():
         return
     rec.setdefault("t", time.time())
     rec.setdefault("pid", os.getpid())

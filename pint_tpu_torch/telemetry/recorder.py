@@ -34,9 +34,16 @@ wraps it, and the record counts the ``dropped`` (oldest) entries. Kill
 switch: ``PINT_TORCH_FLIGHT_RECORDER=0`` (default on). The most recent
 record is :func:`last_trace`; with telemetry on, each record is also a
 ``type="trace"`` line of the JSON-lines artifact, a device trace adds
-one synthetic ``<kind>.iter`` span per entry (``kind="device"``,
-``dur_s`` 0: the evaluations ran inside graph replays), and
+one synthetic ``<kind>.iter`` span per entry (``kind="device"``), and
 :func:`capture_program` accounts each graph capture.
+
+The recorder also carries the fused loop's stage marks
+(:mod:`pint_tpu_torch.telemetry.marks`): with the recorder on, a full
+evaluation that marks its stages is captured with its marks. An entry
+whose device time was read (telemetry on at its flag fetch) gets that
+evaluation's device time, the sum of its stages, as its span's
+``dur_s``; an entry of a loop without marks keeps ``dur_s`` 0 (it ran
+inside a graph replay, which no host clock sees).
 """
 
 from __future__ import annotations
@@ -77,10 +84,12 @@ def _reset() -> None:
 
 
 def emit_trace(kind: str, entries: dict, *, loop: str,
-               dropped: int = 0) -> dict:
+               dropped: int = 0, durations: list | None = None) -> dict:
     """Build one trace record, keep it as :func:`last_trace` and return it.
 
-    ``entries`` maps field name -> list of per-evaluation values.
+    ``entries`` maps field name -> list of per-evaluation values;
+    ``durations`` (a device trace's) the device seconds of each entry, or
+    None where its time was not read (its span's ``dur_s`` is then 0).
     """
     global _LAST_TRACE
     n = len(entries.get("chi2", ()))
@@ -88,15 +97,17 @@ def emit_trace(kind: str, entries: dict, *, loop: str,
            "n": n + dropped, "recorded": n, "dropped": dropped}
     rec.update(entries)
     _LAST_TRACE = rec
-    if not core._enabled:
+    if not core.enabled():
         return rec
     counters.inc("trace.emitted")
     export.add_record(trace.stamp(dict(rec), trace.current()))
     if loop == "device":
         t, pid = time.time(), os.getpid()
         for i in range(n):
+            dur = durations[i] if durations else None
             span_rec = {"type": "span", "name": f"{kind}.iter", "t": t,
-                        "dur_s": 0.0, "seq": i, "depth": 1,
+                        "dur_s": 0.0 if dur is None else dur,
+                        "seq": i, "depth": 1,
                         "parent": f"{kind}.program", "kind": "device",
                         "pid": pid}
             for f in FIELDS:
@@ -106,13 +117,15 @@ def emit_trace(kind: str, entries: dict, *, loop: str,
     return rec
 
 
-def emit_device_trace(kind: str, trace: dict) -> dict:
+def emit_device_trace(kind: str, trace: dict,
+                      durations: dict | None = None) -> dict:
     """Re-emit a fetched device ring as an ordered trace record.
 
     ``trace`` is ``{"n": total entry count, <field>: ring array, ...}``
     on the host: (cap,) rings of the scalar loop, (cap, B) of the
     batched one. Entries beyond the ring's capacity wrapped; the oldest
-    are dropped and counted.
+    are dropped and counted. ``durations`` maps an entry's number (0 the
+    init evaluation) to its device seconds, where they were read.
     """
     n = int(trace["n"])
     cap = int(np.shape(trace["chi2"])[0])
@@ -130,7 +143,10 @@ def emit_device_trace(kind: str, trace: dict) -> dict:
             conv = float
         entries[f] = [conv(v) if vals.ndim == 1 else [conv(x) for x in v]
                       for v in vals]
-    return emit_trace(kind, entries, loop="device", dropped=n - kept)
+    times = [durations.get(n - kept + j) for j in range(kept)] \
+        if durations else None
+    return emit_trace(kind, entries, loop="device", dropped=n - kept,
+                      durations=times)
 
 
 class HostTrace:
@@ -184,7 +200,7 @@ def capture_program(kind: str, *, shape=None, fingerprint=None,
     ``program.<kind>.<field>`` gauge and all of them, with the shape and
     fingerprint, in one ``type="program"`` record. Nothing when telemetry
     is off."""
-    if not core._enabled:
+    if not core.enabled():
         return
     rec: dict = {"type": "program", "kind": kind}
     if shape is not None:

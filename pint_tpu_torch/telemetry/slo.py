@@ -43,7 +43,7 @@ def observe(cls: str, latency_s: float, *, missed: bool = False) -> None:
     ``slo.<cls>.total``, and burns when its latency exceeded the class
     objective or the caller knows it missed. No-op when telemetry is
     off."""
-    if not core._enabled:
+    if not core.enabled():
         return
     counters.inc(f"slo.{cls}.total")
     if missed or latency_s > target_s(cls):

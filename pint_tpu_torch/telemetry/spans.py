@@ -14,6 +14,15 @@ is ``kind="capture"``, one that only replays is ``kind="replay"``
 sites that know, such as the loop's dispatch, pass ``kind=`` to
 :func:`span`).
 
+While a torch profiler records in this process, telemetry is on
+(:func:`pint_tpu_torch.telemetry.core.enabled`) and every span also
+opens a ``record_function`` range of its own name, so the program's
+spans sit on the profiler's timeline beside the device's kernels.
+
+Each record carries its parent's name and, inside a fit, the enclosing
+fit's span (``fit``: the outermost open span named ``fit.*``, and
+``fit_seq``: its sequence number), so the spans of one fit share an id.
+
 With telemetry off :func:`span` returns one shared no-op context
 manager: no allocation, no clock read.
 """
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import os
+import sys
 import threading
 import time
 
@@ -58,7 +68,7 @@ class Span:
     """One open region; use as ``with span(name): ...``."""
 
     __slots__ = ("name", "kind", "tags", "seq", "depth", "parent",
-                 "t_wall", "_t0", "dur_s", "_trace")
+                 "t_wall", "_t0", "dur_s", "_trace", "fit", "_rf")
 
     def __init__(self, name: str, kind: str | None, tags: dict):
         self.name = name
@@ -66,15 +76,26 @@ class Span:
         self.tags = tags
         self.seq = _next_seq(name)
         self.dur_s = -1.0
+        self._rf = None
 
     def __enter__(self):
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
         self.depth = len(stack)
-        self.parent = stack[-1].name if stack else None
+        up = stack[-1] if stack else None
+        self.parent = up.name if up is not None else None
+        self.fit = (up.fit if up is not None and up.fit is not None
+                    else (self.name, self.seq) if self.name.startswith("fit.")
+                    else None)
         self._trace = trace.current()
         stack.append(self)
+        if core.profiler_recording():
+            # the profiler's own range of this span (its module is
+            # loaded, since a profiler records)
+            self._rf = sys.modules["torch.autograd.profiler"] \
+                .record_function(self.name)
+            self._rf.__enter__()
         if core.mirror_logs():
             _mirror("begin %s seq=%d depth=%d", self.name, self.seq,
                     self.depth)
@@ -84,12 +105,17 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb):
         self.dur_s = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
         stack = _local.stack
         if stack and stack[-1] is self:
             stack.pop()
         rec = {"type": "span", "name": self.name, "t": self.t_wall,
                "dur_s": self.dur_s, "seq": self.seq, "depth": self.depth,
                "parent": self.parent, "kind": self.kind, "pid": os.getpid()}
+        if self.fit is not None:
+            rec["fit"], rec["fit_seq"] = self.fit
         if self.tags:
             rec.update(self.tags)
         if exc_type is not None:
@@ -111,7 +137,7 @@ def _mirror(msg: str, *args) -> None:
 def span(name: str, kind: str | None = None, **tags):
     """A context manager recording one wall-clock region (a no-op when
     telemetry is off)."""
-    if not core._enabled:
+    if not core.enabled():
         return _NULL_SPAN
     return Span(name, kind, tags)
 
@@ -120,7 +146,7 @@ def graph_span(name: str, **tags):
     """A span of kind ``capture`` (the first of ``name`` in this process)
     or ``replay`` (every later one): the reference's ``jit_span`` rule
     for a region that captures a graph once and replays it after."""
-    if not core._enabled:
+    if not core.enabled():
         return _NULL_SPAN
     s = Span(name, None, tags)
     s.kind = "capture" if s.seq == 0 else "replay"
@@ -128,29 +154,31 @@ def graph_span(name: str, **tags):
 
 
 _profiler_lock = threading.Lock()
-_profiler_active = False
 
 
 class _ProfileSpan:
     """A span whose region torch.profiler also records.
 
-    The profiler is process-global, so only the outermost active
-    :func:`profile_span` starts and stops it; nested ones are plain
-    spans. torch is imported only when a trace starts.
+    The profiler is process-global, so none starts while another
+    profiler session records (an outer :func:`profile_span`'s or a
+    caller's own ``torch.profiler.profile``): a covered one is a plain
+    span. The span itself is recorded when telemetry is on once the
+    profiler runs, as it is while one records. torch is imported only
+    when a trace starts.
     """
 
-    __slots__ = ("_span", "_dir", "_name", "_prof")
+    __slots__ = ("_span", "_dir", "_name", "_tags", "_prof")
 
-    def __init__(self, span_obj, profile_dir, name):
-        self._span = span_obj
+    def __init__(self, profile_dir, name, tags):
+        self._span = None
         self._dir = profile_dir
         self._name = name
+        self._tags = tags
         self._prof = None
 
     def __enter__(self):
-        global _profiler_active
         with _profiler_lock:
-            if not _profiler_active:
+            if not core.profiler_recording():
                 try:
                     import torch
 
@@ -160,17 +188,16 @@ class _ProfileSpan:
                     prof = torch.profiler.profile(activities=acts)
                     prof.__enter__()
                     self._prof = prof
-                    _profiler_active = True
                 except Exception:  # noqa: BLE001 - profiling never fails a fit
                     self._prof = None
-        if self._span is not None:
+        if core.enabled():
+            self._span = Span(self._name, None, self._tags)
             if self._prof is not None:
                 self._span.tags["profiled"] = True
             self._span.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        global _profiler_active
         if self._span is not None:
             self._span.__exit__(exc_type, exc, tb)
         if self._prof is not None:
@@ -183,8 +210,7 @@ class _ProfileSpan:
                         f"{_next_seq('profile:' + self._name)}.json"))
                 except Exception:  # noqa: BLE001
                     pass
-                _profiler_active = False
-                if core._enabled:
+                if core.enabled():
                     from pint_tpu_torch.telemetry import counters
 
                     counters.inc("telemetry.profile.traces")
@@ -194,18 +220,17 @@ class _ProfileSpan:
 def profile_span(name: str, **tags):
     """:func:`span` plus a torch.profiler trace of the same region.
 
-    With ``PINT_TORCH_PROFILE_DIR`` unset this is exactly :func:`span`;
-    with it set, the region is also recorded by torch.profiler and its
-    Chrome trace written into that directory, and the span carries
-    ``profiled: true``.
+    With ``PINT_TORCH_PROFILE_DIR`` unset, or while another profiler
+    session records, this is exactly :func:`span`; otherwise the region
+    is also recorded by torch.profiler and its Chrome trace written into
+    that directory, and the span carries ``profiled: true``.
     """
     pdir = core.profile_dir()
-    if not core._enabled and not pdir:
+    if pdir and not core.profiler_recording():
+        return _ProfileSpan(pdir, name, tags)
+    if not core.enabled():
         return _NULL_SPAN
-    s = Span(name, None, tags) if core._enabled else None
-    if not pdir:
-        return s
-    return _ProfileSpan(s, pdir, name)
+    return Span(name, None, tags)
 
 
 def traced(name: str | None = None, kind: str | None = None):
@@ -216,7 +241,7 @@ def traced(name: str | None = None, kind: str | None = None):
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not core._enabled:
+            if not core.enabled():
                 return fn(*args, **kwargs)
             with Span(label, kind, {}):
                 return fn(*args, **kwargs)

@@ -139,7 +139,7 @@ def root() -> TraceContext | None:
     :func:`emit_root`\\ s with the chosen host). None when telemetry
     is off; the inert :data:`UNSAMPLED` sentinel when the trace was
     sampled out (so later tiers do not re-roll)."""
-    if not core._enabled:
+    if not core.enabled():
         return None
     if not _sampled():
         return UNSAMPLED
@@ -148,7 +148,7 @@ def root() -> TraceContext | None:
 
 def emit_root(ctx: TraceContext | None, name: str, **fields) -> None:
     """Emit the root hop record for a :func:`root` context."""
-    if not _live(ctx) or not core._enabled:
+    if not _live(ctx) or not core.enabled():
         return
     _emit(ctx.trace_id, ctx.span_id, None, name, fields)
 
@@ -166,7 +166,7 @@ def hop(ctx: TraceContext | None, name: str,
     """Emit one causal hop parented under ``ctx``; returns the child
     context (the new chain head). Inert None-in/None-out when tracing
     is off or the request was never sampled."""
-    if not _live(ctx) or not core._enabled:
+    if not _live(ctx) or not core.enabled():
         return None
     child = TraceContext(ctx.trace_id, _new_span_id())
     _emit(ctx.trace_id, child.span_id, ctx.span_id, name, fields)
@@ -236,14 +236,14 @@ def use(ctx: TraceContext | None):
     ``telemetry.span()`` opened (and every :func:`current`-stamped
     record emitted) inside the ``with`` block is annotated under it.
     Shared no-op when off."""
-    if not _live(ctx) or not core._enabled:
+    if not _live(ctx) or not core.enabled():
         return _NULL_USE
     return _Use(ctx)
 
 
 def current() -> TraceContext | None:
     """The thread's scoped context (None outside any :func:`use`)."""
-    if not core._enabled:
+    if not core.enabled():
         return None
     return getattr(_tls, "ctx", None)
 

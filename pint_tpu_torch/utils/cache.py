@@ -44,7 +44,7 @@ class LRUCache(OrderedDict):
         val = self.get(key)
         if val is not None:
             self.move_to_end(key)
-        if self.name is not None and _tele_core._enabled:
+        if self.name is not None and _tele_core.enabled():
             _tele_counters.inc(f"cache.{self.name}."
                                f"{'miss' if val is None else 'hit'}")
         return val
@@ -54,6 +54,6 @@ class LRUCache(OrderedDict):
         self[key] = val
         while len(self) > self.maxsize:
             self.popitem(last=False)
-            if self.name is not None and _tele_core._enabled:
+            if self.name is not None and _tele_core.enabled():
                 _tele_counters.inc(f"cache.{self.name}.evict")
         return val

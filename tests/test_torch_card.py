@@ -541,6 +541,86 @@ def test_pta_fit_on_the_card_equals_the_cpus(cuda_device):
                 <= 1e-6 * ma[k].uncertainty, k
 
 
+def test_pta_stage_times_lie_inside_the_replays(cuda_device, monkeypatch):
+    """A warm 4 x 2,000-TOA joint fit with telemetry on: the stage
+    counters that the captured marks feed (stage 1, stage 2, joint) add
+    up to at most the device time of the full replays (CUDA events
+    around each graph launch) and to at least 85% of it (the rest is the
+    loop's own selects). Under torch.profiler the counters fill as well,
+    every full evaluation's recorder entry is timed, and stage 2 and the
+    joint solve read per evaluation within 10% of their unprofiled
+    times (the profiler stretches only stage 1's many small kernels)."""
+    from torch.autograd import DeviceType
+
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.catalog import CatalogSpec, generate_catalog
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    spec = CatalogSpec(n_pulsars=4, toas_per_pulsar=2000, seed=3,
+                       red_nharm=10, gw_nharm=5)
+    card = [(t.to(cuda_device), m) for t, m in
+            generate_catalog(spec, device="cpu").joint_problems()]
+    f = PTAGLSFitter(card, gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=5)
+    f.fit_toas(maxiter=6)
+    replays = []
+    replay = device_loop._Captured.replay
+
+    def timed(cap, kind):
+        if kind != "full":
+            return replay(cap, kind)
+        ab = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ab[0].record()
+        replay(cap, kind)
+        ab[1].record()
+        replays.append(ab)
+
+    def stages_ms():
+        c = telemetry.counters_snapshot()
+        return [c.get(f"fit.device.{k}_ms", 0.0)
+                for k in ("stage1", "stage2", "joint")]
+
+    monkeypatch.setattr(device_loop._Captured, "replay", timed)
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    f.fit_toas(maxiter=6)
+    torch.cuda.synchronize()
+    stages = stages_ms()
+    evals = f.loop_stats["full"]
+    replay_ms = sum(a.elapsed_time(b) for a, b in replays)
+    monkeypatch.undo()
+    telemetry.reset()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        f.fit_toas(maxiter=6)
+        torch.cuda.synchronize()
+    profiled = stages_ms()
+    evals_profiled = f.loop_stats["full"]
+    iters = telemetry.span_stats()["device_loop_pta.iter"]["count"]
+    telemetry.reset()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    print(f"stages {stages} ms (sum {sum(stages):.3f}) in {evals} full "
+          f"evaluations, {len(replays)} full replays of {replay_ms:.3f} ms; "
+          f"profiled: stages {profiled} ms (sum {sum(profiled):.3f}) in "
+          f"{evals_profiled}, busy {busy * 1e-3:.3f} ms, {len(spans)} "
+          f"device events")
+    assert all(v > 0 for v in stages) and all(v > 0 for v in profiled)
+    assert 0.85 * replay_ms <= sum(stages) <= replay_ms
+    assert iters == evals_profiled
+    for i in (1, 2):                         # stage 2, the joint solve
+        assert profiled[i] / evals_profiled == pytest.approx(
+            stages[i] / evals, rel=0.1), i
+
+
 # ----------------------------------------------------------------------
 # the serving tier on the card
 # ----------------------------------------------------------------------

@@ -341,7 +341,8 @@ TELEMETRY_AND_PARALLEL_MODULES = (
     "pint_tpu_torch.telemetry", "pint_tpu_torch.telemetry.core",
     "pint_tpu_torch.telemetry.counters", "pint_tpu_torch.telemetry.host",
     "pint_tpu_torch.telemetry.export", "pint_tpu_torch.telemetry.spans",
-    "pint_tpu_torch.telemetry.trace", "pint_tpu_torch.bucketing",
+    "pint_tpu_torch.telemetry.trace", "pint_tpu_torch.telemetry.marks",
+    "pint_tpu_torch.bucketing",
     "pint_tpu_torch.parallel", "pint_tpu_torch.parallel.mesh",
     "pint_tpu_torch.parallel.batch", "pint_tpu_torch.parallel.sharded_fit",
     "pint_tpu_torch.telemetry.slo", "pint_tpu_torch.parallel.pta",

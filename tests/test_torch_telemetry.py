@@ -483,6 +483,12 @@ def test_trace_record_roundtrip(tmp_path):
     entries = {"chi2": [9.0, 1.0], "lam": [1.0, 1.0],
                "accepted": [False, True], "halvings": [0, 0],
                "probe_evals": [0, 0]}
+    recorder.emit_trace("t_loop", entries, loop="device",
+                        durations=[0.002, 0.003])
+    # an entry whose device time was not read, and a loop without marks,
+    # keep a span per entry with dur_s 0
+    recorder.emit_trace("t_loop", entries, loop="device",
+                        durations=[None, 0.004])
     recorder.emit_trace("t_loop", entries, loop="device")
     telemetry.flush()
     lines = [json.loads(line) for line in open(path)]
@@ -491,11 +497,13 @@ def test_trace_record_roundtrip(tmp_path):
     assert tr["n"] == 2 and tr["chi2"] == [9.0, 1.0]
     iters = [line for line in lines if line["type"] == "span"
              and line["name"] == "t_loop.iter"]
-    assert len(iters) == 2
+    assert [s["dur_s"] for s in iters] == [0.002, 0.003, 0.0, 0.004,
+                                           0.0, 0.0]
+    assert [s["seq"] for s in iters] == [0, 1] * 3
     assert all(s["kind"] == "device" for s in iters)
     assert iters[1]["accepted"] is True
     assert recorder.last_trace()["chi2"] == [9.0, 1.0]
-    assert telemetry.counters_snapshot()["trace.emitted"] == 1
+    assert telemetry.counters_snapshot()["trace.emitted"] == 3
 
 
 def test_host_trace_recorder_semantics():
@@ -555,6 +563,108 @@ def test_profile_span_writes_torch_trace(tmp_path, monkeypatch):
     rec = next(r for r in map(json.loads, open(tmp_path / "p.jsonl"))
                if r.get("name") == "profiled")
     assert rec["profiled"] is True
+
+
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_a_profiler_session_turns_spans_on_as_host_events():
+    """Inside torch.profiler.profile a span is on, with telemetry not
+    configured, and shows as a host event of its name; outside any
+    profiler it is the shared no-op again."""
+    assert telemetry.span("fit.x") is _NULL_SPAN
+    with _cpu_profile() as prof:
+        assert telemetry.enabled()
+        s = telemetry.span("fit.x")
+        assert s is not _NULL_SPAN
+        with s:
+            with telemetry.span("inner"):
+                torch.ones(4, dtype=torch.float64).sum()
+            telemetry.inc("under_profiler")
+    assert not telemetry.enabled()
+    assert telemetry.span("fit.x") is _NULL_SPAN
+    names = [e.name for e in prof.events()]
+    assert "fit.x" in names and "inner" in names
+    assert telemetry.span_stats()["fit.x"]["count"] == 1
+    assert telemetry.counters_snapshot() == {"under_profiler": 1}
+
+
+def test_kill_switch_beats_a_profiler_session(monkeypatch):
+    monkeypatch.setenv("PINT_TORCH_TELEMETRY", "0")
+    telemetry.reset()
+    with _cpu_profile():
+        assert not telemetry.enabled()
+        assert telemetry.span("fit.x") is _NULL_SPAN
+        assert telemetry.profile_span("fit.x") is _NULL_SPAN
+        telemetry.inc("c")
+    assert telemetry.counters_snapshot() == {}
+    assert telemetry.span_stats() == {}
+
+
+def test_profile_span_starts_no_second_profiler(tmp_path, monkeypatch):
+    """Under a caller's profiler, profile_span with PINT_TORCH_PROFILE_DIR
+    set is a plain span on that profiler's timeline: no trace of its own."""
+    pdir = tmp_path / "prof"
+    monkeypatch.setenv("PINT_TORCH_PROFILE_DIR", str(pdir))
+    with _cpu_profile() as prof:
+        with telemetry.profile_span("fit.covered"):
+            torch.ones(16, dtype=torch.float64).sum()
+    assert not pdir.exists()
+    assert "telemetry.profile.traces" not in telemetry.counters_snapshot()
+    assert telemetry.span_stats()["fit.covered"]["count"] == 1
+    assert "fit.covered" in [e.name for e in prof.events()]
+
+
+def test_span_records_carry_their_fit(tmp_path):
+    """Every span inside a fit carries the fit's span name and sequence
+    number, the fit's own span too; a span outside any fit carries none."""
+    path = str(tmp_path / "fit.jsonl")
+    telemetry.configure(enabled=True, jsonl_path=path)
+    with telemetry.span("outside"):
+        pass
+    for _ in range(2):
+        with telemetry.span("fit.joint"):
+            with telemetry.span("loop.fetch"):
+                with telemetry.span("loop.flag_wait"):
+                    pass
+    telemetry.flush()
+    recs = [r for r in map(json.loads, open(path)) if r["type"] == "span"]
+    assert "fit" not in next(r for r in recs if r["name"] == "outside")
+    for r in recs[1:]:
+        assert r["fit"] == "fit.joint", r
+    for name in ("fit.joint", "loop.fetch", "loop.flag_wait"):
+        assert [r["fit_seq"] for r in recs if r["name"] == name] == [0, 1]
+    assert [r["parent"] for r in recs if r["name"] == "loop.flag_wait"] \
+        == ["loop.fetch"] * 2
+
+
+def test_stage_marks_add_up_each_stage_of_a_body():
+    """A session's marks split one body into stages (a repeated stage
+    adds up, a mark of the open stage records nothing, the last stage
+    closes at the body's end); outside a session a mark does nothing."""
+    from pint_tpu_torch.telemetry import marks
+
+    marks.stage("stage1")           # no session: nothing
+    s = marks.Session(cuda=False)
+    with s:
+        for _ in range(2):
+            marks.stage("stage1")
+            marks.stage("stage1")
+            marks.stage("stage2")
+        marks.stage("joint")
+    assert s.labels[:s.count] == ["stage1", "stage2", "stage1", "stage2",
+                                  "joint", None]
+    seg = s.segments()
+    assert set(seg) == {"stage1", "stage2", "joint"}
+    t = s.stamps
+    assert seg["stage1"] == pytest.approx(
+        ((t[1] - t[0]) + (t[3] - t[2])) * 1e3)
+    assert seg["joint"] == pytest.approx((t[5] - t[4]) * 1e3)
+    with s:                         # a body without marks
+        pass
+    assert s.count == 0 and s.segments() == {}
 
 
 # ----------------------------------------------------------------------
