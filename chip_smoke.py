@@ -11,8 +11,9 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    versions; TF32 is switched off for matmuls and cuDNN;
 2. build every kernel of the path from its source (``nvcc``, ``sm_90a``)
    and print each kernel's threads, registers, spill bytes, dynamic
-   shared bytes and resident blocks per SM: every partials build must
-   run at 2 or more blocks per SM with no spill;
+   shared bytes and resident blocks per SM: every partials build, and
+   the block elimination at the joint fit's q = 106, must run at 2 or
+   more blocks per SM with no spill;
 3. ``dd.self_check`` on the card must pass: the DD phase runs there;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (q = 66: the bench par with RAJ/DECJ, the narrow
@@ -183,14 +184,17 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    ds32 Gram at (68, 8,824, 106), (68, 2,206, 106), a q <= 64 shape and
    (3, 3,001, 129) (each member bit for bit its 2-D launch, through
    ``torch.func.vmap`` too, and within 1e-12 of max|G| of the batched
-   plain version; times, bound, ``torch.bmm`` both ways); BASELINE.md
-   config 5 from
+   plain version; times, bound, ``torch.bmm`` both ways); the block
+   elimination at (68, q = 106, p = 6, k = 40) against its plain version
+   within 1e-12 of each output's largest entry (times, bound, the route
+   before it); BASELINE.md config 5 from
    ``generate_catalog`` (68 x 8,824 GBT TOAs, 600,032, ECORR + 30-harmonic
    red noise, a 20-harmonic HD-correlated GW background; each table then
    shifted by a draw of its par's noise; every model kicked by KICK)
    fitted by ``PTAGLSFitter`` through the fused joint loop (the batched
-   Gram inside its captured graph, both kernel counts set to 0 before:
-   two batched launches per full evaluation, no 2-D one), cold and warm,
+   Gram and the block elimination inside its captured graph, every
+   kernel count set to 0 before: two batched Gram launches and one block
+   elimination per full evaluation, no 2-D Gram), cold and warm,
    the host loop as witness (phase 6's gates), converged with joint
    chi2/dof in [0.8, 1.25] and every fitted parameter within 5 sigma of
    the truth, peak memory, the idle share of a warm fit, and the float64
@@ -3222,6 +3226,14 @@ PTA_GRAM_SHAPES = (("G_BB", 68, 8_824, 106, True),
                    ("Schur", 68, 2_206, 106, True),
                    ("q46", 68, 2_206, 46, False),
                    ("q129", 3, 3_001, 129, False))
+# the block elimination of the joint solve at phase 17's shapes: 68
+# members of q = 106 (p = 6 timing columns, 60 red-noise, k = 40 GW),
+# both systems of each in one launch; the kernel against its plain
+# version (the library route on the card), the largest gap of each
+# output over its largest entry (the pivot order differs: rounding only)
+ELIM_SHAPE = (68, 106, 6, 40)
+ELIM_BAR = 1e-12
+F64_FLOPS = 34e12     # float64 outside the tensor cores (the kernel's)
 # the Gram-kernel route against the float64 route: the ds32 conditioning
 # trap (ROADMAP Queue 3; 1.45e-4 sigma measured in phase 16's sharded
 # fit), the sharded fit's bar
@@ -3301,6 +3313,113 @@ def check_batched_gram(gram, dev):
     return shapes
 
 
+def elim_work(G, q, p, k):
+    """(flops, bytes) the block elimination of G members needs: the
+    Schur updates of the red-noise pivots over each system's trailing
+    lower triangle and the timing sweeps; each input element read once
+    (A's and C's lower triangles, B, rhs) and each output written once."""
+    m = q - k
+    kpl = m - p
+    fma = 0
+    for n1, sweeps in ((q + 1, p), (q - p + 1, 0)):
+        fma += sum((n1 - 1 - j) * (n1 - j) // 2 for j in range(kpl))
+        fma += sweeps * (n1 - kpl) * (n1 - kpl + 1) // 2
+    inputs = m * (m + 1) // 2 + m * k + k * (k + 1) // 2 + q
+    outputs = p * k + 2 * p + 2 * (k * k + k) + 1
+    return G * 2.0 * fma, G * 8.0 * (inputs + outputs)
+
+
+def cholesky_route(S, rhs, p, k):
+    """The joint solve's block eliminations as the port ran them before
+    the kernel (the yardstick ``library_ms``, never called by the port):
+    per system one jittered Cholesky and three ``cholesky_solve`` calls
+    (the GW coupling, the right-hand side, the full inverse), then the
+    Schur products."""
+    from pint_tpu_torch.fitting import gls_step
+
+    eps = torch.finfo(torch.float64).eps
+
+    def elim(A, B, c):
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+        L = gls_step.cholesky(A + eye * (eps * tr)[..., None, None])
+        return (torch.cholesky_solve(B, L),
+                torch.cholesky_solve(c[..., None], L)[..., 0],
+                torch.cholesky_solve(eye.expand_as(A), L))
+
+    m = S.shape[-1] - k
+    B = S[:, :m, m:]
+    Y, z, Ainv = elim(S[:, :m, :m], B, rhs[:, :m])
+    K = S[:, m:, m:] - B.mT @ Y
+    kpl = m - p
+    Sn, cn = S[:, p:, p:], rhs[:, p:]
+    nB = Sn[:, :kpl, kpl:]
+    nY, nz, _ = elim(Sn[:, :kpl, :kpl], nB, cn[:, :kpl])
+    return K, Sn[:, kpl:, kpl:] - nB.mT @ nY, torch.sum(cn[:, :kpl] * nz)
+
+
+def check_block_elim(dev):
+    """17a: the block-elimination kernel at the joint fit's shapes
+    (ELIM_SHAPE, random positive definite systems) against its plain
+    version on the card within ELIM_BAR of each output's largest entry,
+    one launch counted; times (CUDA events, device time), the plain
+    version's, the route before the kernel (``library_ms``) and the
+    bound."""
+    from pint_tpu_torch.ops import block_elim as be
+    from pint_tpu_torch.parallel.batch import _cusolver
+
+    G, q, p, k = ELIM_SHAPE
+    gen = torch.Generator().manual_seed(q)
+    X = torch.randn(G, 3 * q, q, generator=gen, dtype=torch.float64)
+    prior = torch.rand(G, q, generator=gen, dtype=torch.float64) * 3.0
+    S = (X.mT @ X / (3 * q) + torch.diag_embed(prior)).to(dev)
+    rhs = torch.randn(G, q, generator=gen, dtype=torch.float64).to(dev)
+    with _cusolver(dev):
+        before = be.block_elim.launches
+        out = be.block_elim(S, rhs, p, k)
+        ref = be.block_elim_reference(S, rhs, p, k)
+        torch.cuda.synchronize()
+        gaps = {name: float((getattr(out, name) - getattr(ref, name)).abs().max()
+                            / getattr(ref, name).abs().max())
+                for name in ("Yp", "zp", "a", "K", "g", "nK", "ng", "ncz")}
+        print(f"  block_elim {G} x (q {q}, p {p}, k {k}): route {out.route}, "
+              f"{be.block_elim.launches - before} launch; |kernel - plain| "
+              f"over max|plain| by output: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items())
+              + f" (bar {ELIM_BAR:g})", flush=True)
+        if out.route != "kernel" or be.block_elim.launches != before + 1 \
+                or not max(gaps.values()) <= ELIM_BAR:
+            fail("the block-elimination kernel disagrees with its plain "
+                 "version")
+        flops, nbytes = elim_work(G, q, p, k)
+        bound_ms = max(flops / F64_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+        by_name = device_ms(lambda: be.block_elim(S, rhs, p, k),
+                            kernels=("pta_block_elim",))
+        rec = {"shape": f"{G} x q{q} p{p} k{k}", "G": G, "q": q, "p": p,
+               "k": k, "ms": median_ms(lambda: be.block_elim(S, rhs, p, k)),
+               "device_ms": sum(ms for name, ms in by_name.items()
+                                if "pta_block_elim" in name) or None,
+               "plain_ms": median_ms(
+                   lambda: be.block_elim_reference(S, rhs, p, k), reps=5),
+               "library_ms": median_ms(lambda: cholesky_route(S, rhs, p, k),
+                                       reps=5),
+               "library_device_ms": sum(device_ms(
+                   lambda: cholesky_route(S, rhs, p, k), calls=5).values())
+               or None,
+               "bound_ms": bound_ms,
+               "bound_by": ("operations" if flops / F64_FLOPS
+                            >= nbytes / HBM_BYTES_S else "bytes"),
+               "max_rel_err": max(gaps.values()),
+               "build": be.build_info(q)}
+    print(f"  block_elim: kernel {rec['ms']:.4f} ms a launch "
+          f"({fmt_ms(rec['device_ms'])} device), plain version (cuSOLVER) "
+          f"{rec['plain_ms']:.4f} ms, the route before the kernel "
+          f"{rec['library_ms']:.4f} ms ({fmt_ms(rec['library_device_ms'])} "
+          f"device), bound {bound_ms:.4f} ms ({rec['bound_by']}: "
+          f"{flops:.3e} flops, {nbytes:.3e} bytes)", flush=True)
+    return rec
+
+
 def pta_problems(spec, device, kick=True):
     """The catalog of `spec` (generated on `device`), its tables shifted
     by a draw of each par's noise, each model kicked by KICK; returns
@@ -3325,10 +3444,11 @@ def run_pta(f, starts=None, loop="1", maxiter=10):
     """One joint fit of PTAGLSFitter `f` (each model set to `starts`
     first, when given) through the fused loop or the host loop; the
     run_fit record, the ds32_gram launches split into 2-D and batched
-    (both counts set to 0 just before the fit and read just after)."""
+    and the block-elimination launches (each count set to 0 just before
+    the fit and read just after)."""
     import os
 
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import block_elim, gram
     from pint_tpu_torch.telemetry import recorder
 
     if starts is not None:
@@ -3340,6 +3460,7 @@ def run_pta(f, starts=None, loop="1", maxiter=10):
         torch.cuda.synchronize()
         gram.ds32_gram.launches = 0
         gram.ds32_gram_batched.launches = 0
+        block_elim.block_elim.launches = 0
         t0 = time.perf_counter()
         chi2 = f.fit_toas(maxiter=maxiter)
         torch.cuda.synchronize()
@@ -3353,6 +3474,7 @@ def run_pta(f, starts=None, loop="1", maxiter=10):
             "stats": dict(f.loop_stats), "trace": trace,
             "launches": gram.ds32_gram.launches,
             "batched": gram.ds32_gram_batched.launches,
+            "elim": block_elim.block_elim.launches,
             "converged": f.converged}
 
 
@@ -3370,9 +3492,10 @@ def worst_sigma(a, b):
 def pta_baseline(dev):
     """17b: BASELINE config 5 at full size through the fused joint loop.
     Returns (the launches of the main fit by kernel, its record)."""
+    from pint_tpu_torch import telemetry
     from pint_tpu_torch.catalog import CatalogSpec
     from pint_tpu_torch.fitting import device_loop
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import block_elim, gram
     from pint_tpu_torch.parallel.pta import PTAGLSFitter
 
     spec = CatalogSpec(**PTA_SPEC)
@@ -3398,9 +3521,12 @@ def pta_baseline(dev):
     starts = [{k: m[k].value for k in m.free_params} for m in f.models]
     # the main path: run_pta sets every kernel count to 0 just before the
     # fit and reads it just after
+    elim_captured = block_elim.block_elim.captured
     cold = run_pta(f)
     launches = {"ds32_gram": cold["launches"],
-                "ds32_gram_batched": cold["batched"]}
+                "ds32_gram_batched": cold["batched"],
+                "block_elim": cold["elim"]}
+    elim_captured = block_elim.block_elim.captured - elim_captured
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     vals = pta_values(f)
     describe_fit("joint fit (cold, fused loop, with capture)", cold)
@@ -3415,10 +3541,27 @@ def pta_baseline(dev):
         fail(f"the joint fit did not converge to a finite chi2 ({cold['chi2']})")
     if not 0.8 <= cold["chi2"] / dof <= 1.25:
         fail(f"joint chi2/dof {cold['chi2'] / dof} outside [0.8, 1.25]")
+    # the route of every block: the gauges of one host-loop evaluation
+    prev = telemetry.configure()
+    telemetry.configure(enabled=True)
+    try:
+        f.step(f.zero_flat())
+        gauges = telemetry.gauges_snapshot()
+    finally:
+        telemetry.configure(enabled=prev)
+    routes = (gauges.get("joint.elim.kernel_blocks"),
+              gauges.get("joint.elim.library_blocks"))
+    print(f"  block_elim launches counted per replay: {cold['elim']}; "
+          f"recorded in the capture: {elim_captured}; blocks of one "
+          f"evaluation on the kernel {routes[0]}, on the library route "
+          f"{routes[1]}", flush=True)
+    if routes != (2 * len(problems), 0):
+        fail(f"not every block of the joint fit took the kernel: {routes}")
     if launches["ds32_gram"] != 0 or launches["ds32_gram_batched"] \
-            != 2 * cold["steps"]:
+            != 2 * cold["steps"] or launches["block_elim"] != cold["steps"] \
+            or elim_captured != 1:
         fail(f"{launches} for {cold['steps']} full evaluations (two batched "
-             f"launches each, no 2-D one)")
+             f"Gram launches and one block elimination each, no 2-D Gram)")
     if not (st["captures"] == 1 and st["replays"] == cold["steps"] - 1):
         fail(f"the joint fit did not run as graph replays: {st}")
     pulls = sorted(((v[k][0] - t[k][0]) / v[k][1], i, k)
@@ -3434,7 +3577,8 @@ def pta_baseline(dev):
     describe_fit("joint fit (warm, fused loop)", warm)
     if not (warm["stats"]["captures"] == 0
             and warm["stats"]["replays"] == warm["steps"]
-            and same_loop(cold, warm) and warm["batched"] == 2 * warm["steps"]):
+            and same_loop(cold, warm) and warm["batched"] == 2 * warm["steps"]
+            and warm["elim"] == warm["steps"]):
         fail("the warm joint fit is not the cold one replayed")
     host = run_pta(f, starts, loop="0")
     describe_fit("joint fit (host loop, the witness)", host)
@@ -3666,13 +3810,15 @@ def pintk_checks(dev, dense):
 
 def pta_catalogs_pintk(dev, dense):
     """Phase 17 (see the module docstring). Returns the batched kernel's
-    shapes and the main fit's launches and records."""
+    shapes, the main fit's launches and records, and the block
+    elimination's record."""
     from pint_tpu_torch.fitting import device_loop
     from pint_tpu_torch.ops import gram
 
     t_phase = time.perf_counter()
     device_loop.clear_cache()
     shapes = check_batched_gram(gram, dev)
+    elim = check_block_elim(dev)
     print(f"17a in {time.perf_counter() - t_phase:.1f} s", flush=True)
     launches, cold, warm, fused_ms = pta_baseline(dev)
     print(f"17b at {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3685,7 +3831,8 @@ def pta_catalogs_pintk(dev, dense):
     pintk_checks(dev, dense)
     device_loop.clear_cache()
     print(f"phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return shapes, launches, {"cold": cold, "warm": warm, "warm_ms": fused_ms}
+    return shapes, launches, {"cold": cold, "warm": warm, "warm_ms": fused_ms,
+                              "elim": elim}
 
 
 # ----------------------------------------------------------------------
@@ -5014,6 +5161,25 @@ def main() -> None:
              and (b["spill_bytes"] or b["blocks_per_sm"] < 2)]
     if short:
         fail(f"partials builds below 2 blocks per SM or spilling: {short}")
+    from pint_tpu_torch.ops import block_elim
+
+    t0 = time.perf_counter()
+    lib, log = block_elim.build()
+    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        slots = re.search(r"pta_block_elimILi(\d+)E", line)
+        if "Compiling entry function" in line and slots:
+            print(f"  nvcc: pta_block_elim<{slots.group(1)} slots>:")
+        elif "registers" in line or "spill" in line or "smem" in line:
+            print("  nvcc:", line.strip())
+    b = block_elim.build_info(ELIM_SHAPE[1])
+    print(f"  pta_block_elim at q = {ELIM_SHAPE[1]}: {b['threads']} threads, "
+          f"{b['registers']} registers, {b['spill_bytes']} spill bytes, "
+          f"{b['shared_bytes']} B dynamic shared, {b['blocks_per_sm']} blocks "
+          f"per SM", flush=True)
+    if b["spill_bytes"] or b["blocks_per_sm"] < 2:
+        fail(f"the block-elimination kernel spills or holds under 2 blocks "
+             f"per SM at the joint fit's shapes: {b}")
 
     phase("3 dd.self_check on the card")
     ok = dd.self_check(dev)
@@ -5415,13 +5581,32 @@ def main() -> None:
                 pta_launches["ds32_gram_batched"],
             "PTA joint fit (fused, warm)": pta_fits["warm"]["batched"]},
         "shapes": pta_shapes,
+    }, {
+        "name": "block_elim", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/block_elim.cu",
+        "replaces": "none (the JAX package's jax.scipy cho_solve calls)",
+        "launches": pta_launches["block_elim"],
+        **{k: pta_fits["elim"][k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_rel_err", "build")},
+        "timing": "per launch (both systems of the 68 members, one joint "
+                  "evaluation); plain_ms is its plain version on the card "
+                  "(cuSOLVER), library_ms the route before the kernel",
+        "launches_by_path": {
+            f"PTA joint fit {PTA_SPEC['n_pulsars']} x "
+            f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)":
+                pta_launches["block_elim"],
+            "PTA joint fit (fused, warm)": pta_fits["warm"]["elim"]},
+        "shapes": [pta_fits["elim"]],
     }]
     print("kernels: [ds32_gram: ok, " + ", ".join(
         f"{s['shape']} {s['n']}x{s['q']} {s['ms']:.4f} ms" for s in shapes)
         + f", {launches} launches; ds32_gram_batched: ok, " + ", ".join(
         f"{s['shape']} {s['P']}x{s['n']}x{s['q']} {s['ms']:.4f} ms"
         for s in pta_shapes)
-        + f", {pta_launches['ds32_gram_batched']} launches]")
+        + f", {pta_launches['ds32_gram_batched']} launches; block_elim: ok, "
+        f"{pta_fits['elim']['ms']:.4f} ms, {pta_launches['block_elim']} "
+        "launches]")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,7 @@ from torch.utils import _pytree as pytree
 
 from pint_tpu_torch import bucketing, config, telemetry
 from pint_tpu_torch.fitting.damped import COUNTERS, note_fit_counters
-from pint_tpu_torch.ops import gram
+from pint_tpu_torch.ops import block_elim, gram
 from pint_tpu_torch.telemetry import marks, recorder
 from pint_tpu_torch.utils.cache import LRUCache
 
@@ -63,8 +63,9 @@ from pint_tpu_torch.utils.cache import LRUCache
 _EPS = 1e-12
 
 # kernel wrappers whose launches a graph replay repeats: each counts the
-# launches it records under capture in ``captured`` (ops/gram.py)
-_KERNELS = (gram.ds32_gram, gram.ds32_gram_batched)
+# launches it records under capture in ``captured`` (ops/gram.py,
+# ops/block_elim.py)
+_KERNELS = (gram.ds32_gram, gram.ds32_gram_batched, block_elim.block_elim)
 
 # captured loops keyed by the caller's key, the recorder setting and the
 # arguments' structure, shapes and device; an entry holds its step and

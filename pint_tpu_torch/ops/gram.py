@@ -354,11 +354,14 @@ def _load(path: Path) -> ctypes.CDLL:
 
 
 def load_library(source: Path = SOURCE, *, store=None,
-                 build_dir: Path | None = None) -> ctypes.CDLL:
+                 build_dir: Path | None = None, bind=None,
+                 loaded: dict | None = None) -> ctypes.CDLL:
     """Build (:func:`build`) and load the library, recording where it
-    came from in ``LOADED``. One that fails to load (or lacks the launch
-    symbol) is removed from wherever it came from (counted corrupt
-    there) and built again from source; a second failure raises."""
+    came from in `loaded` (``LOADED`` by default). `bind` opens a built
+    library and declares its symbols (:func:`_load`, the Gram's, by
+    default). One that fails to load (or lacks the launch symbol) is
+    removed from wherever it came from (counted corrupt there) and built
+    again from source; a second failure raises."""
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.programs import store as _st
 
@@ -366,7 +369,7 @@ def load_library(source: Path = SOURCE, *, store=None,
     for attempt in (0, 1):
         path, _log, origin = _build(source, st, build_dir)
         try:
-            lib = _load(path)
+            lib = (bind or _load)(path)
             break
         except (OSError, AttributeError) as e:
             if origin == "store":
@@ -380,8 +383,8 @@ def load_library(source: Path = SOURCE, *, store=None,
                 raise RuntimeError(
                     f"the {source.name} library built from source does "
                     f"not load: {e}") from e
-    LOADED.update(path=str(path), sha256=_st.file_digest(path)[1],
-                  origin=origin)
+    (LOADED if loaded is None else loaded).update(
+        path=str(path), sha256=_st.file_digest(path)[1], origin=origin)
     return lib
 
 

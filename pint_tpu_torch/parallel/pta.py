@@ -19,9 +19,10 @@ extended-normal-equation solve:
   (:func:`make_pta_stage2` after the hybrid fitter's whitening stage),
   whose two Grams are the hand-written double-single kernel;
 * jointly, an arrow elimination: each pulsar's timing and red-noise
-  block is eliminated, leaving one (P k_gw)-dimensional GW core with the
-  coupling ``Gamma^-1[a, b] diag(1 / phi_gw)``, solved by Cholesky
-  (:func:`_gw_core_solve`).
+  block is eliminated (:func:`pint_tpu_torch.ops.block_elim.block_elim`:
+  on the card one hand-written kernel launch per shape group), leaving
+  one (P k_gw)-dimensional GW core with the coupling ``Gamma^-1[a, b]
+  diag(1 / phi_gw)``, solved by Cholesky (:func:`_gw_core_solve`).
 
 A catalog whose pulsars share one structure and TOA count (the
 68-pulsar north star) is **stacked**: the member tables are padded and
@@ -55,11 +56,10 @@ from pint_tpu_torch.fitting.hybrid import (make_whiten_stage1, pl_basis_blocks,
 from pint_tpu_torch.fitting.step import design_columns
 from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
+from pint_tpu_torch.ops.block_elim import block_elim
 from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.telemetry import marks
 from pint_tpu_torch.utils.cache import LRUCache
-
-_EPS = torch.finfo(torch.float64).eps
 
 # the hoisted basis builders, keyed (gw, pl_specs, flavor): model-free,
 # so same-structure pulsars and fitters share one
@@ -115,31 +115,6 @@ class GWSpec(NamedTuple):
     nharm: int
     t_ref_s: float   # common reference epoch [s]
     tspan_s: float   # common span [s] -> f_j = j / tspan
-
-
-def _eliminate_block(A, B, ct):
-    """``(A^-1 B, A^-1 c_t, A^-1)`` for timing+PL blocks, batched over a
-    leading axis: one Cholesky of each (m, m) block (with the reference's
-    eps * trace jitter, through :func:`gls_step.cholesky`) serves the
-    Schur reduction, the back-substitution and the covariance."""
-    m = A.shape[-1]
-    eye = torch.eye(m, dtype=A.dtype, device=A.device)
-    tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
-    L = gls_step.cholesky(A + eye * (_EPS * tr)[..., None, None])
-    return (torch.cholesky_solve(B, L),
-            torch.cholesky_solve(ct[..., None], L)[..., 0],
-            torch.cholesky_solve(eye.expand_as(A), L))
-
-
-def _eliminate_all(As, Bs, cts):
-    """Eliminate every pulsar's block of one shape group (stacked
-    (G, ...) tensors). A zero-size block (no red-noise columns in the
-    noise-only pass) short-circuits to empties."""
-    if As.shape[-1] == 0:
-        g, k = Bs.shape[0], Bs.shape[-1]
-        z = As.new_zeros
-        return z((g, 0, k)), z((g, 0)), z((g, 0, 0))
-    return _eliminate_block(As, Bs, cts)
 
 
 def _gw_core_solve(Ks, gs, gw_norms, hd_inv, phi_gw, with_inverse: bool):
@@ -795,24 +770,20 @@ class PTAGLSFitter:
         f64 = dict(dtype=torch.float64, device=self.device)
         chi2_base = torch.zeros((), **f64)
         per = []
+        blocks = {"kernel": 0, "library": 0}
         for grp, g in zip(self._groups, grams):
-            S, rhs, norm = g["S"], g["rhs"], g["norm"]
+            norm = g["norm"]
             chi2_base = chi2_base + torch.sum(g["chi2_base"])
-            m = grp["q"] - k
-            # full system: timing+PL block, GW coupling, right-hand side
-            Bm = S[:, :m, m:]
-            Y, z, Ainv = _eliminate_all(S[:, :m, :m], Bm, rhs[:, :m])
-            K = S[:, m:, m:] - Bm.mT @ Y
-            gv = rhs[:, m:] - (Bm.mT @ z[..., None])[..., 0]
-            # noise-only subsystem (PL + GW columns): the merit at input
-            p, kpl = grp["p"], grp["k_pl"]
-            Sn, cn = S[:, p:, p:], rhs[:, p:]
-            nB = Sn[:, :kpl, kpl:]
-            nY, nz, _ = _eliminate_all(Sn[:, :kpl, :kpl], nB, cn[:, :kpl])
-            nK = Sn[:, kpl:, kpl:] - nB.mT @ nY
-            ng = cn[:, kpl:] - (nB.mT @ nz[..., None])[..., 0]
-            chi2_base = chi2_base - torch.sum(cn[:, :kpl] * nz)
-            per.append((Y, z, Ainv, K, gv, nK, ng, norm[:, -k:], norm))
+            # each pulsar's timing+PL block eliminated from the full
+            # system (the step), and its PL block from the noise-only
+            # subsystem (the merit at input)
+            e = block_elim(g["S"], g["rhs"], grp["p"], k)
+            blocks["kernel" if e.route == "kernel" else "library"] += e.blocks
+            chi2_base = chi2_base - torch.sum(e.ncz)
+            per.append((e.Yp, e.zp, e.a, e.K, e.g, e.nK, e.ng, norm[:, -k:],
+                        norm))
+        for route, n in blocks.items():
+            telemetry.set_gauge(f"joint.elim.{route}_blocks", n)
         inv = self._order_inv
 
         def joined(j):
@@ -828,17 +799,15 @@ class PTAGLSFitter:
         yk = y.reshape(P, k)
         step = torch.zeros((P, len(self.names)), **f64)
         sigma = torch.zeros((P, len(self.names)), **f64)
-        for grp, (Y, z, Ainv, *_, norm) in zip(self._groups, per):
+        for grp, (Yp, zp, a, *_, norm) in zip(self._groups, per):
             idx = grp["idx_t"]
             p, off = grp["p"], grp["off"]
-            x_t = z - (Y @ yk[idx][..., None])[..., 0]
+            x_t = zp - (Yp @ yk[idx][..., None])[..., 0]
             step = step.index_put((grp["rows"], grp["cols"]),
-                                  (x_t[:, :p] / norm[:, :p])[:, off:])
+                                  (x_t / norm[:, :p])[:, off:])
             # Sigma_tt = A^-1 + Y Lam_ii Y^T (the timing diagonal)
             L4 = Lam.reshape(P, k, P, k)[idx, :, idx, :]
-            Yp = Y[:, :p, :]
-            sig2 = (torch.diagonal(Ainv, dim1=-2, dim2=-1)[:, :p]
-                    + torch.sum((Yp @ L4) * Yp, dim=-1))
+            sig2 = a + torch.sum((Yp @ L4) * Yp, dim=-1)
             sigma = sigma.index_put((grp["rows"], grp["cols"]),
                                     (torch.sqrt(sig2) / norm[:, :p])[:, off:])
         new_D = {name: D[name] + step[:, j] for j, name in enumerate(self.names)}

@@ -541,15 +541,126 @@ def test_pta_fit_on_the_card_equals_the_cpus(cuda_device):
                 <= 1e-6 * ma[k].uncertainty, k
 
 
+def _elim_systems(G, q, seed, device):
+    """G random positive definite Grams and right-hand sides, as the
+    CPU tests of the block elimination draw them, packed as the joint
+    fit's gathered rows hold them: each member's S a strided view."""
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.randn(G, 3 * q, q, generator=gen, dtype=torch.float64)
+    prior = torch.rand(G, q, generator=gen, dtype=torch.float64) * 3.0
+    S = X.mT @ X / (3 * q) + torch.diag_embed(prior)
+    rhs = torch.randn(G, q, generator=gen, dtype=torch.float64)
+    rows = torch.cat([S.reshape(G, -1), rhs, torch.ones(G, 3)], dim=1)
+    rows = rows.to(device)
+    return rows[:, :q * q].reshape(G, q, q), rows[:, q * q:q * q + q]
+
+
+def _rel(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("q, p", [(106, 6), (100, 0)])
+def test_block_elim_kernel_equals_its_plain_version(cuda_device, q, p):
+    """The block-elimination kernel at pta68's shapes (68 members, 40 GW
+    columns: the 66/40/6 full and 60/40/0 noise-only systems, and the
+    60-wide block as a full system) against its plain version on the
+    card: every output within 1e-12 relative; a member with an
+    indefinite timing block (q = 106) or red-noise block gets NaN in
+    that member's outputs only, and one launch does all."""
+    from pint_tpu_torch.ops import block_elim as be
+
+    k = 40
+    S, rhs = _elim_systems(68, q, seed=q, device=cuda_device)
+    if p:
+        S[5, 1, 1] = -1.0                   # the full system only
+    S[9, p + 3, p + 3] = -1.0               # both systems
+    before = be.block_elim.launches
+    out = be.block_elim(S, rhs, p, k)
+    ref = be.block_elim_reference(S, rhs, p, k)
+    torch.cuda.synchronize()
+    assert out.route == "kernel" and be.block_elim.launches == before + 1
+    assert out.blocks == 2 * 68
+    full, noise = ("Yp", "zp", "a", "K", "g"), ("nK", "ng", "ncz")
+    for name in full + noise:
+        got, want = getattr(out, name), getattr(ref, name)
+        if got.numel() == 0:                # p = 0: no timing rows
+            continue
+        bad = ({5, 9} if p else {9}) if name in full else {9}
+        nan = [i for i in range(68) if bool(torch.isnan(got[i]).all())]
+        assert set(nan) == bad and not torch.isnan(
+            got[[i for i in range(68) if i not in bad]]).any(), name
+        keep = [i for i in range(68) if i not in bad]
+        print(f"q={q} {name}: {_rel(got[keep], want[keep]):.2e}")
+        assert _rel(got[keep], want[keep]) <= 1e-12, name
+
+
+def test_block_elim_wide_group_takes_the_library_route(cuda_device):
+    """A group whose full system does not fit one block's shared memory
+    (q = 169) keeps the library route: no kernel launch, the plain
+    version's numbers."""
+    from pint_tpu_torch.ops import block_elim as be
+
+    S, rhs = _elim_systems(3, 169, seed=4, device=cuda_device)
+    before = be.block_elim.launches
+    out = be.block_elim(S, rhs, 6, 40)
+    assert out.route == "library" and be.block_elim.launches == before
+    ref = be.block_elim_reference(S, rhs, 6, 40)
+    assert torch.equal(out.K, ref.K) and torch.equal(out.Yp, ref.Yp)
+
+
+def test_pta_fit_replays_the_block_elim_kernel(cuda_device, monkeypatch):
+    """A joint fit of one shape group through the fused loop: its capture
+    records one block-elimination launch per full evaluation, each
+    replay counts it (one launch per full evaluation, as the host loop's
+    eager evaluations count), the telemetry gauge shows every block on
+    the kernel route, and the two loops land on the same chi2."""
+    from pint_tpu_torch import telemetry
+    from pint_tpu_torch.catalog import CatalogSpec, generate_catalog
+    from pint_tpu_torch.fitting import device_loop
+    from pint_tpu_torch.ops import block_elim as be
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    spec = CatalogSpec(n_pulsars=4, toas_per_pulsar=512, seed=3,
+                       red_nharm=10, gw_nharm=5)
+    gw = dict(gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=5)
+    fits = {}
+    device_loop.clear_cache()
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PINT_TORCH_DEVICE_LOOP", mode)
+        f = PTAGLSFitter([(t.to(cuda_device), m) for t, m in generate_catalog(
+            spec, device="cpu").joint_problems()], **gw)
+        telemetry.reset()
+        telemetry.configure(enabled=True)
+        cap0, l0 = be.block_elim.captured, be.block_elim.launches
+        chi2 = f.fit_toas(maxiter=6)
+        torch.cuda.synchronize()
+        fits[mode] = (f, chi2, be.block_elim.launches - l0,
+                      be.block_elim.captured - cap0,
+                      telemetry.gauges_snapshot())
+        telemetry.reset()
+    (fd, cd, nd, capd, gd), (fh, ch, nh, caph, _) = fits["1"], fits["0"]
+    print(f"fused {fd.loop_stats}, {nd} launches; host {nh}")
+    assert fd.loop_stats["captures"] >= 1 and capd == 1 and caph == 0
+    assert nd == nh == fd.loop_stats["full"]
+    assert gd["joint.elim.kernel_blocks"] == 8
+    assert gd["joint.elim.library_blocks"] == 0
+    assert cd == pytest.approx(ch, rel=1e-12)
+
+
 def test_pta_stage_times_lie_inside_the_replays(cuda_device, monkeypatch):
-    """A warm 4 x 2,000-TOA joint fit with telemetry on: the stage
-    counters that the captured marks feed (stage 1, stage 2, joint) add
-    up to at most the device time of the full replays (CUDA events
-    around each graph launch) and to at least 85% of it (the rest is the
-    loop's own selects). Under torch.profiler the counters fill as well,
-    every full evaluation's recorder entry is timed, and stage 2 and the
-    joint solve read per evaluation within 10% of their unprofiled
-    times (the profiler stretches only stage 1's many small kernels)."""
+    """A warm 8 x 2,000-TOA joint fit with pta68's noise widths (30
+    red-noise and 20 GW harmonics: q = 106 a pulsar, a 320-wide GW
+    core) with telemetry on: the stage counters that the captured marks
+    feed (stage 1, stage 2, joint) add up to at most the device time of
+    the full replays (CUDA events around each graph launch) and to at
+    least 85% of it (the rest is the loop's own selects). Under
+    torch.profiler the counters fill as well, every full evaluation's
+    recorder entry is timed, and stage 2 and the joint solve read per
+    evaluation within 10% of their unprofiled times. The profiler
+    stretches many small kernels: stage 1's always, and the joint
+    solve's where its GW core is small (1.12x at 4 pulsars with 10
+    red-noise and 5 GW harmonics, once the block eliminations became one
+    kernel; 1.04x at these widths)."""
     from torch.autograd import DeviceType
 
     from pint_tpu_torch import telemetry
@@ -557,11 +668,11 @@ def test_pta_stage_times_lie_inside_the_replays(cuda_device, monkeypatch):
     from pint_tpu_torch.fitting import device_loop
     from pint_tpu_torch.parallel.pta import PTAGLSFitter
 
-    spec = CatalogSpec(n_pulsars=4, toas_per_pulsar=2000, seed=3,
-                       red_nharm=10, gw_nharm=5)
+    spec = CatalogSpec(n_pulsars=8, toas_per_pulsar=2000, seed=3,
+                       red_nharm=30, gw_nharm=20)
     card = [(t.to(cuda_device), m) for t, m in
             generate_catalog(spec, device="cpu").joint_problems()]
-    f = PTAGLSFitter(card, gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=5)
+    f = PTAGLSFitter(card, gw_log10_amp=-14.2, gw_gamma=4.33, gw_nharm=20)
     f.fit_toas(maxiter=6)
     replays = []
     replay = device_loop._Captured.replay
