@@ -45,7 +45,7 @@ from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.residuals import Residuals
 from pint_tpu_torch.simulation import _shift_toas, make_fake_toas_uniform
 from pint_tpu_torch.utils import angles
-from torch_parity import PAR_FULL
+from torch_parity import PAR_FULL, POOL_THREADS, pool_threads
 
 C_M_S = 299792458.0
 PS = 1e-12  # 1 ps, the TDB bar
@@ -167,6 +167,7 @@ import sys
 import numpy as np
 import torch
 from pint_tpu_torch.ops import timescales as ts
+torch.set_num_threads(int(sys.argv[2]))
 rows = int(sys.argv[1])
 t = torch.from_numpy(np.random.default_rng(3).uniform(-0.3, 0.3, rows))
 blocked = ts._fb_eval(t).numpy()
@@ -179,15 +180,15 @@ print(int(np.sum(blocked != one)), float(np.max(np.abs(blocked - one))))
 def test_fb_series_blocked_equals_one_call(rows):
     """The CPU series, evaluated in row blocks under torch's intra-op
     grain (every sin on the calling thread), is bit for bit the one-call
-    evaluation, in a fresh process."""
+    evaluation over a pool of threads, in a fresh process."""
     import os
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _BLOCKED_VS_ONE_CALL,
-                          str(rows)], capture_output=True, text=True,
-                         cwd=root, check=True, timeout=120)
+                          str(rows), str(POOL_THREADS)], capture_output=True,
+                         text=True, cwd=root, check=True, timeout=120)
     n_diff, gap = out.stdout.split()
     assert int(n_diff) == 0, f"{n_diff} rows differ, max {gap} s"
 
@@ -197,8 +198,9 @@ def test_tdb_minus_tt_after_the_candidate_state_changes(mjds):
     earlier test could leave behind, set up in this one process, leave
     the parity at its bar. The reference's TOA pipeline runs jitted (XLA
     compiles TDB-TT inside it), the port's TDB-TT runs under
-    ``torch.func.jacfwd`` and on one thread, and the reference's FB1990
-    lists (mutable) and the port's tables are held to be unchanged."""
+    ``torch.func.jacfwd`` and on one thread, then on a pool, and the
+    reference's FB1990 lists (mutable) and the port's tables are held to
+    be unchanged."""
     hi, lo = mjds
     tables = [np.asarray(getattr(jfb, n), np.float64).copy()
               for n in ("FB1990_T0", "FB1990_T1", "FB1990_T2")]
@@ -212,7 +214,8 @@ def test_tdb_minus_tt_after_the_candidate_state_changes(mjds):
         one = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
     finally:
         torch.set_num_threads(threads)
-    got = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
+    with pool_threads():
+        got = ts.tdb_minus_tt(DD(t64(hi), t64(lo))).numpy()
     ref = np.asarray(jts.tdb_minus_tt(JDD(jnp.asarray(hi), jnp.asarray(lo))))
     np.testing.assert_array_equal(one, got)
     for name, t in zip(("FB1990_T0", "FB1990_T1", "FB1990_T2"), tables):

@@ -5,6 +5,7 @@ Both packages get the same numbers: the reference simulates a table
 port as numpy arrays through ``pint_tpu_torch.interop.state_from_numpy``.
 """
 
+import contextlib
 import pathlib
 import re
 
@@ -37,6 +38,24 @@ TNREDC 30
 """
 REPO = pathlib.Path(__file__).resolve().parents[1]
 BENCH_PY = REPO / "bench.py"
+
+# torch's intra-op pool, and MKL's with it, as a process of its own sizes
+# them on an 8-core host. The suite runs each worker on one thread (the
+# root conftest.py); a test that compares one thread with a pool, or
+# whose bars were measured at MKL's summation order on this pool, sets
+# it for its block.
+POOL_THREADS = 8
+
+
+@contextlib.contextmanager
+def pool_threads():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(POOL_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
 
 # The bench par (bench.py PAR) with barycentric TOAs: no RAJ/DECJ/
 # POSEPOCH/EPHEM, TZRSITE @.
