@@ -35,7 +35,9 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    the fused loop, whose first fit captures a full step and a probe as
    CUDA graphs and replays them — every kernel's launch count is set to
    0 just before and read just after (a replay counts the launches its
-   graph recorded), and each must have launched; captures, replays, host
+   graph recorded), and each must have launched, the stage-1 kernel once
+   per full step with one launch recorded in the capture, cold, warm and
+   in the host loop; captures, replays, host
    fetches, cold and warm wall and peak memory; then the host loop
    (``PINT_TORCH_DEVICE_LOOP=0``) as a witness (the same trace,
    counters, steps and probes, every full evaluation's chi2 within
@@ -192,10 +194,13 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    red noise, a 20-harmonic HD-correlated GW background; each table then
    shifted by a draw of its par's noise; every model kicked by KICK)
    fitted by ``PTAGLSFitter`` through the fused joint loop (the batched
-   Gram and the block elimination inside its captured graph, every
-   kernel count set to 0 before: two batched Gram launches and one block
-   elimination per full evaluation, no 2-D Gram), cold and warm,
-   the host loop as witness (phase 6's gates), converged with joint
+   Gram, the block elimination and the stage-1 kernel inside its
+   captured graph, every kernel count set to 0 before: two batched Gram
+   launches, one block elimination and one stage-1 launch per full
+   evaluation, each of the last two recorded once in the capture, every
+   member's stage 1 on the kernel by the gauges, no 2-D Gram), cold and
+   warm, the host loop as witness (phase 6's gates, one stage-1 launch
+   per full evaluation), converged with joint
    chi2/dof in [0.8, 1.25] and every fitted parameter within 5 sigma of
    the truth, peak memory, the idle share of a warm fit, and the float64
    route (``accel=False``) within 1e-3 sigma; 4 x 2,000 catalogs card
@@ -207,6 +212,13 @@ Phases, in order; the first failure exits non-zero and nothing is caught:
    models, the par and tim written and read back) on phase 10's 20,000
    TOAs against ``Fitter.auto`` on the same selection, and at 2,000 TOAs
    card against CPU;
+17s. the stage-1 kernel (``csrc/stage1.cu``): built (ptxas's report),
+   its double-double transforms through ``dd.self_check``'s probes, and
+   at phase 17's 68 x 8,824 TOAs against its plain version on the card
+   (the whitened design and the residuals equal bit for bit), one launch
+   counted; its time (CUDA events, device time), the whole stage 1 on
+   its route, the plain version's, the jacfwd route's (the route before
+   the kernel) and its byte bound;
 18. the serving tier, after the loop cache is cleared, with telemetry
    on and both kernel counts set to 0 before: (a) bench.py's 64-fit
    stream (``_throughput_problems``: plain, FD, JUMP+EFAC and PHOFF
@@ -855,10 +867,10 @@ def run_fit(fitter, start=None, loop="1", maxiter=10):
     fused loop (``loop="1"``) or the host loop (``"0"``). Returns a
     record: chi2, wall s, full steps, probes, the loop's counters, the
     fused loop's captures/replays/fetches, the flight-recorder trace and
-    the ds32_gram launches (counted per replay)."""
+    the ds32_gram and stage1_fused launches (counted per replay)."""
     import os
 
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import gram, stage1
     from pint_tpu_torch.telemetry import recorder
 
     if start is not None:
@@ -867,6 +879,7 @@ def run_fit(fitter, start=None, loop="1", maxiter=10):
     os.environ["PINT_TORCH_DEVICE_LOOP"] = loop
     try:
         before = gram.ds32_gram.launches
+        before_s1 = stage1.stage1_fused.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chi2 = fitter.fit_toas(maxiter=maxiter)
@@ -880,6 +893,7 @@ def run_fit(fitter, start=None, loop="1", maxiter=10):
             "counters": {k: fitter.counters[k] for k in LOOP_COUNTERS},
             "stats": dict(fitter.loop_stats), "trace": trace,
             "launches": gram.ds32_gram.launches - before,
+            "stage1": stage1.stage1_fused.launches - before_s1,
             "converged": fitter.converged}
 
 
@@ -915,8 +929,10 @@ def describe_fit(label, r):
             f"{st['fetches']} host fetches" if st else "host loop")
     print(f"{label}: {r['wall']:.4f} s wall; {r['steps']} full "
           f"steps, {r['probes']} probes ({loop}); counters {r['counters']}; "
-          f"ds32_gram launches {r['launches']}; GLS chi2 {r['chi2']:.9f}, "
-          f"converged {r['converged']}", flush=True)
+          f"ds32_gram launches {r['launches']}"
+          + (f", stage1_fused {r['stage1']}" if "stage1" in r else "")
+          + f"; GLS chi2 {r['chi2']:.9f}, converged {r['converged']}",
+          flush=True)
 
 
 def same_loop(a, b, rtol=LOOP_RTOL):
@@ -3420,6 +3436,108 @@ def check_block_elim(dev):
     return rec
 
 
+def stage1_work(n_rows, q):
+    """Bytes the stage-1 kernel reads and writes once over n_rows TOAs at
+    q columns: TDB as DD, two positions, the frequency and sw in; the
+    whitened design's rows and the residual out."""
+    return n_rows * 8 * ((2 + 3 + 3 + 1 + 1) + (q + 1))
+
+
+def check_stage1(dev):
+    """17s: the stage-1 kernel at pta68's shapes (68 x 8,824 TOAs, 5
+    free parameters and the offset) against its plain version on the
+    card (the design and the residuals equal bit for bit), one launch
+    counted; times (CUDA events, device time): the kernel's, the whole
+    stage 1 on its route (the parameter table, the kernel and the
+    finish's PyTorch operators), the plain version's, the jacfwd
+    route's (the route before the kernel, ``library_ms``); the bound."""
+    from pint_tpu_torch.catalog import CatalogSpec
+    from pint_tpu_torch.fitting import hybrid
+    from pint_tpu_torch.ops import stage1 as s1
+    from pint_tpu_torch.parallel.batch import _vmap
+    from pint_tpu_torch.parallel.pta import PTAGLSFitter
+
+    problems, _, _ = pta_problems(CatalogSpec(**PTA_SPEC), dev)
+    f = PTAGLSFitter(problems, **PTA_GW, device=dev, accel=True)
+    f._prepare()
+    st = f._stacked[0]
+    P = st.hi - st.lo
+    gen = torch.Generator().manual_seed(17)
+    D = {k: (torch.randn(P, generator=gen, dtype=torch.float64) * 1e-10
+             ).to(dev) for k in f.names}
+    base = f._base()[0]
+    layout = s1.kernel_layout(st.union, anchored=True)
+    if layout is None or st.route != "kernel":
+        fail("pta68's stacked group does not take the stage-1 kernel")
+    ops = s1.stage1_operands(layout, base, D, st.toas.member(st.toas.leaves),
+                             torch.sqrt(1.0 / (st.sigma * st.sigma)),
+                             st.tzr.member(st.tzr.leaves))
+    before = s1.stage1_fused.launches
+    Mw, resid = s1.stage1_batched(*ops, layout)
+    Mw0, resid0 = s1.stage1_reference(*ops, layout)
+    torch.cuda.synchronize()
+    print(f"  stage1 {P} x {st.toas.n} TOAs, q {layout.q}: "
+          f"{s1.stage1_fused.launches - before} launch; against the plain "
+          f"version: the design equal {torch.equal(Mw, Mw0)}, the residuals "
+          f"equal {torch.equal(resid, resid0)}", flush=True)
+    if s1.stage1_fused.launches != before + 1 or not torch.equal(Mw, Mw0) \
+            or not torch.equal(resid, resid0):
+        fail("the stage-1 kernel disagrees with its plain version")
+    nbytes = stage1_work(P * st.toas.n, layout.q)
+    routes = {}
+    for route in ("kernel", "jacfwd"):
+        saved = hybrid.kernel_layout
+        if route == "jacfwd":   # as a model outside the kernel's set
+            hybrid.kernel_layout = lambda *a: None
+        try:
+            one = hybrid.make_whiten_stage1(st.union, traced_tzr=True)
+        finally:
+            hybrid.kernel_layout = saved
+
+        def run(one=one):
+            return _vmap(lambda b, d, lv, sg, tl: one(
+                b, d, st.toas.member(lv), sg, st.tzr.member(tl)))(
+                base, D, st.toas.leaves, st.sigma, st.tzr.leaves)
+        routes[route] = run
+
+    def kernel():
+        return s1.stage1_batched(*ops, layout)
+
+    by_name = device_ms(kernel, kernels=("stage1_rows",))
+    rec = {"shape": f"{P} x {st.toas.n} q{layout.q}", "P": P,
+           "n": st.toas.n, "q": layout.q, "ms": median_ms(kernel),
+           "device_ms": sum(ms for name, ms in by_name.items()
+                            if "stage1_rows" in name) or None,
+           "stage1_ms": median_ms(routes["kernel"]),
+           "stage1_device_ms": sum(device_ms(routes["kernel"]).values())
+           or None,
+           "plain_ms": median_ms(lambda: s1.stage1_reference(*ops, layout),
+                                 reps=5),
+           "library_ms": median_ms(routes["jacfwd"], reps=5),
+           "library_device_ms": sum(device_ms(routes["jacfwd"],
+                                              calls=3).values()) or None,
+           "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+           "build": s1.build_info()}
+    share = (None if rec["device_ms"] is None
+             else rec["bound_ms"] / rec["device_ms"])
+    print(f"  stage1: kernel {rec['ms']:.4f} ms a call "
+          f"({fmt_ms(rec['device_ms'])} device); stage 1 on its route "
+          f"{rec['stage1_ms']:.4f} ms ({fmt_ms(rec['stage1_device_ms'])} "
+          f"device); plain version {rec['plain_ms']:.4f} ms; the jacfwd route "
+          f"{rec['library_ms']:.4f} ms ({fmt_ms(rec['library_device_ms'])} "
+          f"device); bound {rec['bound_ms']:.4f} ms ({nbytes:.3e} bytes)"
+          + ("" if share is None else f", {100 * share:.1f}% of the bound"),
+          flush=True)
+    # the local bytes are libdevice's sin/cos reduction for huge
+    # arguments (a 40-byte frame; ptxas: 0 bytes spill stores)
+    for name, b in rec["build"].items():
+        print(f"  stage1 {name}: {b['threads']} threads, {b['registers']} "
+              f"registers, {b['spill_bytes']} local bytes, "
+              f"{b['shared_bytes']} B static shared, {b['blocks_per_sm']} "
+              f"blocks per SM", flush=True)
+    return rec
+
+
 def pta_problems(spec, device, kick=True):
     """The catalog of `spec` (generated on `device`), its tables shifted
     by a draw of each par's noise, each model kicked by KICK; returns
@@ -3443,12 +3561,12 @@ def pta_problems(spec, device, kick=True):
 def run_pta(f, starts=None, loop="1", maxiter=10):
     """One joint fit of PTAGLSFitter `f` (each model set to `starts`
     first, when given) through the fused loop or the host loop; the
-    run_fit record, the ds32_gram launches split into 2-D and batched
-    and the block-elimination launches (each count set to 0 just before
-    the fit and read just after)."""
+    run_fit record, the ds32_gram launches split into 2-D and batched,
+    the block-elimination and the stage-1 kernel's launches (each count
+    set to 0 just before the fit and read just after)."""
     import os
 
-    from pint_tpu_torch.ops import block_elim, gram
+    from pint_tpu_torch.ops import block_elim, gram, stage1
     from pint_tpu_torch.telemetry import recorder
 
     if starts is not None:
@@ -3461,6 +3579,7 @@ def run_pta(f, starts=None, loop="1", maxiter=10):
         gram.ds32_gram.launches = 0
         gram.ds32_gram_batched.launches = 0
         block_elim.block_elim.launches = 0
+        stage1.stage1_fused.launches = 0
         t0 = time.perf_counter()
         chi2 = f.fit_toas(maxiter=maxiter)
         torch.cuda.synchronize()
@@ -3475,6 +3594,7 @@ def run_pta(f, starts=None, loop="1", maxiter=10):
             "launches": gram.ds32_gram.launches,
             "batched": gram.ds32_gram_batched.launches,
             "elim": block_elim.block_elim.launches,
+            "stage1": stage1.stage1_fused.launches,
             "converged": f.converged}
 
 
@@ -3495,7 +3615,7 @@ def pta_baseline(dev):
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.catalog import CatalogSpec
     from pint_tpu_torch.fitting import device_loop
-    from pint_tpu_torch.ops import block_elim, gram
+    from pint_tpu_torch.ops import block_elim, gram, stage1
     from pint_tpu_torch.parallel.pta import PTAGLSFitter
 
     spec = CatalogSpec(**PTA_SPEC)
@@ -3522,11 +3642,13 @@ def pta_baseline(dev):
     # the main path: run_pta sets every kernel count to 0 just before the
     # fit and reads it just after
     elim_captured = block_elim.block_elim.captured
+    s1_captured = stage1.stage1_fused.captured
     cold = run_pta(f)
     launches = {"ds32_gram": cold["launches"],
                 "ds32_gram_batched": cold["batched"],
-                "block_elim": cold["elim"]}
+                "block_elim": cold["elim"], "stage1_fused": cold["stage1"]}
     elim_captured = block_elim.block_elim.captured - elim_captured
+    s1_captured = stage1.stage1_fused.captured - s1_captured
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     vals = pta_values(f)
     describe_fit("joint fit (cold, fused loop, with capture)", cold)
@@ -3551,17 +3673,27 @@ def pta_baseline(dev):
         telemetry.configure(enabled=prev)
     routes = (gauges.get("joint.elim.kernel_blocks"),
               gauges.get("joint.elim.library_blocks"))
+    s1_routes = (gauges.get("stage1.kernel_members"),
+                 gauges.get("stage1.jacfwd_members"))
     print(f"  block_elim launches counted per replay: {cold['elim']}; "
           f"recorded in the capture: {elim_captured}; blocks of one "
           f"evaluation on the kernel {routes[0]}, on the library route "
           f"{routes[1]}", flush=True)
+    print(f"  stage1_fused launches counted per replay: {cold['stage1']}; "
+          f"recorded in the capture: {s1_captured}; members of one "
+          f"evaluation on the kernel {s1_routes[0]}, on the jacfwd route "
+          f"{s1_routes[1]}", flush=True)
     if routes != (2 * len(problems), 0):
         fail(f"not every block of the joint fit took the kernel: {routes}")
+    if s1_routes != (len(problems), 0):
+        fail(f"not every member's stage 1 took the kernel: {s1_routes}")
     if launches["ds32_gram"] != 0 or launches["ds32_gram_batched"] \
             != 2 * cold["steps"] or launches["block_elim"] != cold["steps"] \
-            or elim_captured != 1:
+            or elim_captured != 1 or launches["stage1_fused"] \
+            != cold["steps"] or s1_captured != 1:
         fail(f"{launches} for {cold['steps']} full evaluations (two batched "
-             f"Gram launches and one block elimination each, no 2-D Gram)")
+             f"Gram launches, one block elimination and one stage-1 launch "
+             f"each, no 2-D Gram)")
     if not (st["captures"] == 1 and st["replays"] == cold["steps"] - 1):
         fail(f"the joint fit did not run as graph replays: {st}")
     pulls = sorted(((v[k][0] - t[k][0]) / v[k][1], i, k)
@@ -3578,10 +3710,17 @@ def pta_baseline(dev):
     if not (warm["stats"]["captures"] == 0
             and warm["stats"]["replays"] == warm["steps"]
             and same_loop(cold, warm) and warm["batched"] == 2 * warm["steps"]
-            and warm["elim"] == warm["steps"]):
+            and warm["elim"] == warm["steps"]
+            and warm["stage1"] == warm["steps"]):
         fail("the warm joint fit is not the cold one replayed")
     host = run_pta(f, starts, loop="0")
     describe_fit("joint fit (host loop, the witness)", host)
+    print(f"  stage1_fused launches: warm {warm['stage1']} in {warm['steps']} "
+          f"full evaluations, host loop {host['stage1']} in "
+          f"{host['steps']}", flush=True)
+    if host["stage1"] != host["steps"]:
+        fail(f"the host-loop joint fit launched the stage-1 kernel "
+             f"{host['stage1']} times in {host['steps']} full evaluations")
     gap = max(abs(x - y) / abs(y) for x, y in zip(cold["trace"]["chi2"],
                                                    host["trace"]["chi2"]))
     print(f"  fused - host loop: largest relative gap of a full evaluation's "
@@ -5120,6 +5259,7 @@ def main() -> None:
     from pint_tpu_torch.fitting.hybrid import HybridGLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.ops import dd, gram
+    from pint_tpu_torch.ops import stage1 as s1
 
     t_start = time.perf_counter()
     phase("1 card")
@@ -5256,7 +5396,9 @@ def main() -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     start = free_values(model)
+    s1_captured = s1.stage1_fused.captured
     cold = run_fit(fitter)
+    s1_captured = s1.stage1_fused.captured - s1_captured
     launches = gram.ds32_gram.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     reserved_mb = torch.cuda.memory_reserved() / 2 ** 20
@@ -5273,8 +5415,10 @@ def main() -> None:
     for k in fitter.fit_params:
         p = model[k]
         print(f"  {k} = {p.format_value()} +- {p.format_uncertainty()}")
-    print(f"ds32_gram launches in the fit (counted per replay): {launches}",
-          flush=True)
+    print(f"ds32_gram launches in the fit (counted per replay): {launches}; "
+          f"stage 1 on the {fitter._stage1.route} route, stage1_fused "
+          f"launches {cold['stage1']} (recorded in the capture: "
+          f"{s1_captured})", flush=True)
     state6 = fit_state(fitter, chi2)   # phase 15's pintempo run is held to it
     if not (math.isfinite(chi2) and fitter.converged):
         fail(f"fit did not converge to a finite chi2 ({chi2})")
@@ -5282,6 +5426,11 @@ def main() -> None:
         fail(f"post-fit reduced chi2 {red} outside [0.8, 1.25]")
     if launches == 0 or launches < 2 * steps:
         fail(f"{launches} ds32_gram launches for {steps} full steps")
+    if fitter._stage1.route != "kernel" or cold["stage1"] != steps \
+            or s1_captured != 1:
+        fail(f"stage 1 on the {fitter._stage1.route} route, "
+             f"{cold['stage1']} stage1_fused launches for {steps} full "
+             f"steps, {s1_captured} recorded in the capture")
     # every evaluation but the eager init pass (the capture's warm-up) is
     # a graph replay
     if not (st["captures"] == 2 and st["full"] == steps
@@ -5293,7 +5442,7 @@ def main() -> None:
                  warm)
     if not (warm["stats"]["captures"] == 0
             and warm["stats"]["replays"] == warm["steps"] + warm["probes"]
-            and same_loop(cold, warm)):
+            and same_loop(cold, warm) and warm["stage1"] == warm["steps"]):
         fail("the warm fused fit is not the cold one replayed")
     # the host loop (PINT_TORCH_DEVICE_LOOP=0) as the witness: the same
     # trace, counters, steps and probes, chi2 within LOOP_RTOL
@@ -5310,6 +5459,9 @@ def main() -> None:
           f"{hwarm['trace']['chi2']}", flush=True)
     if not (same_loop(cold, hcold) and same_loop(warm, hwarm)):
         fail("the fused fit disagrees with the host loop")
+    if hwarm["stage1"] != hwarm["steps"]:
+        fail(f"the host-loop fit launched the stage-1 kernel "
+             f"{hwarm['stage1']} times in {hwarm['steps']} full steps")
     # baked values: the captured fit from another start must be the host
     # loop's fit from there
     for k, d in KICK.items():
@@ -5426,6 +5578,11 @@ def main() -> None:
         f"topocentric {N_TOAS} (fused, warm)": warm["launches"],
         f"topocentric {N_TOAS} (host loop, warm)": hwarm["launches"],
         **launches_binary}
+    # the stage-1 kernel's launches on the fits that take it
+    s1_by_path = {
+        f"topocentric {N_TOAS} (main path, fused, cold)": cold["stage1"],
+        f"topocentric {N_TOAS} (fused, warm)": warm["stage1"],
+        f"topocentric {N_TOAS} (host loop, warm)": hwarm["stage1"]}
     for label, par in (("topocentric", PAR_FULL), ("barycentric", PAR_BARY)):
         small = simulate(par, N_SMALL, seed=1, device="cpu")
         recs = {}
@@ -5437,6 +5594,8 @@ def main() -> None:
         c_cpu, c_gpu = r_cpu["chi2"], r_gpu["chi2"]
         launches_by_path[f"{label} {N_SMALL} (fused)"] = r_gpu["launches"]
         launches_by_path[f"{label} {N_SMALL} (host loop)"] = r_host["launches"]
+        s1_by_path[f"{label} {N_SMALL} (fused)"] = r_gpu["stage1"]
+        s1_by_path[f"{label} {N_SMALL} (host loop)"] = r_host["stage1"]
         worst = max(abs(m_cpu[k].value_f64 - m_gpu[k].value_f64)
                     / m_cpu[k].uncertainty for k in m_cpu.free_params)
         print(f"{label}: chi2 cpu {c_cpu:.9f} card {c_gpu:.9f} card host loop "
@@ -5521,6 +5680,27 @@ def main() -> None:
     launches_by_path[f"PTA joint fit {PTA_SPEC['n_pulsars']} x "
                      f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)"] = \
         pta_launches["ds32_gram"]
+    s1_by_path[f"PTA joint fit {PTA_SPEC['n_pulsars']} x "
+               f"{PTA_SPEC['toas_per_pulsar']} (fused, cold)"] = \
+        pta_launches["stage1_fused"]
+    s1_by_path["PTA joint fit (fused, warm)"] = pta_fits["warm"]["stage1"]
+
+    phase(f"17s the stage-1 kernel: built, against its plain version and "
+          f"timed at {PTA_SPEC['n_pulsars']} x {PTA_SPEC['toas_per_pulsar']} "
+          f"TOAs")
+    t0 = time.perf_counter()
+    lib, log = s1.build()
+    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if any(k in line for k in ("Compiling entry function", "registers",
+                                   "spill", "smem")):
+            print("  nvcc:", line.strip())
+    if not s1.dd_self_check(dev):
+        fail("the stage-1 kernel's double-double transforms fail "
+             "dd.self_check's probes on the card")
+    print("the stage-1 kernel's DD transforms pass dd.self_check's probes",
+          flush=True)
+    stage1_rec = check_stage1(dev)
 
     phase(f"18 the serving tier: {N_SERVE_FITS} scheduled fits, the mixed "
           f"frontier, {N_SESSION}-TOA sessions, reads, failure domains, card "
@@ -5598,6 +5778,22 @@ def main() -> None:
                 pta_launches["block_elim"],
             "PTA joint fit (fused, warm)": pta_fits["warm"]["elim"]},
         "shapes": [pta_fits["elim"]],
+    }, {
+        "name": "stage1_fused", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/stage1.cu",
+        "replaces": "none (the JAX package's jax.jacfwd stage 1, "
+                    "pint_tpu/fitting/hybrid.py)",
+        "launches": pta_launches["stage1_fused"],
+        **{k: stage1_rec[k] for k in (
+            "ms", "device_ms", "stage1_ms", "stage1_device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by",
+            "build")},
+        "timing": "per launch (the 68 members' rows, one joint "
+                  "evaluation); stage1_ms is the whole stage 1 on its "
+                  "route, library_ms the jacfwd route (the route before "
+                  "the kernel), vmapped",
+        "launches_by_path": s1_by_path,
+        "shapes": [stage1_rec],
     }]
     print("kernels: [ds32_gram: ok, " + ", ".join(
         f"{s['shape']} {s['n']}x{s['q']} {s['ms']:.4f} ms" for s in shapes)
@@ -5606,7 +5802,8 @@ def main() -> None:
         for s in pta_shapes)
         + f", {pta_launches['ds32_gram_batched']} launches; block_elim: ok, "
         f"{pta_fits['elim']['ms']:.4f} ms, {pta_launches['block_elim']} "
-        "launches]")
+        f"launches; stage1_fused: ok, {stage1_rec['ms']:.4f} ms, "
+        f"{pta_launches['stage1_fused']} launches]")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pint_tpu_torch import resolve_device
+from pint_tpu_torch import resolve_device, telemetry
 from pint_tpu_torch.fitting import device_loop, gls_step
 from pint_tpu_torch.fitting.damped import downhill_iterate
 from pint_tpu_torch.fitting.fitter import Fitter
@@ -48,6 +48,7 @@ from pint_tpu_torch.fitting.gls_step import (build_noise_statics, cho_factor,
 from pint_tpu_torch.fitting.step import make_resid_fn
 from pint_tpu_torch.models.noise import DM_FREF_MHZ
 from pint_tpu_torch.models.parameter import materialize_selector_masks
+from pint_tpu_torch.ops.stage1 import kernel_layout, make_stage1_rows
 from pint_tpu_torch.telemetry import marks
 
 
@@ -59,37 +60,65 @@ def make_whiten_stage1(model, tzr=None, *, traced_tzr: bool = False):
     ``rw = r sqrt(w)`` and ``sw = sqrt(w)``, ``w = 1 / sigma^2``
     (``sigma``: the scaled uncertainties, a static). ``traced_tzr``
     takes the TZR anchor table as ``tzr_toas`` (a vmapped member's own).
+
+    The rows (the whitened design before its unit norms, the residual
+    in turns) come by the route the model allows: where its delays,
+    phase and free parameters are all the stage-1 kernel's
+    (:func:`pint_tpu_torch.ops.stage1.kernel_layout`), one
+    :func:`~pint_tpu_torch.ops.stage1.stage1_fused` call carries the
+    phase and its tangents; otherwise ``torch.func.jacfwd`` over the DD
+    phase pipeline. The two give the same bits; ``stage1.route`` says
+    which ran ("kernel" or "jacfwd"). The finish (the weighted mean, the
+    division by F0, the unit norms) is one code for both, so its sums
+    over the TOAs are torch's on either route.
     """
-    phase_fn = (model.phase_fn_toas(traced_tzr=True) if traced_tzr else
-                model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None))
     names = model.free_params
     has_phoff = model.has_component("PhaseOffset")
+    layout = kernel_layout(model, traced_tzr or tzr is not None)
+    if layout is not None:
+        rows = make_stage1_rows(layout, tzr)
+    else:
+        phase_fn = (model.phase_fn_toas(traced_tzr=True) if traced_tzr else
+                    model.phase_fn_toas(tzr=tzr, abs_phase=tzr is not None))
+
+        def rows(base, deltas, toas, sw, tzr_toas=None):
+            f0 = base["F0"].hi + base["F0"].lo
+
+            def total_phase(d):
+                ph = (phase_fn(base, d, toas, tzr_toas) if traced_tzr
+                      else phase_fn(base, d, toas))
+                # aux carries the wrapped fractional phase from the SAME
+                # primal evaluation: one DD pass serves residual and
+                # jacobian
+                return (ph.int_part + (ph.frac.hi + ph.frac.lo),
+                        ph.frac.hi + ph.frac.lo)
+
+            J, resid = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
+            cols = ([] if has_phoff else [torch.ones_like(resid) / f0]) \
+                + [-J[k] / f0 for k in names]
+            return torch.stack(cols, dim=1) * sw[:, None], resid
 
     def stage1(base, deltas, toas, sigma, tzr_toas=None):
         f0 = base["F0"].hi + base["F0"].lo
-
-        def total_phase(d):
-            ph = (phase_fn(base, d, toas, tzr_toas) if traced_tzr
-                  else phase_fn(base, d, toas))
-            # aux carries the wrapped fractional phase from the SAME
-            # primal evaluation: one DD pass serves residual and jacobian
-            return (ph.int_part + (ph.frac.hi + ph.frac.lo),
-                    ph.frac.hi + ph.frac.lo)
-
         w = 1.0 / (sigma * sigma)
         sw = torch.sqrt(w)
-        J, resid = torch.func.jacfwd(total_phase, has_aux=True)(deltas)
+        Mw, resid = rows(base, deltas, toas, sw, tzr_toas)
         if not has_phoff:
             resid = resid - torch.sum(resid * w) / torch.sum(w)
         r = resid / f0
-        cols = ([] if has_phoff else [torch.ones_like(r) / f0]) \
-            + [-J[k] / f0 for k in names]
-        Mw = torch.stack(cols, dim=1) * sw[:, None]
         norm_M = torch.sqrt(torch.sum(Mw * Mw, dim=0))
         norm_M = torch.where(norm_M == 0.0, torch.ones_like(norm_M), norm_M)
         return Mw / norm_M, r * sw, sw, norm_M
 
+    stage1.route = "jacfwd" if layout is None else "kernel"
     return stage1
+
+
+def note_stage1_routes(members: dict) -> None:
+    """The gauges ``stage1.kernel_members`` and ``stage1.jacfwd_members``
+    of one evaluation, from ``{route: members}`` (telemetry on)."""
+    for route in ("kernel", "jacfwd"):
+        telemetry.set_gauge(f"stage1.{route}_members", members.get(route, 0))
 
 
 def make_resid_stage1(model, tzr=None, device=None):
@@ -197,6 +226,7 @@ class HybridGLSFitter(Fitter):
         Its stages are marked for the fused loop's capture
         (:mod:`pint_tpu_torch.telemetry.marks`)."""
         marks.stage("stage1")
+        note_stage1_routes({self._stage1.route: 1})
         A_M, rw, sw, norm_M = self._stage1(base, deltas, self.toas,
                                            self._sigma)
         marks.stage("stage2")

@@ -257,33 +257,25 @@ def split_int_frac(x: DD) -> tuple[torch.Tensor, DD]:
 # ---------------------------------------------------------------------------
 
 
-def self_check(device=None) -> bool:
-    """Verify the error-free-transform invariants hold on `device`.
-
-    ``device=None`` means the CUDA card (the package's default). True
-    iff (a) TwoSum and TwoProd evaluated on the device match numpy's
-    IEEE float64 bit for bit (the product's error term to 1e-18 of the
-    product) AND (b) the fusion probe — a spindown-scale ``mul`` with
-    both words out, the shape that exposed FMA contraction in the
-    reference — gives the same hi words as the host's IEEE evaluation
-    and lo words within 1e-20 absolute. A device that fails must not
-    run the DD phase.
-    """
-    from pint_tpu_torch import resolve_device
-
-    dev = resolve_device(device)
+def probe_inputs():
+    """The inputs of :func:`self_check`'s probes, drawn from a fixed
+    seed: ``(a, b, h, low, scalar)``, the TwoSum/TwoProd pairs ``(a,
+    b)`` and the fusion probe's spindown-scale words ``(h, low)`` and DD
+    ``scalar``."""
     rng = np.random.default_rng(1234)
     a = rng.uniform(-1e9, 1e9, 4096)
     b = rng.uniform(-1e-6, 1e-6, 4096)
+    h = rng.uniform(1e7, 2.6e8, 4096)
+    low = rng.uniform(-1e-9, 1e-9, 4096)
+    return a, b, h, low, DD(478.41687741, 1.3e-15)
 
-    def probe(a, b):
-        s, e = two_sum(a, b)
-        p, f = two_prod(a, b * 1e6)
-        return s, e, p, f
 
-    out = probe(_as_f64(a, dev), _as_f64(b, dev))
-    s, e, p, f = (t.cpu().numpy() for t in out)
-
+def judge_probes(a, b, h, low, scalar, s, e, p, f, hi_d, lo_d) -> bool:
+    """:func:`self_check`'s verdict on a device's results (numpy arrays):
+    ``(s, e) = TwoSum(a, b)`` and ``(p, f) = TwoProd(a, b 1e6)`` against
+    the host's IEEE float64 (the product's error to 1e-18 of the
+    product), and ``(hi_d, lo_d) = (h, low) x scalar`` against the
+    host's :func:`mul` (the same hi words, lo words within 1e-20)."""
     s0 = a + b
     bb = s0 - a
     e0 = (a - (s0 - bb)) + (b - bb)
@@ -293,16 +285,33 @@ def self_check(device=None) -> bool:
     exact = ld(a) * ld(b * 1e6) - ld(p)
     ok_prod = bool(np.max(np.abs(ld(f) - exact)) < 1e-18 * np.max(np.abs(p)))
 
-    # fusion probe: one DD multiply of a spindown-scale pair by a DD
-    # scalar, evaluated on the device as the phase pipeline runs it and
-    # on the host in numpy (IEEE, no contraction)
-    h = rng.uniform(1e7, 2.6e8, 4096)
-    low = rng.uniform(-1e-9, 1e-9, 4096)
-    scalar = DD(478.41687741, 1.3e-15)
-    dev_out = mul(DD(_as_f64(h, dev), _as_f64(low, dev)), scalar)
     # the transforms are plain arithmetic, so numpy arrays run them too
     hi_h, lo_h = mul(DD(h, low), scalar)
-    hi_d, lo_d = dev_out.hi.cpu().numpy(), dev_out.lo.cpu().numpy()
     ok_fused = (np.array_equal(hi_d, hi_h)
                 and bool(np.max(np.abs(lo_d - lo_h)) < 1e-20))
     return bool(ok_sum and ok_prod and ok_fused)
+
+
+def self_check(device=None) -> bool:
+    """Verify the error-free-transform invariants hold on `device`.
+
+    ``device=None`` means the CUDA card (the package's default). True
+    iff (a) TwoSum and TwoProd evaluated on the device match numpy's
+    IEEE float64 bit for bit (the product's error term to 1e-18 of the
+    product) AND (b) the fusion probe — a spindown-scale ``mul`` with
+    both words out, the shape that exposed FMA contraction in the
+    reference — gives the same hi words as the host's IEEE evaluation
+    and lo words within 1e-20 absolute (:func:`judge_probes`). A device
+    that fails must not run the DD phase.
+    """
+    from pint_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    a, b, h, low, scalar = probe_inputs()
+    s, e = two_sum(_as_f64(a, dev), _as_f64(b, dev))
+    p, f = two_prod(_as_f64(a, dev), _as_f64(b, dev) * 1e6)
+    # the fusion probe: one DD multiply of a spindown-scale pair by a DD
+    # scalar, evaluated on the device as the phase pipeline runs it
+    m = mul(DD(_as_f64(h, dev), _as_f64(low, dev)), scalar)
+    return judge_probes(a, b, h, low, scalar,
+                        *(t.cpu().numpy() for t in (s, e, p, f, m.hi, m.lo)))

@@ -236,26 +236,27 @@ def library_facts() -> dict:
             "nvcc": nvcc_version()}
 
 
-def library_key(source: Path = SOURCE) -> str:
+def library_key(source: Path = SOURCE, flags: tuple[str, ...] = ()) -> str:
     """What a built library depends on, digested: the source's content,
-    NVCC_FLAGS, their target arch and the loading card's compute
-    capability — the one architecture guard, so a library built for one
-    card is never looked up on another. The nvcc version is not in the
-    key: a library shipped from a host with another nvcc, or to a host
-    with none, is the same program."""
+    NVCC_FLAGS and the caller's own `flags`, their target arch and the loading
+    card's compute capability — the one architecture guard, so a library
+    built for one card is never looked up on another. The nvcc version is
+    not in the key: a library shipped from a host with another nvcc, or
+    to a host with none, is the same program."""
     from pint_tpu_torch.compile_cache import card_capability
 
     h = hashlib.sha256(source.read_bytes())
-    for part in (*NVCC_FLAGS, _arch(), card_capability()):
+    for part in (*NVCC_FLAGS, *flags, _arch(), card_capability()):
         h.update(b"\0" + str(part).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(source: Path = SOURCE, build_dir: Path | None = None
-                 ) -> Path:
+def library_path(source: Path = SOURCE, build_dir: Path | None = None,
+                 flags: tuple[str, ...] = ()) -> Path:
     """Where the built library of `source` lives in the build directory
     (named by :func:`library_key`)."""
-    return (build_dir or BUILD_DIR) / f"lib{source.stem}-{library_key(source)}.so"
+    key = library_key(source, flags)
+    return (build_dir or BUILD_DIR) / f"lib{source.stem}-{key}.so"
 
 
 #: the library this process loaded: its path, sha256 and origin
@@ -263,11 +264,12 @@ def library_path(source: Path = SOURCE, build_dir: Path | None = None
 LOADED: dict = {}
 
 
-def _run_nvcc(source: Path, out: str) -> str:
-    """Compile `source` into the shared library `out`; returns nvcc's
-    output (the ``-Xptxas -v`` report). Raises when nvcc fails."""
+def _run_nvcc(source: Path, out: str, flags: tuple[str, ...] = ()) -> str:
+    """Compile `source` with NVCC_FLAGS and `flags` into the shared
+    library `out`; returns nvcc's output (the ``-Xptxas -v`` report).
+    Raises when nvcc fails."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", out, str(source)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, *flags, "-o", out, str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
@@ -280,9 +282,10 @@ def _default_store():
     return store()
 
 
-def build(source: Path = SOURCE, *, store=None,
-          build_dir: Path | None = None) -> tuple[Path, str]:
-    """The built library of `source`: (path, the compiler's output —
+def build(source: Path = SOURCE, *, store=None, build_dir: Path | None = None,
+          flags: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """The built library of `source`, compiled with NVCC_FLAGS and the
+    source's own `flags`: (path, the compiler's output —
     the ``-Xptxas -v`` register and shared-memory report; empty when
     nothing was built).
 
@@ -298,17 +301,17 @@ def build(source: Path = SOURCE, *, store=None,
     store. ``programs.kernel.{store,build_dir,nvcc}`` count where each
     library came from.
     """
-    return _build(source, store, build_dir)[:2]
+    return _build(source, store, build_dir, flags)[:2]
 
 
-def _build(source, store, build_dir) -> tuple[Path, str, str]:
+def _build(source, store, build_dir, flags=()) -> tuple[Path, str, str]:
     """:func:`build`, with the rung the library came from."""
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.programs import store as _st
 
     st = _default_store() if store is None else (store or None)
     bdir = build_dir or BUILD_DIR
-    out = library_path(source, bdir)
+    out = library_path(source, bdir, flags)
     if st is not None:
         hit = st.kernel_library(out.name)
         if hit is not None:
@@ -328,7 +331,7 @@ def _build(source, store, build_dir) -> tuple[Path, str, str]:
     os.close(fd)
     try:
         telemetry.inc("programs.kernel.nvcc")
-        log = _run_nvcc(source, tmp)
+        log = _run_nvcc(source, tmp, flags)
         _st.write_sidecar(tmp, out, facts=library_facts())
         os.replace(tmp, out)
     finally:
@@ -355,19 +358,20 @@ def _load(path: Path) -> ctypes.CDLL:
 
 def load_library(source: Path = SOURCE, *, store=None,
                  build_dir: Path | None = None, bind=None,
-                 loaded: dict | None = None) -> ctypes.CDLL:
-    """Build (:func:`build`) and load the library, recording where it
-    came from in `loaded` (``LOADED`` by default). `bind` opens a built
-    library and declares its symbols (:func:`_load`, the Gram's, by
-    default). One that fails to load (or lacks the launch symbol) is
-    removed from wherever it came from (counted corrupt there) and built
-    again from source; a second failure raises."""
+                 loaded: dict | None = None,
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (:func:`build`, with `flags`) and load the library,
+    recording where it came from in `loaded` (``LOADED`` by default).
+    `bind` opens a built library and declares its symbols (:func:`_load`,
+    the Gram's, by default). One that fails to load (or lacks the launch
+    symbol) is removed from wherever it came from (counted corrupt there)
+    and built again from source; a second failure raises."""
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.programs import store as _st
 
     st = _default_store() if store is None else (store or None)
     for attempt in (0, 1):
-        path, _log, origin = _build(source, st, build_dir)
+        path, _log, origin = _build(source, st, build_dir, flags)
         try:
             lib = (bind or _load)(path)
             break
@@ -378,7 +382,7 @@ def load_library(source: Path = SOURCE, *, store=None,
                 telemetry.inc("programs.kernel.corrupt")
                 if st is not None:
                     _st.discard(Path(st.kernel_dir) / path.name)
-            _st.discard(library_path(source, build_dir))
+            _st.discard(library_path(source, build_dir, flags))
             if attempt:
                 raise RuntimeError(
                     f"the {source.name} library built from source does "

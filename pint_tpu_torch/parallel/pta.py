@@ -51,7 +51,8 @@ from pint_tpu_torch.fitting.gls_step import (build_noise_statics, column_norm,
                                              pad_noise_statics, powerlaw_phi,
                                              scaled_sigma_np, sigma_traceable,
                                              stack_noise_statics)
-from pint_tpu_torch.fitting.hybrid import (make_whiten_stage1, pl_basis_blocks,
+from pint_tpu_torch.fitting.hybrid import (make_whiten_stage1,
+                                           note_stage1_routes, pl_basis_blocks,
                                            pl_phi)
 from pint_tpu_torch.fitting.step import design_columns
 from pint_tpu_torch.models.noise import DM_FREF_MHZ
@@ -331,6 +332,7 @@ class _Stacked:
     basis: tuple           # (F (G, n, k_F), *fs (G, nharm_i))
     pl_params: torch.Tensor  # (G, n_pl, 2)
     run: object = None     # the vmapped member evaluation
+    route: str = "jacfwd"  # stage 1's: "kernel" or "jacfwd"
 
 
 @dataclasses.dataclass
@@ -344,6 +346,7 @@ class _Single:
     fs: tuple
     pl_params: torch.Tensor
     run: object = None
+    route: str = "jacfwd"  # stage 1's: "kernel" or "jacfwd"
 
 
 class PTAGLSFitter:
@@ -535,8 +538,8 @@ class PTAGLSFitter:
                       for j in range(len(bases[0])))
         st = _Stacked(lo, hi, dev, models, union, toas, tzr, noise.sigma,
                       noise.epochs, noise.ecorr_phi, basis, noise.pl_params)
-        st.run = _vmap(self._member_fn(union, specs, tzr is not None,
-                                       toas, tzr))
+        member = self._member_fn(union, specs, tzr is not None, toas, tzr)
+        st.run, st.route = _vmap(member), member.route
         return st
 
     def _prepare_single(self, i: int) -> _Single:
@@ -598,6 +601,7 @@ class PTAGLSFitter:
                 marks.stage("stage2")
                 return stage2(A_M, rw, sw, norm_M, epochs, s.phi_e,
                               pl_params, F_, s.fs)
+            single.route = stage1.route
         else:
             gram = make_pta_gram(model, self.gw, specs, tzr)
 
@@ -609,7 +613,7 @@ class PTAGLSFitter:
     def _member_fn(self, union, specs, traced_tzr: bool, layout, tzr_layout):
         """One stacked member's evaluation, the function vmapped over the
         group: ``(base, deltas, leaves, sigma, epochs, phi_e, basis,
-        pl_params, tzr_leaves) -> dict``."""
+        pl_params, tzr_leaves) -> dict``; its ``route`` is stage 1's."""
         if self.accel:
             stage1 = make_whiten_stage1(union, traced_tzr=traced_tzr)
             p = len(union.free_params) + (
@@ -625,6 +629,7 @@ class PTAGLSFitter:
                 marks.stage("stage2")
                 return stage2(A_M, rw, sw, norm_M, epochs, phi_e, pl_params,
                               basis[0], basis[1:])
+            member.route = stage1.route
         else:
             gram = make_pta_gram(union, self.gw, specs,
                                  traced_tzr=traced_tzr)
@@ -635,6 +640,7 @@ class PTAGLSFitter:
                 tz = tzr_layout.member(tzr_leaves) if traced_tzr else None
                 return gram(base, d, [(toas, sigma, epochs, basis[0])],
                             phi_e, pl_params, basis[1:], tz)
+            member.route = "jacfwd"
         return member
 
     def _shape_groups(self) -> list[dict]:
@@ -708,6 +714,11 @@ class PTAGLSFitter:
         as one stacked dict per shape group, on the first device."""
         bases, pls = ops
         dev = self.device
+        routes: dict = {}
+        for s in self._stacked or self._singles:
+            n = s.hi - s.lo if self._stacked is not None else 1
+            routes[s.route] = routes.get(s.route, 0) + n
+        note_stage1_routes(routes)
         if self._stacked is not None:
             outs = []
             for st, base, pl in zip(self._stacked, bases, pls):

@@ -351,6 +351,7 @@ def test_library_key_folds_flags_nvcc_and_arch(tmp_path, monkeypatch):
     monkeypatch.setattr(gram, "NVCC_FLAGS", gram.NVCC_FLAGS + ("-G",))
     assert gram.library_path(src) != base
     monkeypatch.undo()
+    assert gram.library_path(src, flags=("-G",)) != base
     monkeypatch.setattr(compile_cache, "nvcc_version",
                         lambda: "Build cuda_0.0")
     assert gram.library_path(src) == base
@@ -371,7 +372,7 @@ def test_library_key_folds_flags_nvcc_and_arch(tmp_path, monkeypatch):
 def _stub_compiler(monkeypatch, payload: bytes):
     calls = []
 
-    def fake(source, out):
+    def fake(source, out, flags=()):
         calls.append(out)
         Path(out).write_bytes(payload)
         return "ptxas info"
