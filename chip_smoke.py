@@ -4656,7 +4656,7 @@ torch.backends.cudnn.allow_tf32 = False
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from pint_tpu_torch import compile_cache, telemetry
-from pint_tpu_torch.ops import gram
+from pint_tpu_torch.ops import gram, library
 from pint_tpu_torch.programs.store import store
 from pint_tpu_torch.serve import ThroughputScheduler
 telemetry.configure(enabled=True)
@@ -4672,14 +4672,14 @@ for r in cs.fresh_requests(cs.throughput_problems(int(sys.argv[6]), dev)):
 res = sched.drain()
 c = telemetry.counters_snapshot()
 print(json.dumps({
-    "keys": store().export_keys(), "library": gram.library_key(),
+    "keys": store().export_keys(), "library": gram.LIBRARY.key(),
     "restored": int(c.get("cache.fit_program.restored", 0)),
     "captures": int(c.get("cache.fit_program.miss", 0)),
     "status": sorted({r.status for r in res}),
     "builds": {k: int(c.get(f"programs.kernel.{k}", 0))
                for k in ("store", "build_dir", "nvcc", "corrupt")},
-    "loaded": gram.LOADED, "launches": launches,
-    "build_dir": str(gram.BUILD_DIR)}))
+    "loaded": gram.LIBRARY.loaded, "launches": launches,
+    "build_dir": str(library.BUILD_DIR)}))
 """
 N_STORE_FITS = 8           # 19a: fits of 18a's stream in each process
 
@@ -4758,7 +4758,7 @@ def fleet_store(dev, card, work):
             and out["loaded"].get("sha256") == digest
             and out["launches"] >= 1)
         if not (out["builds"]["nvcc"] == 0 and loaded_ok and bitwise
-                and out["library"] == gram.library_key()
+                and out["library"] == gram.LIBRARY.key()
                 and err_plain <= PLAIN_BAR * scale):
             fail(f"19a: the {label} process: {out}")
     first, second = recs["first"], recs["second"]
@@ -4788,7 +4788,7 @@ def fleet_store(dev, card, work):
     rebuild_s = time.perf_counter() - t0
     nvcc = int(telemetry.counters_delta(before).get("programs.kernel.nvcc",
                                                     0))
-    gram._load(rebuilt)
+    gram.LIBRARY.bind(rebuilt)
     held = third.kernel_library(lib.name)
     print(f"  a truncated copy ({size // 2} of {size} bytes) in a fourth "
           f"store: store misses counted corrupt {third.counts['corrupt']}, "
@@ -5019,7 +5019,7 @@ def fleet_join(dev, card, serve, work, router, jsonl, digest):
     rep = hosts[0].report()
     progs = rep["programs"] or {}
     builds = progs.get("kernel_builds", {})
-    loaded = progs.get("kernel_loaded", {})
+    loaded = progs.get("kernel_loaded", {}).get("ds32_gram", {})
     print(f"{card}: joiner j0 ready in {spawn_s:.2f} s, join handshake "
           f"{join_s:.3f} s: kernels adopted {progs.get('kernel_adopt')}, "
           f"keys {progs.get('prior')}, nvcc runs {builds.get('nvcc')}, "

@@ -4,8 +4,8 @@ Counterpart of ``pint_tpu.compile_cache``. The reference keys its
 persistent XLA compile cache by the host's CPU model and feature flags,
 because an executable reloaded on a machine with other CPU features
 died with SIGILL. The port's persistent artifacts are the nvcc-built
-kernel libraries (``ops/gram.py``). Their architecture guard is the
-library's own name: :func:`pint_tpu_torch.ops.gram.library_key` digests
+kernel libraries (``ops/library.py``). Their architecture guard is the
+library's own name: :func:`pint_tpu_torch.ops.library.library_key` digests
 the source, the nvcc flags, their target arch and the loading card's
 compute capability (:func:`card_capability`), so a library is never
 looked up for another card, whichever directory or store holds it, and
@@ -71,11 +71,11 @@ def enable_persistent_cache(repo_root: str | os.PathLike | None = None
     Call it before the first kernel build of the process: a library
     already loaded stays loaded. Returns True.
     """
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import library
 
     root = (Path(repo_root) if repo_root is not None
             else Path(__file__).resolve().parents[1])
-    gram.BUILD_DIR = root / "build" / host_cache_tag()
+    library.BUILD_DIR = root / "build" / host_cache_tag()
     return True
 
 

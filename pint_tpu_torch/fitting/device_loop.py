@@ -55,18 +55,12 @@ from torch.utils import _pytree as pytree
 
 from pint_tpu_torch import bucketing, config, telemetry
 from pint_tpu_torch.fitting.damped import COUNTERS, note_fit_counters
-from pint_tpu_torch.ops import block_elim, gram, stage1
+from pint_tpu_torch.ops import library
 from pint_tpu_torch.telemetry import marks, recorder
 from pint_tpu_torch.utils.cache import LRUCache
 
 # accept tolerance of the host loop (damped.downhill_iterate)
 _EPS = 1e-12
-
-# kernel wrappers whose launches a graph replay repeats: each counts the
-# launches it records under capture in ``captured`` (ops/gram.py,
-# ops/block_elim.py, ops/stage1.py)
-_KERNELS = (gram.ds32_gram, gram.ds32_gram_batched, block_elim.block_elim,
-            stage1.stage1_fused)
 
 # captured loops keyed by the caller's key, the recorder setting and the
 # arguments' structure, shapes and device; an entry holds its step and
@@ -341,9 +335,11 @@ class _Captured:
 
     On a CUDA device each body is a CUDA graph (all in one memory pool);
     its replay repeats the kernel launches recorded at capture, and the
-    launch counts of :data:`_KERNELS` grow by those at each replay. The
-    flags are fetched through pinned host memory after an event. On the
-    CPU a "replay" runs the body eagerly into the same static tensors.
+    launch counts of the kernel wrappers
+    (:func:`pint_tpu_torch.ops.library.counted`) grow by those at each
+    replay. The flags are fetched through pinned host memory after an
+    event. On the CPU a "replay" runs the body eagerly into the same
+    static tensors.
 
     With the flight recorder on, the full body runs inside a stage-mark
     session (:mod:`pint_tpu_torch.telemetry.marks`): the marks that the
@@ -379,12 +375,12 @@ class _Captured:
         self.recorded = {}
         for kind, body in bodies.items():
             g = torch.cuda.CUDAGraph()
-            before = [k.captured for k in _KERNELS]
+            before = [k.captured for k in library.counted()]
             with torch.cuda.graph(g, pool=pool):
                 _copy_into(self.carry, self._run(kind, self.carry))
             self.graphs[kind] = g
-            self.recorded[kind] = [k.captured - b
-                                   for k, b in zip(_KERNELS, before)]
+            self.recorded[kind] = [k.captured - b for k, b in
+                                   zip(library.counted(), before)]
         self.flags_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         self.event = torch.cuda.Event()
 
@@ -407,7 +403,7 @@ class _Captured:
             _copy_into(self.carry, self._run(kind, self.carry))
             return
         self.graphs[kind].replay()
-        for k, n in zip(_KERNELS, self.recorded[kind]):
+        for k, n in zip(library.counted(), self.recorded[kind]):
             k.launches += n
 
     def start(self, carry0: dict, operands) -> None:
@@ -621,7 +617,7 @@ def _dispatch(build, cache_key, deltas0, operands, device, hyper, kind,
             captured={"graphs": len(cap.graphs), **{
                 f"{k}.{fn.__name__}": n
                 for k, ns in getattr(cap, "recorded", {}).items()
-                for fn, n in zip(_KERNELS, ns)}})
+                for fn, n in zip(library.counted(), ns)}})
         handle = handle_cls(cap, kind, stats)
         cap.request_flags()
     else:

@@ -109,11 +109,11 @@ def run_worker(port: int, host_id: str, *, device: str = "cuda",
     from pint_tpu_torch import telemetry
     from pint_tpu_torch.fleet.transport import serve_worker
 
-    # the kernel's build directory for this host and card, then the
+    # the kernels' build directory for this host and card, then the
     # program store: with PINT_TORCH_PROGRAM_CACHE_DIR set, this loads
     # the manifest (a restarted worker's keys count
-    # cache.fit_program.restored) and gives the Gram kernel's build its
-    # library tier before the first fit. No-op with the knob unset.
+    # cache.fit_program.restored) and gives the kernel libraries' builds
+    # their library tier before the first fit. No-op with the knob unset.
     from pint_tpu_torch.compile_cache import enable_persistent_cache
     from pint_tpu_torch.programs.store import store as _store
 

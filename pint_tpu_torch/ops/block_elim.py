@@ -27,24 +27,29 @@ PyTorch operators. A member whose block is not positive definite gets
 NaN in every output of that system, the others are untouched (the
 contract of :func:`pint_tpu_torch.fitting.gls_step.cholesky`).
 
-The library is built with ``nvcc`` and loaded with ``ctypes`` through
-the same ladder as the Gram kernel's (:func:`pint_tpu_torch.ops.gram
-.build`: the program store, the build directory, then nvcc), at first
-use.
+Its library, :data:`LIBRARY`, is built and loaded at first use
+(:mod:`pint_tpu_torch.ops.library`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from pint_tpu_torch.ops import gram
+from pint_tpu_torch.ops import library
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "block_elim.cu"
+LIBRARY = library.KernelLibrary(
+    SOURCE, info="pta_block_elim_build_info", symbols={
+        "pta_block_elim_launch": [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            *[ctypes.c_void_p] * 8, ctypes.c_int, ctypes.c_void_p]})
+build = LIBRARY.build
 _EPS = torch.finfo(torch.float64).eps
 # threads of a block; the most column slots a lane holds (csrc/block_elim.cu
 # kSlots), so the largest bordered order is 32 * SLOTS; the dynamic
@@ -158,16 +163,12 @@ def _launch(S, rhs, p: int, k: int) -> Elim:
         nK, ng, ncz = S[:, p:, p:], rhs[:, p:], torch.zeros(G, **f64)
         ptrs = (0, 0, 0)
     stream = torch.cuda.current_stream(S.device).cuda_stream
-    rc = _library().pta_block_elim_launch(
-        S.data_ptr(), S.stride(0), S.stride(1), rhs.data_ptr(), rhs.stride(0),
-        G, q, p, k, systems, Yp.data_ptr(), zp.data_ptr(), a.data_ptr(),
-        K.data_ptr(), g.data_ptr(), *ptrs, S.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"block_elim kernel launch failed: cudaError {rc}")
-    if torch.cuda.is_current_stream_capturing():
-        block_elim.captured += 1
-    else:
-        block_elim.launches += 1
+    LIBRARY.call(
+        "pta_block_elim_launch", S.data_ptr(), S.stride(0), S.stride(1),
+        rhs.data_ptr(), rhs.stride(0), G, q, p, k, systems, Yp.data_ptr(),
+        zp.data_ptr(), a.data_ptr(), K.data_ptr(), g.data_ptr(), *ptrs,
+        S.device.index or 0, stream)
+    library.count_launch(block_elim)
     return Elim(Yp, zp, a, K, g, nK, ng, ncz, "kernel", G * systems)
 
 
@@ -216,42 +217,8 @@ def block_elim_reference(S: torch.Tensor, rhs: torch.Tensor, p: int,
                 G * (2 if kpl > 0 else 1))
 
 
-def _bind(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    fn = lib.pta_block_elim_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   *[ctypes.c_void_p] * 8, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = lib.pta_block_elim_build_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    info.restype = ctypes.c_int
-    return lib
-
-
-#: the library this process loaded: its path, sha256 and origin
-LOADED: dict = {}
-
-
-def build(*, store=None, build_dir: Path | None = None):
-    """The built library: :func:`pint_tpu_torch.ops.gram.build` of this
-    kernel's source (the program store, the build directory, nvcc)."""
-    return gram.build(SOURCE, store=store, build_dir=build_dir)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return gram.load_library(SOURCE, bind=_bind, loaded=LOADED)
-
-
 def build_info(q: int, device: int = 0) -> dict:
     """What the kernel runs with at a (q, ., .) group's full system on
     CUDA card `device`: threads, registers, spill_bytes (local memory
     per thread), shared_bytes (dynamic, per block), blocks_per_sm."""
-    vals = (ctypes.c_int * 5)()
-    rc = _library().pta_block_elim_build_info(q + 1, device, vals)
-    if rc != 0:
-        raise RuntimeError(f"pta_block_elim_build_info failed: cudaError {rc}")
-    return dict(zip(("threads", "registers", "spill_bytes", "shared_bytes",
-                     "blocks_per_sm"), vals))
+    return LIBRARY.build_info(q + 1, device)

@@ -16,12 +16,9 @@ compute the same thing; the kernel's tiling of the output is
 
 :func:`ds32_gram` launches the kernel in ``csrc/ds32_gram.cu`` for a
 tensor on the card and runs :func:`ds32_gram_reference`, the same
-arithmetic in PyTorch operators, for a tensor on the CPU. The kernel is
-compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at
-the root of the checkout (``build/<tag>`` after
-:func:`pint_tpu_torch.compile_cache.enable_persistent_cache`) and loaded
-with ``ctypes``; with a program store (``PINT_TORCH_PROGRAM_CACHE_DIR``)
-its library is looked up there first (:func:`build`).
+arithmetic in PyTorch operators, for a tensor on the CPU. Its library,
+:data:`LIBRARY`, is built and loaded at first use
+(:mod:`pint_tpu_torch.ops.library`).
 
 :func:`ds32_gram_batched` is the (P, n, q) -> (P, q, q) form: one launch
 computes P Grams (the batch index is the kernel grid's third axis), each
@@ -36,20 +33,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pint_tpu_torch.ops import library
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ds32_gram.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # rows per f32 accumulation chunk (kRows in csrc/ds32_gram.cu)
 CHUNK_ROWS = 32
 # the fewest and the most rows one row block sums
@@ -85,8 +78,6 @@ REDUCE_THREADS = 64
 MAX_COLUMNS = (math.isqrt(8 * REDUCE_THREADS * GRID_X + 1) - 1) // 2
 MAX_ROWS = GRID_YZ * MAX_BLOCK_ROWS
 MAX_BATCH = GRID_YZ
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -214,209 +205,24 @@ def _tile_plan(q: int) -> TilePlan:
     return TilePlan(q, "pairs", TILE, nt * (nt + 1) // 2)
 
 
-def _arch() -> str:
-    """The target arch of NVCC_FLAGS' ``-gencode`` (``sm_90a``)."""
-    for flag in NVCC_FLAGS:
-        if "code=" in flag:
-            return flag.split("code=")[-1]
-    return ""
-
-
-def library_facts() -> dict:
-    """What a library built here is for, recorded beside it in its
-    ``.sha256`` record: the target arch of NVCC_FLAGS, the loading
-    card's compute capability (``"none"`` without a card) and the nvcc
-    version that builds here. A shipped library is installed only where
-    its arch and capability are the loading card's
-    (:meth:`~pint_tpu_torch.programs.store.ProgramStore.adopt_xla`); its
-    nvcc version is a record, not a condition."""
-    from pint_tpu_torch.compile_cache import card_capability, nvcc_version
-
-    return {"arch": _arch(), "capability": card_capability(),
-            "nvcc": nvcc_version()}
-
-
-def library_key(source: Path = SOURCE, flags: tuple[str, ...] = ()) -> str:
-    """What a built library depends on, digested: the source's content,
-    NVCC_FLAGS and the caller's own `flags`, their target arch and the loading
-    card's compute capability — the one architecture guard, so a library
-    built for one card is never looked up on another. The nvcc version is
-    not in the key: a library shipped from a host with another nvcc, or
-    to a host with none, is the same program."""
-    from pint_tpu_torch.compile_cache import card_capability
-
-    h = hashlib.sha256(source.read_bytes())
-    for part in (*NVCC_FLAGS, *flags, _arch(), card_capability()):
-        h.update(b"\0" + str(part).encode())
-    return h.hexdigest()[:16]
-
-
-def library_path(source: Path = SOURCE, build_dir: Path | None = None,
-                 flags: tuple[str, ...] = ()) -> Path:
-    """Where the built library of `source` lives in the build directory
-    (named by :func:`library_key`)."""
-    key = library_key(source, flags)
-    return (build_dir or BUILD_DIR) / f"lib{source.stem}-{key}.so"
-
-
-#: the library this process loaded: its path, sha256 and origin
-#: ("store", "build_dir" or "nvcc"); empty until loaded
-LOADED: dict = {}
-
-
-def _run_nvcc(source: Path, out: str, flags: tuple[str, ...] = ()) -> str:
-    """Compile `source` with NVCC_FLAGS and `flags` into the shared
-    library `out`; returns nvcc's output (the ``-Xptxas -v`` report).
-    Raises when nvcc fails."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, *flags, "-o", out, str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    return proc.stdout + proc.stderr
-
-
-def _default_store():
-    from pint_tpu_torch.programs.store import store
-
-    return store()
-
-
-def build(source: Path = SOURCE, *, store=None, build_dir: Path | None = None,
-          flags: tuple[str, ...] = ()) -> tuple[Path, str]:
-    """The built library of `source`, compiled with NVCC_FLAGS and the
-    source's own `flags`: (path, the compiler's output —
-    the ``-Xptxas -v`` register and shared-memory report; empty when
-    nothing was built).
-
-    The ladder: the program store's kernel tier (`store`, by default
-    the process's ``PINT_TORCH_PROGRAM_CACHE_DIR`` store, ``False`` for
-    none; a library a shipment adopted lands there), then the build
-    directory, then nvcc from source, then raise. A file whose size or
-    digest differs from its ``.sha256`` record (truncated, corrupt, or
-    written by an older build without one) is removed, counted
-    (``programs.store.corrupt`` in the store, ``programs.kernel.corrupt``
-    in the build directory) and rebuilt; nothing falls back to the plain
-    version. What is built or found in the build directory is put in the
-    store. ``programs.kernel.{store,build_dir,nvcc}`` count where each
-    library came from.
-    """
-    return _build(source, store, build_dir, flags)[:2]
-
-
-def _build(source, store, build_dir, flags=()) -> tuple[Path, str, str]:
-    """:func:`build`, with the rung the library came from."""
-    from pint_tpu_torch import telemetry
-    from pint_tpu_torch.programs import store as _st
-
-    st = _default_store() if store is None else (store or None)
-    bdir = build_dir or BUILD_DIR
-    out = library_path(source, bdir, flags)
-    if st is not None:
-        hit = st.kernel_library(out.name)
-        if hit is not None:
-            telemetry.inc("programs.kernel.store")
-            return hit, "", "store"
-    ok = _st.verified(out)
-    if ok:
-        telemetry.inc("programs.kernel.build_dir")
-        if st is not None:
-            st.put_kernel(out)
-        return out, "", "build_dir"
-    if ok is False:
-        telemetry.inc("programs.kernel.corrupt")
-        _st.discard(out)
-    bdir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=bdir)
-    os.close(fd)
-    try:
-        telemetry.inc("programs.kernel.nvcc")
-        log = _run_nvcc(source, tmp, flags)
-        _st.write_sidecar(tmp, out, facts=library_facts())
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    if st is not None:
-        st.put_kernel(out)
-    return out, log, "nvcc"
-
-
-def _load(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    fn = lib.ds32_gram_batched_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = lib.ds32_gram_build_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    info.restype = ctypes.c_int
-    return lib
-
-
-def load_library(source: Path = SOURCE, *, store=None,
-                 build_dir: Path | None = None, bind=None,
-                 loaded: dict | None = None,
-                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (:func:`build`, with `flags`) and load the library,
-    recording where it came from in `loaded` (``LOADED`` by default).
-    `bind` opens a built library and declares its symbols (:func:`_load`,
-    the Gram's, by default). One that fails to load (or lacks the launch
-    symbol) is removed from wherever it came from (counted corrupt there)
-    and built again from source; a second failure raises."""
-    from pint_tpu_torch import telemetry
-    from pint_tpu_torch.programs import store as _st
-
-    st = _default_store() if store is None else (store or None)
-    for attempt in (0, 1):
-        path, _log, origin = _build(source, st, build_dir, flags)
-        try:
-            lib = (bind or _load)(path)
-            break
-        except (OSError, AttributeError) as e:
-            if origin == "store":
-                st.discard_kernel(path.name)
-            else:
-                telemetry.inc("programs.kernel.corrupt")
-                if st is not None:
-                    _st.discard(Path(st.kernel_dir) / path.name)
-            _st.discard(library_path(source, build_dir, flags))
-            if attempt:
-                raise RuntimeError(
-                    f"the {source.name} library built from source does "
-                    f"not load: {e}") from e
-    (LOADED if loaded is None else loaded).update(
-        path=str(path), sha256=_st.file_digest(path)[1], origin=origin)
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return load_library()
-
-
 #: the kernels of one launch, by the index ds32_gram_build_info takes
 BUILDS = ("partials_narrow", "partials_tile", "partials_pairs", "reduce")
+LIBRARY = library.KernelLibrary(
+    SOURCE, info="ds32_gram_build_info", symbols={
+        "ds32_gram_batched_launch": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+build = LIBRARY.build
 
 
 def build_info(device: int = 0) -> dict:
     """What each kernel of the loaded library runs with on CUDA card
     `device`: {name: {threads, registers, spill_bytes (local memory per
-    thread), shared_bytes (dynamic, per block), blocks_per_sm (resident,
-    from cudaOccupancyMaxActiveBlocksPerMultiprocessor)}}."""
-    lib = _library()
-    out = {}
-    for k, name in enumerate(BUILDS):
-        vals = (ctypes.c_int * 5)()
-        rc = lib.ds32_gram_build_info(k, device, vals)
-        if rc != 0:
-            raise RuntimeError(f"ds32_gram_build_info({name}) failed: "
-                               f"cudaError {rc}")
-        out[name] = dict(zip(("threads", "registers", "spill_bytes",
-                              "shared_bytes", "blocks_per_sm"), vals))
-    return out
+    thread), shared_bytes (dynamic, per block), blocks_per_sm}}
+    (:meth:`~pint_tpu_torch.ops.library.KernelLibrary.build_info`)."""
+    return {name: LIBRARY.build_info(k, device)
+            for k, name in enumerate(BUILDS)}
 
 
 def _check(A, rank: int = 2, name: str = "ds32_gram") -> None:
@@ -456,16 +262,10 @@ def _launch(A: torch.Tensor, counter) -> torch.Tensor:
                           device=A.device)
     G = torch.empty((batch, q, q), dtype=torch.float64, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = _library().ds32_gram_batched_launch(
-        A.data_ptr(), partial.data_ptr(), G.data_ptr(), batch, n, q, bn, nb,
-        plan.edge, plan.ntasks, A.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"{counter.__name__} kernel launch failed: "
-                           f"cudaError {rc}")
-    if torch.cuda.is_current_stream_capturing():
-        counter.captured += 1
-    else:
-        counter.launches += 1
+    LIBRARY.call("ds32_gram_batched_launch", A.data_ptr(), partial.data_ptr(),
+                 G.data_ptr(), batch, n, q, bn, nb, plan.edge, plan.ntasks,
+                 A.device.index or 0, stream)
+    library.count_launch(counter)
     return G
 
 

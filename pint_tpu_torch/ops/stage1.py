@@ -22,16 +22,14 @@ through a ``torch.library`` custom op whose vmap rule makes one launch
 for the whole group, as :func:`pint_tpu_torch.ops.gram.ds32_gram` does.
 
 The parameters reach it as a table: per member, the base values' (hi,
-lo) words of :attr:`Layout.names` and the deltas of the free ones. The
-library is built with ``nvcc`` (and :data:`NVCC_FLAGS`) through
-:func:`pint_tpu_torch.ops.gram.build`'s
-ladder at first use, and loaded with ``ctypes``.
+lo) words of :attr:`Layout.names` and the deltas of the free ones. Its
+library, :data:`LIBRARY`, is built (with ``-fmad=false``) and loaded at
+first use (:mod:`pint_tpu_torch.ops.library`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from pathlib import Path
 from typing import NamedTuple
@@ -41,14 +39,11 @@ import torch
 from pint_tpu_torch.constants import (AU_LIGHT_S, DM_CONST, SECS_PER_DAY,
                                       T_SUN_S)
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
-from pint_tpu_torch.ops import dd, gram, phase as phase_mod
+from pint_tpu_torch.ops import dd, library, phase as phase_mod
 from pint_tpu_torch.ops import timescales as ts
 from pint_tpu_torch.utils.angles import RAD_PER_MAS
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "stage1.cu"
-# beyond ops/gram.py's NVCC_FLAGS: the double-double transforms need every
-# multiply rounded before an add
-NVCC_FLAGS = ("-fmad=false",)
 # csrc/stage1.cu's limits: free parameters (tangents), spin and DM
 # terms; the row threads of a block
 MAX_FREE = 8
@@ -305,19 +300,13 @@ def _launch(tensors, layout: Layout):
             int(layout.phoff), int(layout.anchored), int(layout.offset),
             layout.off_dm, layout.off_spin, layout.off_phoff, *slots]
     stream = torch.cuda.current_stream(rows[0].device).cuda_stream
-    rc = _library().stage1_fused_launch(
-        (ctypes.c_longlong * len(ptrs))(*ptrs),
-        (ctypes.c_longlong * len(strides))(*strides),
-        (ctypes.c_int * len(ints))(*ints),
-        (ctypes.c_double * len(_CONSTS))(*_CONSTS),
-        rows[0].device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"stage1_fused kernel launch failed: cudaError "
-                           f"{rc}")
-    if torch.cuda.is_current_stream_capturing():
-        stage1_fused.captured += 1
-    else:
-        stage1_fused.launches += 1
+    LIBRARY.call("stage1_fused_launch",
+                 (ctypes.c_longlong * len(ptrs))(*ptrs),
+                 (ctypes.c_longlong * len(strides))(*strides),
+                 (ctypes.c_int * len(ints))(*ints),
+                 (ctypes.c_double * len(_CONSTS))(*_CONSTS),
+                 rows[0].device.index or 0, stream)
+    library.count_launch(stage1_fused)
     return Mw, resid
 
 
@@ -641,42 +630,21 @@ def stage1_reference(tab_hi, tab_lo, deltas, tdb_hi, tdb_lo, obs, sun, freq,
 # the library
 # ----------------------------------------------------------------------
 
-def _bind(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    fn = lib.stage1_fused_launch
-    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    probe = lib.stage1_dd_probe_launch
-    probe.argtypes = [*[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_double,
-                      ctypes.c_double, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p]
-    probe.restype = ctypes.c_int
-    info = lib.stage1_build_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    info.restype = ctypes.c_int
-    return lib
-
-
-#: the library this process loaded: its path, sha256 and origin
-LOADED: dict = {}
-
-
-def build(*, store=None, build_dir: Path | None = None):
-    """The built library: :func:`pint_tpu_torch.ops.gram.build` of this
-    kernel's source (the program store, the build directory, nvcc)."""
-    return gram.build(SOURCE, store=store, build_dir=build_dir,
-                      flags=NVCC_FLAGS)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    return gram.load_library(SOURCE, bind=_bind, loaded=LOADED,
-                             flags=NVCC_FLAGS)
-
+LIBRARY = library.KernelLibrary(
+    SOURCE, info="stage1_build_info",
+    # the double-double transforms need every multiply rounded before an
+    # add
+    flags=("-fmad=false",),
+    symbols={
+        "stage1_fused_launch": [
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p],
+        "stage1_dd_probe_launch": [
+            *[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_double,
+            ctypes.c_double, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]})
+build = LIBRARY.build
 
 #: the kernel's builds, by the index stage1_build_info takes: for 2, 4,
 #: 6 or 8 free parameters
@@ -687,16 +655,8 @@ def build_info(device: int = 0) -> dict:
     """What each kernel runs with on CUDA card `device`: {name: {threads,
     registers, spill_bytes (local memory per thread), shared_bytes
     (static, per block), blocks_per_sm}}."""
-    out = {}
-    for k, name in enumerate(BUILDS):
-        vals = (ctypes.c_int * 5)()
-        rc = _library().stage1_build_info(k, device, vals)
-        if rc != 0:
-            raise RuntimeError(f"stage1_build_info({name}) failed: "
-                               f"cudaError {rc}")
-        out[name] = dict(zip(("threads", "registers", "spill_bytes",
-                              "shared_bytes", "blocks_per_sm"), vals))
-    return out
+    return {name: LIBRARY.build_info(k, device)
+            for k, name in enumerate(BUILDS)}
 
 
 def dd_self_check(device=None) -> bool:
@@ -711,11 +671,8 @@ def dd_self_check(device=None) -> bool:
     a, b, h, low, scalar = dd.probe_inputs()
     ins = [torch.as_tensor(x, device=dev) for x in (a, b, h, low)]
     out = torch.empty((6, a.shape[0]), dtype=torch.float64, device=dev)
-    rc = _library().stage1_dd_probe_launch(
-        *[x.data_ptr() for x in ins], a.shape[0], scalar.hi, scalar.lo,
-        out.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"stage1_dd_probe failed: cudaError {rc}")
+    LIBRARY.call("stage1_dd_probe_launch", *[x.data_ptr() for x in ins],
+                 a.shape[0], scalar.hi, scalar.lo, out.data_ptr(),
+                 dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     return dd.judge_probes(a, b, h, low, scalar, *out.cpu().numpy())
 

@@ -90,47 +90,6 @@ def fingerprint_id(model, toas=None) -> str:
     return _fp.short_id(model._fn_fingerprint())
 
 
-def artifact_key(base: str, sig) -> str | None:
-    """One artifact's on-disk name: base key + dispatch signature
-    (canonicalized and digested). ``None`` for an empty base or an
-    unreprable signature — the caller skips persistence."""
-    if not base:
-        return None
-    try:
-        body = base + _fp.canonical_repr(sig)
-        return hashlib.sha256(body.encode()).hexdigest()[:32]
-    except Exception:
-        return None
-
-
-#: The serve-layer fingerprint short id of the structure being
-#: dispatched (set by the scheduler around its launch sites): the
-#: metadata the fleet shipping protocol filters artifacts on.
-_CURRENT_FP8: str | None = None
-
-
-class serve_fp8:
-    """Context manager tagging dispatches with the serve-layer fp8."""
-
-    def __init__(self, fp8: str | None):
-        self.fp8 = fp8
-
-    def __enter__(self):
-        global _CURRENT_FP8
-        self._saved = _CURRENT_FP8
-        _CURRENT_FP8 = self.fp8
-        return self
-
-    def __exit__(self, *exc):
-        global _CURRENT_FP8
-        _CURRENT_FP8 = self._saved
-        return False
-
-
-def current_fp8() -> str | None:
-    return _CURRENT_FP8
-
-
 def program_key(kind: str, fingerprint, shape, extra=()) -> str | None:
     """The serialization-stable name of one program.
 

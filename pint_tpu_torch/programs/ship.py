@@ -13,8 +13,8 @@ on loopback and TCP:
 * ``ship_programs(shipment)`` — the COLD host installs both
   (:func:`adopt_shipment`): libraries land in its ``kernels/``
   directory after their digests and their arch and card are checked,
-  keys in its manifest. On a card the Gram kernel's library is then
-  loaded from the store at once (nvcc runs zero times); its first
+  keys in its manifest. On a card every kernel library it brought is
+  then loaded from the store at once (nvcc runs zero times); its first
   captures are still captures (counted ``miss``, with ``restored``
   beside them). A captured loop is never shipped: it is bound to its
   process.
@@ -67,8 +67,9 @@ def adopt_shipment(shipment) -> dict:
 
     Returns ``{"kernels", "keys"}`` (libraries installed, keys adopted)
     and, when a library came, ``"loaded"`` — the joining worker's
-    readiness evidence. With no store configured nothing is installed
-    and the join degrades to build-on-demand.
+    readiness evidence (:func:`_load_libraries`). With no store
+    configured nothing is installed and the join degrades to
+    build-on-demand.
     """
     from pint_tpu_torch.programs.store import store as _store
 
@@ -80,25 +81,27 @@ def adopt_shipment(shipment) -> dict:
            "keys": st.adopt_keys(shipment.get("keys"))}
     if out["kernels"]:
         try:
-            out["loaded"] = _load_gram(st)
+            out["loaded"] = _load_libraries(st)
         except Exception as e:  # noqa: BLE001 — the join proceeds
             out["loaded"] = {"error": f"{type(e).__name__}: {e}"}
     return out
 
 
-def _load_gram(st) -> dict | None:
-    """Load the Gram kernel's library when a shipment brought it and
-    this process runs on a card: an adopted library is runnable, not
-    merely on disk (its digest was checked when it was installed, and
-    again by the build's ladder). Returns the load's record (path,
-    sha256, origin), None without a card or without that library."""
+def _load_libraries(st) -> dict | None:
+    """Load each kernel library the store holds when this process runs
+    on a card: an adopted library is runnable, not merely on disk (its
+    digest was checked when it was installed, and again by the build's
+    ladder). Returns each load's record (path, sha256, origin) by source
+    stem, None without a card."""
     import torch
 
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import library
 
     if not torch.cuda.is_available():
         return None
-    if not (Path(st.kernel_dir) / gram.library_path().name).exists():
-        return None
-    gram._library()
-    return dict(gram.LOADED)
+    out = {}
+    for lib in library.libraries():
+        if (Path(st.kernel_dir) / lib.path().name).exists():
+            lib.load()
+            out[lib.source.stem] = dict(lib.loaded)
+    return out

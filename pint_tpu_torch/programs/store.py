@@ -8,7 +8,7 @@ them can be kept:
   process, their device memory and their static tensors, they cannot
   be saved. :meth:`ProgramStore.portable` is False for them; what a
   later process can know of one is its key (:meth:`ProgramStore.note_base`);
-* **the nvcc-built kernel libraries** (``ops/gram.py``): files that can
+* **the nvcc-built kernel libraries** (``ops/library.py``): files that can
   be kept on disk and shipped to another process on the same kind of
   card.
 
@@ -16,10 +16,10 @@ Layout under ``PINT_TORCH_PROGRAM_CACHE_DIR`` (the store root):
 
 * ``kernels/`` — the kernel tier (the reference's XLA-cache tier):
   ``lib*.so`` files, each with a ``.sha256`` record of its size, its
-  digest and what it was built for (:func:`pint_tpu_torch.ops.gram
+  digest and what it was built for (:func:`pint_tpu_torch.ops.library
   .library_facts`: arch, card capability, nvcc version).
-  :func:`pint_tpu_torch.ops.gram.build` looks here first, and puts what
-  it builds here. Shipped between hosts by
+  :meth:`pint_tpu_torch.ops.library.KernelLibrary.build` looks here
+  first, and puts what it builds here. Shipped between hosts by
   :meth:`~ProgramStore.export_xla` / :meth:`~ProgramStore.adopt_xla`
   (with their digests and records), under a byte limit.
 * ``manifest.jsonl`` — append-only journal of every program key this
@@ -341,12 +341,12 @@ class ProgramStore:
         """Install shipped kernel libraries ``(name, bytes, sha256,
         facts)``. A digest mismatch is refused and counted ``corrupt``;
         a library whose recorded arch or card capability is not the
-        loading card's (:func:`pint_tpu_torch.ops.gram.library_facts`),
+        loading card's (:func:`pint_tpu_torch.ops.library.library_facts`),
         or that records none, is refused and counted ``skew``. The name
         is reduced to its basename (no path traversal), and a library
         already held with the same digest is skipped. Returns the number
         installed."""
-        from pint_tpu_torch.ops.gram import library_facts
+        from pint_tpu_torch.ops.library import library_facts
 
         local = library_facts()
         n = 0

@@ -346,12 +346,12 @@ class BatchPlan:
 
 def _program_store_stats() -> dict | None:
     """Persistent-program-store health for :meth:`report`, with the
-    Gram kernel's build counters (``programs.kernel.*`` — where each
+    kernel libraries' build counters (``programs.kernel.*`` — where each
     library came from: the store, the build directory, nvcc; only while
-    telemetry counts) and its loaded library (never raises; None = no
-    store configured)."""
+    telemetry counts) and each loaded library's record by source stem
+    (never raises; None = no store configured)."""
     try:
-        from pint_tpu_torch.ops import gram
+        from pint_tpu_torch.ops import library
         from pint_tpu_torch.programs import store_stats
 
         stats = store_stats()
@@ -361,7 +361,9 @@ def _program_store_stats() -> dict | None:
                 stats["kernel_builds"] = {
                     k: int(c.get(f"programs.kernel.{k}", 0))
                     for k in ("store", "build_dir", "nvcc", "corrupt")}
-            stats["kernel_loaded"] = dict(gram.LOADED)
+            stats["kernel_loaded"] = {
+                lib.source.stem: dict(lib.loaded)
+                for lib in library.libraries() if lib.loaded}
         return stats
     except Exception:  # noqa: BLE001 — health surface must not fail
         return None
@@ -1596,16 +1598,6 @@ class ThroughputScheduler:
         def _dispatch(state):
             if isinstance(state, _FailedBatch):
                 return state
-            # tag what runs under this launch with the plan's
-            # fingerprint short id: stored artifacts then carry the fp8
-            # the fleet router's warm-set/popularity stats use, which
-            # the join handshake filters shipments on
-            from pint_tpu_torch.programs.key import serve_fp8
-
-            with serve_fp8(state.plan.group):
-                return _dispatch_inner(state)
-
-        def _dispatch_inner(state):
             plan = state.plan
             while True:
                 try:
@@ -1790,11 +1782,8 @@ class ThroughputScheduler:
                     # the deferred async-dispatch error surfaces at this
                     # sync; one retry "attempt" = fresh dispatch + fetch
                     if state.handle is None:
-                        from pint_tpu_torch.programs.key import serve_fp8
-
-                        with serve_fp8(plan.group):
-                            state.handle = state.fitter.dispatch_fit(
-                                **state.hyper)
+                        state.handle = state.fitter.dispatch_fit(
+                            **state.hyper)
                     chi2 = np.asarray(state.handle.finish(), dtype=float)
                     break
                 except Exception as e:  # noqa: BLE001

@@ -402,12 +402,12 @@ def test_join_ships_the_kernel_tier_and_keys(tabs, tmp_path):
     their digests checked) and keys before it is routable."""
     from pint_tpu_torch.programs import ProgramStore
 
-    from pint_tpu_torch.ops import gram
+    from pint_tpu_torch.ops import library
     from pint_tpu_torch.programs.store import write_sidecar
 
     lib = tmp_path / "libds32_gram-0000.so"
     lib.write_bytes(b"\x7fELF" + bytes(range(256)) * 4)
-    write_sidecar(lib, facts=gram.library_facts())
+    write_sidecar(lib, facts=library.library_facts())
     donors = []
     for i in range(2):
         st = ProgramStore(str(tmp_path / f"d{i}"))

@@ -213,12 +213,14 @@ def test_tile_plan_main_path_issues_at_most_115_percent_of_q64():
 
 
 def test_library_path_is_keyed_by_source_content(tmp_path):
+    from pint_tpu_torch.ops import library
+
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
-    first = gram.library_path(src)
+    first = library.library_path(src)
     src.write_text("// two\n")
-    assert gram.library_path(src) != first
-    assert first.parent == gram.BUILD_DIR and first.name.startswith("libk-")
+    assert library.library_path(src) != first
+    assert first.parent == library.BUILD_DIR and first.name.startswith("libk-")
 
 
 

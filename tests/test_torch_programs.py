@@ -1,11 +1,11 @@
 """The port's program supply chain against tests/test_programs.py.
 
 ``pint_tpu_torch.programs`` (keys, the store, shipping), the kernel
-build's ladder in ``ops/gram.py`` and ``bucketing.note_program``'s store
-hook. Mirrors the reference's cases where the port has the same
-contract: keys byte-identical across two processes with different hash
-seeds, key sensitivity to the triple, ``extra`` and the traced-set knob,
-``artifact_key``, the store's portability gate (here: only a built
+libraries' build ladder in ``ops/library.py`` and
+``bucketing.note_program``'s store hook. Mirrors the reference's cases
+where the port has the same contract: keys byte-identical across two
+processes with different hash seeds, key sensitivity to the triple,
+``extra`` and the traced-set knob, the store's portability gate (here: only a built
 shared library is portable, a captured loop never is), the captured
 loop whose key is journaled for the next process, the library tier's
 export/adopt, and the once-per-process singleton. ``select_adopt_set``
@@ -39,11 +39,10 @@ import numpy as np
 import pytest
 
 from pint_tpu_torch import bucketing, config, telemetry
-from pint_tpu_torch.ops import gram
+from pint_tpu_torch.ops import block_elim, gram, library, stage1
 from pint_tpu_torch.programs import (ProgramStore, environment_facts,
                                      fingerprint_id, program_key)
 from pint_tpu_torch.programs import store as store_mod
-from pint_tpu_torch.programs.key import artifact_key
 from pint_tpu_torch.programs.ship import select_adopt_set
 
 REPO = Path(__file__).resolve().parents[1]
@@ -96,7 +95,7 @@ print(fp)
 print(program_key("device_loop_gls", (fp, ("ecorr", 2)), (64, 8),
                   extra=(True, "donate")))
 print(program_key("batched_gls", (fp, None), (128,)))
-print(gram.library_key())
+print(gram.LIBRARY.key())
 """ % PAR
 
 
@@ -125,7 +124,7 @@ def test_program_key_byte_identical_across_processes():
     assert lines[0] == fp
     assert lines[1] == program_key("device_loop_gls", (fp, ("ecorr", 2)),
                                    (64, 8), extra=(True, "donate"))
-    assert lines[3] == gram.library_key()
+    assert lines[3] == gram.LIBRARY.key()
 
 
 def test_program_key_is_a_32_hex_digest():
@@ -205,15 +204,6 @@ def test_an_address_repr_gives_no_key(value, tmp_path, monkeypatch):
     monkeypatch.setattr(store_mod, "_STORE", store_mod._UNSET)
 
 
-def test_artifact_key_folds_signature():
-    base = program_key("k", ("fp", 1), (64,))
-    a1 = artifact_key(base, ("sig", 1))
-    a2 = artifact_key(base, ("sig", 2))
-    assert a1 and a2 and a1 != a2 and len(a1) == 32
-    assert artifact_key("", ("sig", 1)) is None
-    assert artifact_key(base, ("sig", 1)) == a1
-
-
 # ----------------------------------------------------------------------
 # the store: portability, round trip, degradation
 # ----------------------------------------------------------------------
@@ -251,7 +241,7 @@ def test_store_kernel_tier_and_key_tier_roundtrip(tmp_path):
     donor = ProgramStore(str(tmp_path / "d"))
     lib = tmp_path / "libk-0123.so"
     lib.write_bytes(open(_a_library(), "rb").read())
-    store_mod.write_sidecar(lib, facts=gram.library_facts())
+    store_mod.write_sidecar(lib, facts=library.library_facts())
     stored = donor.put_kernel(lib)
     assert stored.parent == Path(donor.kernel_dir)
     assert donor.kernel_library("libk-0123.so") == stored
@@ -334,50 +324,63 @@ def test_note_program_counts_restored_and_keeps_the_capture_a_miss(
 
 
 # ----------------------------------------------------------------------
-# ops/gram.py: the library's key and its ladder (the compiler stubbed)
+# ops/library.py: the libraries' keys and their ladder (the compiler
+# stubbed)
 # ----------------------------------------------------------------------
 
-def test_library_key_folds_flags_nvcc_and_arch(tmp_path, monkeypatch):
-    """The library's name digests the source, the flags, their target
-    arch and the loading card's capability; the nvcc version is in its
-    record, not its name (a shipped library stays usable on a host with
-    another nvcc, or none)."""
+LIBRARIES = {"gram": gram.LIBRARY, "block_elim": block_elim.LIBRARY,
+             "stage1": stage1.LIBRARY}
+
+
+@pytest.mark.parametrize("name", sorted(LIBRARIES))
+def test_library_key_folds_flags_nvcc_and_arch(name, tmp_path, monkeypatch):
+    """A library's name digests the source, the flags (NVCC_FLAGS and
+    its own: stage 1's ``-fmad=false``, in no other library's), their
+    target arch and the loading card's capability; the nvcc version is in
+    its record, not its name (a shipped library stays usable on a host
+    with another nvcc, or none)."""
     from pint_tpu_torch import compile_cache
 
+    lib = LIBRARIES[name]
+    assert lib.flags == (("-fmad=false",) if name == "stage1" else ())
+    assert lib.path().name == library.library_path(
+        lib.source, flags=lib.flags).name
+    assert lib.path().name.startswith(f"lib{lib.source.stem}-")
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
-    base = gram.library_path(src)
-    assert base.parent == gram.BUILD_DIR and base.name.startswith("libk-")
-    monkeypatch.setattr(gram, "NVCC_FLAGS", gram.NVCC_FLAGS + ("-G",))
-    assert gram.library_path(src) != base
-    monkeypatch.undo()
-    assert gram.library_path(src, flags=("-G",)) != base
-    monkeypatch.setattr(compile_cache, "nvcc_version",
-                        lambda: "Build cuda_0.0")
-    assert gram.library_path(src) == base
-    assert gram.library_facts()["nvcc"] == "Build cuda_0.0"
-    monkeypatch.undo()
-    monkeypatch.setattr(compile_cache, "card_capability", lambda: "sm_80")
-    assert gram.library_path(src) != base
-    assert gram.library_facts()["capability"] == "sm_80"
-    monkeypatch.undo()
-    monkeypatch.setattr(gram, "NVCC_FLAGS", tuple(
-        f.replace("sm_90a", "sm_100a") for f in gram.NVCC_FLAGS))
-    assert gram._arch() == "sm_100a"
-    assert gram.library_path(src) != base
-    monkeypatch.undo()
-    assert gram.library_path(src) == base
+    monkeypatch.setattr(lib, "source", src)
+    base = lib.path()
+    assert base.parent == library.BUILD_DIR and base.name.startswith("libk-")
+    assert (base == library.library_path(src)) == (name != "stage1")
+    with monkeypatch.context() as m:
+        m.setattr(library, "NVCC_FLAGS", library.NVCC_FLAGS + ("-G",))
+        assert lib.path() != base
+    assert library.library_path(src, flags=lib.flags + ("-G",)) != base
+    with monkeypatch.context() as m:
+        m.setattr(compile_cache, "nvcc_version", lambda: "Build cuda_0.0")
+        assert lib.path() == base
+        assert library.library_facts()["nvcc"] == "Build cuda_0.0"
+    with monkeypatch.context() as m:
+        m.setattr(compile_cache, "card_capability", lambda: "sm_80")
+        assert lib.path() != base
+        assert library.library_facts()["capability"] == "sm_80"
+    with monkeypatch.context() as m:
+        m.setattr(library, "NVCC_FLAGS", tuple(
+            f.replace("sm_90a", "sm_100a") for f in library.NVCC_FLAGS))
+        assert library._arch() == "sm_100a"
+        assert lib.path() != base
+    assert lib.path() == base
 
 
 def _stub_compiler(monkeypatch, payload: bytes):
     calls = []
 
     def fake(source, out, flags=()):
-        calls.append(out)
+        calls.append((source, flags))
         Path(out).write_bytes(payload)
         return "ptxas info"
 
-    monkeypatch.setattr(gram, "_run_nvcc", fake)
+    monkeypatch.setattr(library, "_run_nvcc", fake)
     return calls
 
 
@@ -432,7 +435,7 @@ def test_a_library_that_does_not_load_is_rebuilt_then_raises(tmp_path,
     before = telemetry.counters_snapshot()
     st = ProgramStore(str(tmp_path / "store"))
     with pytest.raises(RuntimeError, match="does not load"):
-        gram.load_library(store=st, build_dir=tmp_path / "b")
+        gram.LIBRARY.open(store=st, build_dir=tmp_path / "b")
     assert len(calls) == 2
     # each failed build counted once, and its copy in the store removed
     assert _kernel_counts(before)["corrupt"] == 2
@@ -444,19 +447,60 @@ def test_a_shipped_library_loads_without_nvcc(tmp_path, monkeypatch):
     finds: the compiler is never called, and the load's record names the
     store."""
     calls = _stub_compiler(monkeypatch, b"unused")
-    monkeypatch.setattr(gram, "_load", lambda path: ("lib", path))
-    monkeypatch.setattr(gram, "LOADED", {})
+    monkeypatch.setattr(gram.LIBRARY, "bind", lambda path: ("lib", path))
+    monkeypatch.setattr(gram.LIBRARY, "loaded", {})
     donor = ProgramStore(str(tmp_path / "donor"))
-    lib = tmp_path / gram.library_path().name
+    lib = tmp_path / gram.LIBRARY.path().name
     lib.write_bytes(open(_a_library(), "rb").read())
-    store_mod.write_sidecar(lib, facts=gram.library_facts())
+    store_mod.write_sidecar(lib, facts=library.library_facts())
     donor.put_kernel(lib)
     joiner = ProgramStore(str(tmp_path / "joiner"))
     assert joiner.adopt_xla(donor.export_xla()) == 1
-    out = gram.load_library(store=joiner, build_dir=tmp_path / "empty")
+    out = gram.LIBRARY.open(store=joiner, build_dir=tmp_path / "empty")
     assert out[0] == "lib" and calls == []
-    assert gram.LOADED["origin"] == "store"
-    assert gram.LOADED["sha256"] == donor.export_xla()[0][2]
+    assert gram.LIBRARY.loaded["origin"] == "store"
+    assert gram.LIBRARY.loaded["sha256"] == donor.export_xla()[0][2]
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_count_launch_counts_captured_under_capture(capturing, monkeypatch):
+    """A launch under CUDA graph capture counts in ``captured`` (a replay
+    adds it to ``launches``), any other in ``launches``."""
+    import torch
+
+    def kernel():
+        pass
+
+    kernel.launches = kernel.captured = 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    library.count_launch(kernel)
+    assert (kernel.launches, kernel.captured) == ((0, 1) if capturing
+                                                  else (1, 0))
+
+
+def test_a_replay_counts_the_ops_packages_kernels(monkeypatch):
+    """The fused loop's replay adds what its capture recorded to the
+    kernel wrappers the ops package counts (``library.COUNTED``), in
+    that order."""
+    from pint_tpu_torch.fitting import device_loop
+
+    kernels = (gram.ds32_gram, gram.ds32_gram_batched, block_elim.block_elim,
+               stage1.stage1_fused)
+    assert library.counted() == kernels
+    for fn in kernels:
+        monkeypatch.setattr(fn, "launches", 0)
+
+    class Graph:
+        def replay(self):
+            pass
+
+    cap = object.__new__(device_loop._Captured)
+    cap.cuda, cap.graphs, cap.recorded = True, {"full": Graph()}, {
+        "full": [1, 2, 3, 4]}
+    cap.replay("full")
+    cap.replay("full")
+    assert [fn.launches for fn in kernels] == [2, 4, 6, 8]
 
 
 # ----------------------------------------------------------------------
@@ -492,6 +536,43 @@ def test_ship_without_store_degrades_softly():
     store_mod._reset_for_tests()
 
 
+def test_adopt_shipment_loads_every_library_it_brought(tmp_path,
+                                                      monkeypatch):
+    """A shipment of all three kernel libraries, on a card (stubbed):
+    the joiner installs each, loads each from its store with no nvcc
+    run, and reports each load's record by source stem."""
+    import torch
+
+    from pint_tpu_torch.programs.ship import adopt_shipment
+
+    calls = _stub_compiler(monkeypatch, b"unused")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    donor = ProgramStore(str(tmp_path / "donor"))
+    for lib in LIBRARIES.values():
+        monkeypatch.setattr(lib, "bind", lambda path: ("lib", path))
+        monkeypatch.setattr(lib, "loaded", {})
+        monkeypatch.setattr(lib, "_lib", None)
+        f = tmp_path / lib.path().name
+        f.write_bytes(open(_a_library(), "rb").read())
+        store_mod.write_sidecar(f, facts=library.library_facts())
+        donor.put_kernel(f)
+    shipment = {"kernels": donor.export_xla(), "keys": []}
+    monkeypatch.setattr(store_mod, "_STORE",
+                        ProgramStore(str(tmp_path / "joiner")))
+    monkeypatch.setattr(library, "BUILD_DIR", tmp_path / "empty")
+    out = adopt_shipment(shipment)
+    assert out["kernels"] == 3 and calls == []
+    digest = shipment["kernels"][0][2]
+    assert out["loaded"] == {
+        lib.source.stem: {"path": str(Path(store_mod._STORE.kernel_dir)
+                                      / lib.path().name),
+                          "sha256": digest, "origin": "store"}
+        for lib in LIBRARIES.values()}
+    assert all(lib._lib == ("lib", Path(out["loaded"][lib.source.stem]
+                                        ["path"]))
+               for lib in LIBRARIES.values())
+
+
 def test_script_init_latches_the_store(tmp_path, monkeypatch):
     from pint_tpu_torch.scripts import script_init
 
@@ -500,12 +581,12 @@ def test_script_init_latches_the_store(tmp_path, monkeypatch):
     monkeypatch.setenv("PINT_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("PINT_TORCH_PROGRAM_CACHE_DIR", str(tmp_path / "s"))
     monkeypatch.setattr(store_mod, "_STORE", store_mod._UNSET)
-    monkeypatch.setattr(gram, "BUILD_DIR", gram.BUILD_DIR)
+    monkeypatch.setattr(library, "BUILD_DIR", library.BUILD_DIR)
     assert str(script_init("WARNING")) == "cpu"
     assert store_mod._STORE is not store_mod._UNSET
     assert os.path.isdir(tmp_path / "s" / "kernels")
     # the tools build into the host's and card's directory, as workers do
-    assert gram.BUILD_DIR == REPO / "build" / host_cache_tag()
+    assert library.BUILD_DIR == REPO / "build" / host_cache_tag()
     monkeypatch.setattr(store_mod, "_STORE", store_mod._UNSET)
 
 
@@ -515,9 +596,9 @@ def test_enable_persistent_cache_points_the_build_dir(tmp_path,
     from pint_tpu_torch.compile_cache import (enable_persistent_cache,
                                               host_cache_tag)
 
-    monkeypatch.setattr(gram, "BUILD_DIR", gram.BUILD_DIR)
+    monkeypatch.setattr(library, "BUILD_DIR", library.BUILD_DIR)
     assert enable_persistent_cache(tmp_path)
-    assert gram.BUILD_DIR == tmp_path / "build" / host_cache_tag()
+    assert library.BUILD_DIR == tmp_path / "build" / host_cache_tag()
     # without a card the tag is the reference's (CPU model and flags)
     assert host_cache_tag() == jtag()
     assert config.knob("PINT_TORCH_PROGRAM_CACHE_DIR").default is None
@@ -622,7 +703,7 @@ def test_adopt_xla_refuses_a_library_built_for_another_card(tmp_path):
     this card's record are installed."""
     data = open(_a_library(), "rb").read()
     digest = hashlib.sha256(data).hexdigest()
-    local = gram.library_facts()
+    local = library.library_facts()
     st = ProgramStore(str(tmp_path))
     before = telemetry.counters_snapshot()
     assert st.adopt_xla([
@@ -641,21 +722,28 @@ def test_adopt_xla_refuses_a_library_built_for_another_card(tmp_path):
 def test_report_programs_reads_the_build_counters(tmp_path, monkeypatch):
     """``report()["programs"]`` is the store's stats with the kernel
     build counters (``programs.kernel.*``, counted once, in telemetry)
-    and the loaded library's record."""
+    and each loaded library's record, by source stem."""
     from pint_tpu_torch.serve.scheduler import _program_store_stats
 
     calls = _stub_compiler(monkeypatch, open(_a_library(), "rb").read())
-    monkeypatch.setattr(gram, "_load", lambda path: ("lib", path))
-    monkeypatch.setattr(gram, "LOADED", {})
+    for lib in LIBRARIES.values():
+        monkeypatch.setattr(lib, "bind", lambda path: ("lib", path))
+        monkeypatch.setattr(lib, "loaded", {})
     st = ProgramStore(str(tmp_path / "store"))
     monkeypatch.setattr(store_mod, "_STORE", st)
-    gram.load_library(build_dir=tmp_path / "b")
-    gram.load_library(build_dir=tmp_path / "b")
+    gram.LIBRARY.open(build_dir=tmp_path / "b")
+    gram.LIBRARY.open(build_dir=tmp_path / "b")
     stats = _program_store_stats()
     assert len(calls) == 1
     assert stats["kernel_builds"] == {"store": 1, "build_dir": 0,
                                       "nvcc": 1, "corrupt": 0}
     assert stats["kernel_hit"] == 1 and stats["kernel_put"] == 1
-    assert stats["kernel_loaded"]["origin"] == "store"
-    assert stats["kernels"] == [gram.library_path().name]
+    assert list(stats["kernel_loaded"]) == ["ds32_gram"]
+    assert stats["kernel_loaded"]["ds32_gram"]["origin"] == "store"
+    assert stats["kernels"] == [gram.LIBRARY.path().name]
+    stage1.LIBRARY.open(build_dir=tmp_path / "b")
+    stats = _program_store_stats()
+    assert len(calls) == 2 and calls[1] == (stage1.SOURCE, ("-fmad=false",))
+    assert {k: v["origin"] for k, v in stats["kernel_loaded"].items()} == {
+        "ds32_gram": "store", "stage1": "nvcc"}
     monkeypatch.setattr(store_mod, "_STORE", store_mod._UNSET)

@@ -155,9 +155,11 @@ def kernel_name(text: str) -> str:
     return re.search(r"ds32_gram_(partials_[a-z]+|reduce)", text).group(1)
 
 
-def compile_source(gram, source: pathlib.Path, lib: pathlib.Path) -> str:
-    """nvcc with the wrapper's flags; returns ptxas's report."""
-    proc = subprocess.run([nvcc(), *gram.NVCC_FLAGS, "-o", str(lib), str(source)],
+def compile_source(source: pathlib.Path, lib: pathlib.Path) -> str:
+    """nvcc with the library's flags; returns ptxas's report."""
+    from pint_tpu_torch.ops.library import NVCC_FLAGS
+
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib), str(source)],
                           capture_output=True, text=True, check=True, timeout=600)
     return proc.stdout + proc.stderr
 
@@ -166,7 +168,7 @@ def build_report(gram, lib: pathlib.Path) -> None:
     """Compile the source afresh into `lib`, print ptxas's report and what
     the loaded library's kernels run with."""
     name = None
-    for line in compile_source(gram, gram.SOURCE, lib).splitlines():
+    for line in compile_source(gram.SOURCE, lib).splitlines():
         if "Compiling entry function" in line:
             name = kernel_name(line)
         elif "spill" in line:
@@ -270,8 +272,8 @@ def limits(gram, lib: pathlib.Path, tmp: pathlib.Path) -> None:
         cu = tmp / f"diag{len(builds)}.cu"
         cu.write_text(source.replace(old, new))
         builds[label] = tmp / f"libdiag{len(builds)}.so"
-        compile_source(gram, cu, builds[label])
-    calls = {label: launcher(gram, gram._load(path))
+        compile_source(cu, builds[label])
+    calls = {label: launcher(gram, gram.LIBRARY.bind(path))
              for label, path in builds.items()}
     g = torch.Generator(device="cuda").manual_seed(0)
     for shape, batch, n, q in LIMIT_SHAPES:
